@@ -8,3 +8,9 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 # repo root, so tests can import shared fixtures from benchmarks/
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips when torch sees none"
+    )
