@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
 Run from the repository root (it puts ``src`` on ``sys.path`` itself). It
 needs one NVIDIA GPU, ``nvcc`` and Triton; it builds every kernel from the
 sources in the checkout and imports no JAX. Phases, each printing one JSON
-line, and any failure ends the run with a non-zero exit:
+line with its own seconds, and any failure ends the run with a non-zero
+exit:
 
-1. build   compile ``csrc/paged_attention.cu`` (nvcc, sm_90a) and the
-           Triton RMSNorm kernel, concurrently;
+1. build   compile ``csrc/paged_attention.cu`` and ``csrc/flash_attention.cu``
+           (one nvcc each, sm_90a) and the Triton RMSNorm kernels (forward
+           and backward), concurrently;
 2. kernels each kernel against its plain PyTorch version on the card, over
-           the JAX package's case tables and the serving path's shapes
-           (f32 within 1e-4: the page loop sums in another order than the
-           gather; bf16 within 2e-2). TF32 is off for every matmul;
+           the JAX package's case tables and the serving and training
+           paths' shapes: paged attention and RMSNorm forward f32 within
+           1e-4 (the page loop sums in another order than the gather),
+           bf16 within 2e-2; flash attention forward and backward (dq, dk,
+           dv against the plain version's autograd) and the RMSNorm
+           backward within 1e-4 (f32) and 2e-2 (bf16) of the largest
+           |value| (at least of 1); two flash backward calls must give
+           bitwise-equal gradients. TF32 is off for every matmul;
 3. parity  tinyllama-1.1b at full width in fp32 with seeded weights: one
            64-token ``prefill_chunk`` (logits at every position) and
            DECODE_STEPS ``decode_step``s on the card (kernels) and on the
@@ -28,15 +36,29 @@ line, and any failure ends the run with a non-zero exit:
            before and read after: paged decode 22 per decode step, paged
            prefill 22 per chunk, RMSNorm 45 per forward. Then the same
            trace again, flushing every tick, for time to first token;
-5. timing  each kernel, its plain version and one PyTorch library call at
-           the serving path's shapes, beside the bound: ``ms`` back to back
-           with CUDA events (what an eager caller pays, host dispatch
-           included), ``device_ms`` replayed from a CUDA graph (the card's
-           own time).
+5. train-parity  tinyllama-1.1b at full width in fp32, phase 3's weights:
+           the loss and gradients of one batch (B=1, S=256, remat full) on
+           the card (kernels), on the CPU (plain versions) and on the card
+           with the plain versions (the kernels' own share), each against a
+           float64 CPU run of the same weights: the card's loss within
+           TRAIN_TOL and its gradients' RMS error (together and per leaf)
+           within EXACT_RATIO times the CPU fp32 run's;
+6. train   tinyllama-1.1b at full width in bf16 through ``TrainLoop``
+           (B=4, S=2048, accum 1, remat full, 10 steps, monitor backend):
+           every loss finite, launch counters zeroed before and read after
+           and exact (derived in ``phase_train``), the run record written to
+           ``results/talp_train/`` with POP factors that pass
+           ``validate_pop``; median step time, tokens/s, MFU, peak memory
+           and the record's dispatch efficiency;
+7. timing  each kernel, its plain version and one PyTorch library call at
+           the serving and training paths' shapes, beside the bound: ``ms``
+           back to back with CUDA events (what an eager caller pays, host
+           dispatch included), ``device_ms`` replayed from a CUDA graph (the
+           card's own time).
 
-``python3 chip_smoke.py --profile`` adds a phase between 4 and 5: the
-serve trace under ``torch.profiler``, for the device's busy share and the
-kernel-time breakdown.
+``python3 chip_smoke.py --profile`` adds ``torch.profiler`` over the serve
+trace (after phase 4) and over two training steps (after phase 6), for
+the device's busy share and the kernel-time breakdown.
 
 It then prints the ``kernels`` line, the card's name and power limit
 (``nvidia-smi``) and, last, ``{"ok": true, "device": {...}}``. Details go
@@ -71,6 +93,15 @@ LOGIT_TOL = 2e-2
 KERNEL_LOGIT_TOL = 1e-2
 EXACT_RATIO = 2.0
 DECODE_STEPS = 8
+# Phase 5 gates one full-width fp32 batch's loss within TRAIN_TOL of a
+# float64 CPU run of the same weights, and its gradients' RMS error against
+# that run (all leaves together, and each leaf) within EXACT_RATIO times
+# the CPU fp32 run's. On an H100 any two fp32 runs of this model at init
+# disagree by 4-6% of a leaf's largest gradient (card kernels, card plain
+# versions and CPU alike: PERF.md), so only the float64 witness can tell
+# the kernels' error from fp32 rounding.
+TRAIN_TOL = 1e-4
+TRAIN_STEPS = 10
 ARCH = "tinyllama-1.1b"
 DEV = "cuda"
 RESULT: dict = {}
@@ -82,7 +113,14 @@ def _config():
     return get_config(ARCH)
 
 
+_T_PHASE = [time.perf_counter()]
+
+
 def emit(phase: str, **fields) -> None:
+    """Print the phase's JSON line with its seconds since the last emit."""
+    now = time.perf_counter()
+    fields = {"seconds": round(now - _T_PHASE[0], 3), **fields}
+    _T_PHASE[0] = now
     RESULT[phase] = fields
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -135,33 +173,43 @@ def graph_ms(fn, iters: int = 100) -> float:
 # ---------------------------------------------------------------------------
 
 
+CUDA_SOURCES = ("paged_attention", "flash_attention")
+SERVE_KERNELS = ("paged_attention", "paged_prefill_attention", "rmsnorm")
+TRAIN_KERNELS = ("flash_attention", "flash_attention_backward", "rmsnorm",
+                 "rmsnorm_backward")
+
+
 def phase_build():
     import torch
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.paged_attention import ops as PA
     from repro_torch.kernels.rmsnorm import ops as RMS
     from repro_torch.kernels.rmsnorm import kernel as RK
 
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
-        cu = pool.submit(build.compile_library, "paged_attention")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(CUDA_SOURCES) + 1) as pool:
+        libs = {n: pool.submit(build.compile_library, n) for n in CUDA_SOURCES}
         tr = pool.submit(RK.compile_kernel)
-        lib_path = cu.result()
+        paths = {n: f.result() for n, f in libs.items()}
         tr.result()
     PA.load()
-    # the first launch compiles the Triton kernel for these constants
-    x = torch.ones((1, 2048), dtype=torch.bfloat16, device=DEV)
-    RMS.rmsnorm(x, torch.ones(2048, dtype=torch.bfloat16, device=DEV))
+    FA.load()
+    # the first launches compile the Triton kernels (forward, backward) for
+    # these constants
+    x = torch.ones((1, 2048), dtype=torch.bfloat16, device=DEV, requires_grad=True)
+    s = torch.ones(2048, dtype=torch.bfloat16, device=DEV, requires_grad=True)
+    RMS.rmsnorm(x, s).backward(torch.ones_like(x))
     torch.cuda.synchronize()
-    log = lib_path.with_name(lib_path.name + ".log").read_text() \
-        if lib_path.with_name(lib_path.name + ".log").exists() else ""
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {}
+    for name, path in paths.items():
+        log = path.with_name(path.name + ".log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        ptxas[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
     from repro_torch.device import features
 
-    emit("build", seconds=round(time.perf_counter() - t0, 3), features=features(),
-         library=str(lib_path.relative_to(ROOT)), ptxas=ptxas)
+    emit("build", features=features(),
+         libraries={n: str(p.relative_to(ROOT)) for n, p in paths.items()}, ptxas=ptxas)
 
 
 # ---------------------------------------------------------------------------
@@ -237,10 +285,91 @@ def phase_kernels():
                     raise AssertionError(f"rmsnorm {dn} {(rows, d, zc)}: err {e}")
                 if (rows, d) == cases.MAIN_RMS[0] and not zc and dtype is torch.bfloat16:
                     main_err["rmsnorm"] = e
+    deterministic = _check_training_kernels(checks, main_err)
     emit("kernels", tf32=False, tolerance={"float32": 1e-4, "bfloat16": 2e-2},
+         training_tolerance="of the largest |value|, at least of 1",
          max_abs_err={k: max(c[2] for c in v) for k, v in checks.items()},
-         main_shape_bf16_err=main_err, cases=checks)
+         main_shape_bf16_err=main_err, flash_backward_bitwise_repeatable=deterministic,
+         cases=checks)
     return main_err
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    return _err(got, want) / max(1.0, float(want.float().abs().max()))
+
+
+def _check_training_kernels(checks: dict, main_err: dict) -> bool:
+    """Flash attention forward and backward and the RMSNorm backward against
+    their plain versions (the backward: the plain version's autograd), over
+    the JAX case tables, the position / kv_len cases and the training
+    shapes. Errors are relative to the largest |value| (at least 1)."""
+    import torch
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_backward_reference,
+        flash_attention_reference,
+    )
+    from repro_torch.kernels.rmsnorm import ops as RMS
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_reference
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    for k in ("flash_attention", "flash_attention_backward", "rmsnorm_backward"):
+        checks[k] = []
+    flash_cases = ([c + (0, None) for c in cases.FLASH_CASES] + cases.FLASH_KVLEN_CASES
+                   + [cases.MAIN_FLASH + (0, None)])
+    deterministic = True
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for case in flash_cases:
+            B, Sq, Sk, Hq, Hkv, D, causal, win, cap, off, kvl = case
+            c = cases.flash_case(B, Sq, Sk, Hq, Hkv, D, seed=14, q_offset=off, kv_len=kvl)
+            q, k, v, dout = (torch.from_numpy(c[n]).to(DEV, dtype)
+                             for n in ("q", "k", "v", "dout"))
+            kw = dict(q_positions=torch.from_numpy(c["q_positions"]).to(DEV),
+                      k_positions=torch.from_numpy(c["k_positions"]).to(DEV),
+                      kv_len=None if kvl is None else torch.from_numpy(c["kv_len"]).to(DEV),
+                      causal=causal, window=win, softcap=cap)
+            grads = []
+            for _ in range(2):
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                out = FA.flash_attention(*leaves, **kw)
+                out.backward(dout)
+                grads.append([t.grad for t in leaves])
+            torch.cuda.synchronize()
+            deterministic &= all(torch.equal(a, b) for a, b in zip(*grads))
+            e_fwd = _rel_err(out.detach(), flash_attention_reference(q, k, v, **kw))
+            e_bwd = max(_rel_err(g, w) for g, w in zip(
+                grads[0], flash_attention_backward_reference(q, k, v, dout, **kw)))
+            checks["flash_attention"].append([dn, list(case[:9]), e_fwd])
+            checks["flash_attention_backward"].append([dn, list(case[:9]), e_bwd])
+            if max(e_fwd, e_bwd) > tol[dtype]:
+                raise AssertionError(f"flash attention {dn} {case}: forward {e_fwd}, "
+                                     f"backward {e_bwd} > {tol[dtype]}")
+            if case[:9] == cases.MAIN_FLASH and dtype is torch.bfloat16:
+                main_err["flash_attention"] = e_fwd
+                main_err["flash_attention_backward"] = e_bwd
+            del grads, out
+            torch.cuda.empty_cache()
+        for rows, d in cases.RMS_CASES + cases.MAIN_RMS + [cases.MAIN_RMS_TRAIN]:
+            for zc in (False, True):
+                c = cases.rms_case(rows, d, seed=15)
+                x, sc, dy = (torch.from_numpy(c[n]).to(DEV, dtype) for n in ("x", "scale", "dy"))
+                xl, sl = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
+                RMS.rmsnorm(xl, sl, 1e-6, zc).backward(dy)
+                torch.cuda.synchronize()
+                dx, ds = rmsnorm_backward_reference(x, sc, dy, 1e-6, zc)
+                e = max(_rel_err(xl.grad, dx), _rel_err(sl.grad, ds))
+                checks["rmsnorm_backward"].append([dn, [rows, d, zc], e])
+                if e > tol[dtype]:
+                    raise AssertionError(f"rmsnorm backward {dn} {(rows, d, zc)}: err {e}")
+                if (rows, d) == cases.MAIN_RMS_TRAIN and not zc and dtype is torch.bfloat16:
+                    main_err["rmsnorm_backward"] = e
+    if not deterministic:
+        raise AssertionError("flash attention backward: two calls gave different gradients")
+    return deterministic
 
 
 # ---------------------------------------------------------------------------
@@ -432,43 +561,21 @@ def _serve_trace(cfg):
 def phase_profile(model):
     """The serve trace once more under ``torch.profiler``: device busy time
     (sum of kernel self time) over wall time, and where it goes."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg = model.cfg
     prompts, max_new = _serve_trace(cfg)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sched, wall, _, n_tok = _serve_once(model, cfg, prompts, max_new, False)
-    # device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched, which are listed on their own
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events = _device_events(prof)
     busy_us = sum(e.self_device_time_total for e in events)
-
-    def group(key: str) -> str:
-        k = key.lower()
-        if "paged_decode" in k or "paged_prefill" in k:
-            return "paged attention (K3/K4)"
-        if "rmsnorm" in k:
-            return "rmsnorm (K1)"
-        if any(t in k for t in ("gemm", "gemv", "cutlass", "sm90_", "nvjet", "cublas")):
-            return "matmul"
-        if "memcpy" in k or "memset" in k:
-            return "copies"
-        return "other elementwise/index"
-
-    groups: dict = {}
-    for e in events:
-        g = groups.setdefault(group(e.key), [0.0, 0])
-        g[0] += e.self_device_time_total / 1e3
-        g[1] += e.count
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     emit("profile", wall_s=wall, tokens_per_s=n_tok / wall,
          ticks=sched.stats["ticks"], device_busy_ms=busy_us / 1e3,
          device_busy_share=busy_us / 1e6 / wall,
          # the profiler slows the host; against phase 4's unprofiled wall
          device_busy_share_unprofiled=busy_us / 1e6 / RESULT["serve"]["wall_s"],
-         groups_ms_count={k: [round(v[0], 3), v[1]] for k, v in groups.items()},
+         groups_ms_count=_groups(events),
          top_kernels=[[e.key[:90], round(e.self_device_time_total / 1e3, 3), e.count]
                       for e in top])
 
@@ -501,9 +608,10 @@ def phase_serve(params_f32):
     st = sched.stats
     L = cfg.n_layers
     forwards = st["decode_steps"] + st["prefill_chunks"]
-    want = {"paged_attention": L * st["decode_steps"],
-            "paged_prefill_attention": L * st["prefill_chunks"],
-            "rmsnorm": (2 * L + 1) * forwards}
+    want = {k: 0 for k in counts}  # no training kernel in the serve
+    want.update({"paged_attention": L * st["decode_steps"],
+                 "paged_prefill_attention": L * st["prefill_chunks"],
+                 "rmsnorm": (2 * L + 1) * forwards})
     gens = [r["generated"] for r in sched.completed]
     _, wall_s, ttft_s, n_tok_s = _serve_once(model, cfg, prompts, max_new, True)
     kv = sched.kv_cache_stats()
@@ -526,13 +634,253 @@ def phase_serve(params_f32):
         raise AssertionError("serve: token id out of range")
     if bool(bad):
         raise AssertionError("serve: non-finite logits")
-    if counts != want or min(counts.values()) <= 0:
+    if counts != want or min(counts[k] for k in SERVE_KERNELS) <= 0:
         raise AssertionError(f"serve: launches {counts} != expected {want}")
     return model, counts
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timing beside the bound
+# phase 5: the training step at full width, card vs CPU
+# ---------------------------------------------------------------------------
+
+
+def _loss_and_grads(model, batch):
+    """Loss and every leaf's gradient of one microbatch, as the train step
+    computes them; gradients go to the CPU in float64."""
+    import torch
+
+    leaves = model.named_params()
+    loss, _ = model(batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), {k: g.detach().double().cpu() for k, g in zip(leaves, grads)}
+
+
+def _grad_errors(run, exact) -> dict:
+    """A run's distance from the float64 run: the loss's relative error,
+    the relative RMS error of all gradients together and of each leaf
+    (||g - g64|| / ||g64||), and each leaf's max |g - g64| over max |g64|."""
+    (loss, g), (loss64, g64) = run, exact
+    sq = {k: float((g[k] - g64[k]).pow(2).sum()) for k in g64}
+    ref = {k: float(g64[k].pow(2).sum()) for k in g64}
+    return {"loss_rel": abs(loss - loss64) / abs(loss64),
+            "rms_rel": (sum(sq.values()) / sum(ref.values())) ** 0.5,
+            "leaf_rms_rel": {k: (sq[k] / ref[k]) ** 0.5 for k in g64},
+            "leaf_max_rel": {k: float((g[k] - g64[k]).abs().max() / g64[k].abs().max())
+                             for k in g64}}
+
+
+def phase_train_parity(params_f32):
+    import torch
+
+    import repro_torch.layers.attention as LA
+    import repro_torch.layers.norms as LN
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+    from repro_torch.layers.common import tree_map
+    from repro_torch.models.transformer import Transformer
+
+    cfg = _config().replace(param_dtype_name="float32", compute_dtype_name="float32",
+                            remat="full")
+    batch = {k: v[0] for k, v in SyntheticLM(DataConfig(
+        global_batch=1, seq_len=256, vocab=cfg.vocab, pad_fraction=0.05,
+        seed=7)).batch_at(0).items()}
+    runs = {"cpu": _loss_and_grads(Transformer(cfg, params_f32, "cpu"), batch)}
+    # the same weights (fp32 values, exact in float64) in float64: the
+    # witness that says how far each fp32 run is from the exact gradients
+    cfg64 = cfg.replace(param_dtype_name="float64", compute_dtype_name="float64",
+                        remat="none")
+    exact = _loss_and_grads(
+        Transformer(cfg64, tree_map(lambda t: t.detach().double(), params_f32), "cpu"),
+        batch)
+    card = Transformer(cfg, params_f32, DEV)
+    runs["card"] = _loss_and_grads(card, batch)
+    # the same card run with the plain versions in place of the kernels
+    saved = LA.flash_attention, LN._rmsnorm_op
+    LA.flash_attention, LN._rmsnorm_op = flash_attention_reference, rmsnorm_reference
+    try:
+        runs["card_plain"] = _loss_and_grads(card, batch)
+    finally:
+        LA.flash_attention, LN._rmsnorm_op = saved
+    del card
+    torch.cuda.empty_cache()
+
+    errs = {k: _grad_errors(v, exact) for k, v in runs.items()}
+    ratio = errs["card"]["rms_rel"] / errs["cpu"]["rms_rel"]
+    leaf_ratio = max(errs["card"]["leaf_rms_rel"][k] / errs["cpu"]["leaf_rms_rel"][k]
+                     for k in exact[1])
+    finite = all(torch.isfinite(g).all() for g in runs["card"][1].values())
+    grad_norm = {k: float(sum(g.pow(2).sum() for g in v[1].values()) ** 0.5)
+                 for k, v in {**runs, "float64": exact}.items()}
+    emit("train_parity", arch=ARCH, dtype="float32", batch=1, seq_len=256, remat="full",
+         tolerance={"card_over_cpu_rms_vs_float64": EXACT_RATIO, "loss_rel": TRAIN_TOL},
+         loss={**{k: v[0] for k, v in runs.items()}, "float64": exact[0]},
+         grad_norm=grad_norm, vs_float64=errs,
+         card_over_cpu_rms_vs_float64=ratio, card_over_cpu_leaf_rms_max=leaf_ratio)
+    if not finite:
+        raise AssertionError("train parity: non-finite card gradients")
+    if errs["card"]["loss_rel"] > TRAIN_TOL:
+        raise AssertionError(f"train parity: card loss {runs['card'][0]} vs float64 "
+                             f"{exact[0]}: {errs['card']['loss_rel']} > {TRAIN_TOL}")
+    if max(ratio, leaf_ratio) > EXACT_RATIO:
+        raise AssertionError(f"train parity: card's gradient RMS error against float64 "
+                             f"{errs['card']['rms_rel']} (worst leaf ratio {leaf_ratio}) is "
+                             f"more than {EXACT_RATIO}x the CPU fp32 run's "
+                             f"({errs['cpu']['rms_rel']})")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train at full width through TrainLoop
+# ---------------------------------------------------------------------------
+
+
+def _train_expected_launches(cfg, steps: int, accum: int) -> dict:
+    """Per microbatch, L layers, remat full: the forward runs 2 RMSNorms and
+    one attention per layer plus the final norm (2L+1, L); the backward
+    recomputes every layer once (2L RMSNorms and L attentions more: the
+    final norm sits outside the checkpointed layers) and then launches one
+    flash backward per layer and one RMSNorm backward per norm (L, 2L+1)."""
+    L = cfg.n_layers
+    assert cfg.remat == "full"
+    per = {"flash_attention": 2 * L, "flash_attention_backward": L,
+           "rmsnorm": 4 * L + 1, "rmsnorm_backward": 2 * L + 1}
+    return {k: v * steps * accum for k, v in per.items()}
+
+
+def phase_train(profile: bool):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.factors import validate_pop
+    from repro_torch.core.records import RunRecord
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.flops import train_step_model_flops
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.train import TrainConfig
+
+    cfg = _config()  # bf16 params and compute, remat full
+    B, S, A = 4, 2048, 1
+    data = SyntheticLM(DataConfig(global_batch=B, seq_len=S, vocab=cfg.vocab,
+                                  accum_steps=A, pad_fraction=0.05))
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(cfg, TrainConfig(total_steps=TRAIN_STEPS), data,
+                     LoopConfig(steps=TRAIN_STEPS, lb_sample_every=1, monitor_app_name=ARCH,
+                                monitor_backend="monitor"), device=DEV)
+    if loop.session.backend != "monitor":
+        raise AssertionError(f"train: session backend {loop.session.backend!r}; unset "
+                             f"TALP_ENABLE or set TALP_BACKEND=monitor")
+    reset_launch_counts()
+    loop.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want.update(_train_expected_launches(cfg, TRAIN_STEPS, A))
+    record = loop.finalize_run(os.path.join(ROOT, "results", "talp_train"))
+    path = loop.session.last_record_path
+    loaded = RunRecord.load(path)
+    pop_errors = {n: validate_pop(r.pop) for n, r in loaded.regions.items()}
+    hist = loop.metrics_history
+    losses = [h["loss"] for h in hist]
+    secs = [h["seconds"] for h in hist]
+    median = float(np.median(secs[1:]))
+    model_flops = train_step_model_flops(cfg, (A, B, S))
+    ts = record.regions["train_step"]
+    emit("train", arch=ARCH, dtype="bfloat16", batch=B, seq_len=S, accum=A, remat=cfg.remat,
+         steps=TRAIN_STEPS, losses=losses, step_seconds=secs,
+         step0_seconds=secs[0], median_step_seconds=median,
+         tokens_per_s=A * B * S / median,
+         real_tokens_per_step=float(sum(int((data.batch_at(i)["labels"] >= 0).sum())
+                                        for i in range(TRAIN_STEPS)) / TRAIN_STEPS),
+         model_flops_per_step=model_flops, mfu=model_flops / median / PEAK_FLOPS["bfloat16"],
+         counted_flops_per_step=ts.counters.useful_flops / max(ts.measurements.num_steps, 1),
+         peak_mem_bytes=peak, launches=counts, expected_launches=want,
+         record=os.path.relpath(path, ROOT), regions=sorted(loaded.regions),
+         num_steps=ts.measurements.num_steps,
+         dispatch_efficiency=ts.pop.get("dispatch_efficiency"),
+         pop_train_step={k: ts.pop[k] for k in sorted(ts.pop)}, pop_errors=pop_errors,
+         top_computations=[[c.name, c.kind, c.flops, c.hbm_bytes]
+                           for c in ts.top_computations(8, by="flops")])
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite loss in {losses}")
+    if counts != want or min(counts[k] for k in TRAIN_KERNELS) <= 0:
+        raise AssertionError(f"train: launches {counts} != expected {want}")
+    if any(pop_errors.values()) or ts.measurements.num_steps != TRAIN_STEPS:
+        raise AssertionError(f"train: record {path}: POP identities {pop_errors}, "
+                             f"{ts.measurements.num_steps} steps")
+    if profile:
+        phase_profile_train(cfg, loop.final_state, data)
+    del loop, record
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _kernel_group(key: str) -> str:
+    k = key.lower()
+    if "flash_fwd" in k:
+        return "flash attention forward (K2)"
+    if "flash_bwd" in k:
+        return "flash attention backward (K2)"
+    if "paged_decode" in k or "paged_prefill" in k:
+        return "paged attention (K3/K4)"
+    if "rmsnorm_bwd" in k or "column_sums" in k:
+        return "rmsnorm backward (K1)"
+    if "rmsnorm" in k:
+        return "rmsnorm (K1)"
+    if any(t in k for t in ("gemm", "gemv", "cutlass", "sm90_", "nvjet", "cublas")):
+        return "matmul"
+    if "memcpy" in k or "memset" in k:
+        return "copies"
+    return "other elementwise/index"
+
+
+def _device_events(prof):
+    """Device-side events only: a CPU op's self device time repeats the
+    time of the kernels it launched, which are listed on their own."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def _groups(events) -> dict:
+    groups: dict = {}
+    for e in events:
+        g = groups.setdefault(_kernel_group(e.key), [0.0, 0])
+        g[0] += e.self_device_time_total / 1e3
+        g[1] += e.count
+    return {k: [round(v[0], 3), v[1]] for k, v in groups.items()}
+
+
+def phase_profile_train(cfg, state, data):
+    """Two training steps under ``torch.profiler`` (after one unprofiled):
+    device busy time over wall time, and where it goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.train import TrainConfig, make_train_step
+
+    step_fn = make_train_step(cfg, TrainConfig(total_steps=TRAIN_STEPS))
+    state, m = step_fn(state, data.batch_at(0))
+    float(m["loss"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in (1, 2):
+            state, m = step_fn(state, data.batch_at(i))
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    events = _device_events(prof)
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    emit("profile_train", steps=2, wall_s=wall, device_busy_ms=busy_us / 1e3,
+         device_busy_share=busy_us / 1e6 / wall, groups_ms_count=_groups(events),
+         top_kernels=[[e.key[:90], round(e.self_device_time_total / 1e3, 3), e.count]
+                      for e in top])
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timing beside the bound
 # ---------------------------------------------------------------------------
 
 
@@ -643,10 +991,118 @@ def phase_timing(main_err, counts):
     rows.append(dict(name="rmsnorm", route="triton",
                      source="src/repro_torch/kernels/rmsnorm/kernel.py",
                      replaces="src/repro/kernels/rmsnorm/kernel.py:22",
-                     **extra[r0], prefill_shape=extra[cases.MAIN_RMS[1][0]]))
+                     **extra[r0], prefill_shape=extra[cases.MAIN_RMS[1][0]],
+                     train_shape=_rms_train_timing()))
+    rows += _training_timing()
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["launches"] = counts["train"].get(row["name"], 0) or counts["serve"][row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in counts.items()}
         row["max_abs_err"] = main_err[row["name"]]
+    return rows
+
+
+def _rms_train_timing() -> dict:
+    """The RMSNorm forward at the training shape (B*S rows of 2048)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.rmsnorm import ops as RMS
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+
+    r, d = cases.MAIN_RMS_TRAIN
+    c = cases.rms_case(r, d, seed=45)
+    x = torch.from_numpy(c["x"]).to(DEV, torch.bfloat16)
+    s = torch.from_numpy(c["scale"]).to(DEV, torch.bfloat16)
+    nbytes = (2 * r * d + d) * 2
+    bound, by = _bound_ms(nbytes, 4 * r * d, "bfloat16")
+    return dict(shape=f"rows={r} d={d} bf16", ms=cuda_ms(lambda: RMS.rmsnorm(x, s)),
+                device_ms=graph_ms(lambda: RMS.rmsnorm(x, s)),
+                plain_ms=cuda_ms(lambda: rmsnorm_reference(x, s), iters=50),
+                library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), s, 1e-6)),
+                library="F.rms_norm", bound_ms=bound, bound_by=by, bytes=nbytes,
+                flops=4 * r * d)
+
+
+def _training_timing() -> list:
+    """K2 forward and backward and the K1 backward at the training path's
+    shapes (B=4, S=2048, Hq=32, Hkv=4, D=64, causal; 8192 x 2048), bf16.
+    The library calls: SDPA (causal; k/v repeated to the q heads, prepared
+    outside the timing), its backward alone (autograd of one saved SDPA
+    output; its dk/dv are per q head, so the GQA sum is not in it), and
+    the autograd of ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_backward_reference,
+        flash_attention_reference,
+    )
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_reference
+
+    bf = torch.bfloat16
+    rows = []
+    B, S, _, Hq, Hkv, D, causal, _, _ = cases.MAIN_FLASH
+    c = cases.flash_case(B, S, S, Hq, Hkv, D, seed=44)
+    q, k, v, do = (torch.from_numpy(c[n]).to(DEV, bf) for n in ("q", "k", "v", "dout"))
+    pos = FA.positions_rows(None, B, S, DEV)
+    o, lse = FA.flash_forward(q, k, v, pos, pos, None, causal, None, None)
+    G = Hq // Hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for t in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    out_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16"
+    common = dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                  replaces="src/repro/kernels/flash_attention/kernel.py:35", shape=shape)
+    fwd = lambda: FA.flash_forward(q, k, v, pos, pos, None, causal, None, None)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    flops, nbytes = FA.launch_costs(q, k, causal, None, False)
+    bound, by = _bound_ms(nbytes, flops, "bfloat16")
+    rows.append(dict(name="flash_attention", **common,
+                     ms=cuda_ms(fwd, iters=20, warmup=3), device_ms=graph_ms(fwd, iters=10),
+                     plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v), 5, 1),
+                     library_ms=cuda_ms(sdpa, iters=20, warmup=3),
+                     library_device_ms=graph_ms(sdpa, iters=10),
+                     library="F.scaled_dot_product_attention(is_causal=True), k/v repeated",
+                     bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops))
+    bwd = lambda: FA.flash_backward(q, k, v, o, lse, do, pos, pos, None,  # noqa: E731
+                                    causal, None, None)
+    flops, nbytes = FA.launch_costs(q, k, causal, None, True)
+    bound, by = _bound_ms(nbytes, flops, "bfloat16")
+    rows.append(dict(name="flash_attention_backward", **common,
+                     note="the backward of K2: no Pallas counterpart",
+                     ms=cuda_ms(bwd, iters=10, warmup=2), device_ms=graph_ms(bwd, iters=5),
+                     plain_ms=cuda_ms(lambda: flash_attention_backward_reference(q, k, v, do),
+                                      3, 1),
+                     library_ms=cuda_ms(lambda: torch.autograd.grad(
+                         out_lib, leaves, dot, retain_graph=True), iters=10, warmup=2),
+                     library_device_ms=None,
+                     library="autograd of one saved F.scaled_dot_product_attention output",
+                     bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops))
+    del out_lib, leaves
+    r, d = cases.MAIN_RMS_TRAIN
+    rc = cases.rms_case(r, d, seed=46)
+    x, sc, dy = (torch.from_numpy(rc[n]).to(DEV, bf) for n in ("x", "scale", "dy"))
+    xl, sl = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
+    y_lib = F.rms_norm(xl, (d,), sl, 1e-6)
+    kb = lambda: RK.rmsnorm_backward_triton(x, sc, dy, 1e-6, False)  # noqa: E731
+    nbytes = 3 * r * d * 2 + 2 * d * 2  # x, dy read, dx written; scale, dscale
+    bound, by = _bound_ms(nbytes, 8 * r * d, "bfloat16")
+    rows.append(dict(name="rmsnorm_backward", route="triton",
+                     source="src/repro_torch/kernels/rmsnorm/kernel.py",
+                     replaces="src/repro/kernels/rmsnorm/kernel.py:22",
+                     note="the backward of K1: no Pallas counterpart",
+                     shape=f"rows={r} d={d} bf16", ms=cuda_ms(kb), device_ms=graph_ms(kb),
+                     plain_ms=cuda_ms(lambda: rmsnorm_backward_reference(x, sc, dy), iters=20),
+                     library_ms=cuda_ms(lambda: torch.autograd.grad(
+                         y_lib, (xl, sl), dy, retain_graph=True)),
+                     library_device_ms=None, library="autograd of F.rms_norm",
+                     bound_ms=bound, bound_by=by, bytes=nbytes, flops=8 * r * d))
     return rows
 
 
@@ -659,16 +1115,22 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    profile = "--profile" in sys.argv[1:]
     t_start = time.perf_counter()
+    _T_PHASE[0] = t_start
     phase_build()
     main_err = phase_kernels()
     params = phase_parity()
-    model, counts = phase_serve(params)
-    if "--profile" in sys.argv[1:]:
+    model, serve_counts = phase_serve(params)
+    if profile:
         phase_profile(model)
-    del model, params
+    del model
     torch.cuda.empty_cache()
-    rows = phase_timing(main_err, counts)
+    phase_train_parity(params)
+    del params
+    train_counts = phase_train(profile)
+    rows = phase_timing(main_err, {"serve": serve_counts, "train": train_counts})
+    emit("timing", rows=len(rows))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

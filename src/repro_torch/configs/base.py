@@ -95,8 +95,8 @@ class ModelConfig:
     param_dtype_name: str = "bfloat16"
     compute_dtype_name: str = "bfloat16"
 
-    # attention chunking knobs of the JAX flash path; the port's paged
-    # kernels stream pages and do not read them
+    # attention chunking knobs of the JAX flash path; the port's kernels
+    # tile by their own block sizes and do not read them
     q_chunk: int = 512
     kv_chunk: int = 1024
     causal_skip: bool = False
@@ -105,14 +105,16 @@ class ModelConfig:
     # "auto"; the field stays for config parity with the JAX package.
     paged_attn_impl: str = "auto"
 
-    # distribution (JAX-only knobs, carried as data)
+    # distribution (JAX-only knobs, carried as data), except remat: the
+    # training forward checkpoints every layer when "full" (the port has
+    # "none" and "full")
     sharding: str = "megatron"
     remat: str = "full"
     scan_layers: bool = True
 
     skips: tuple[tuple[str, str], ...] = ()
 
-    # training details (data for the training slice)
+    # training details
     z_loss: float = 1e-4
     moe_lb_coef: float = 0.01
     moe_z_coef: float = 1e-3
@@ -146,6 +148,16 @@ class ModelConfig:
         from repro_torch.models.transformer import model_params
 
         return count_params(model_params(self))
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of n_experts)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_ff if m.gated else 2 * self.d_model * m.d_ff
+        n_moe_layers = sum(1 for k in self.pattern if k == "moe") * self.repeats
+        return total - n_moe_layers * per_expert * (m.n_experts - m.top_k)
 
 
 def check_supported(cfg: ModelConfig) -> None:

@@ -1,5 +1,5 @@
-"""Carry weights across: the JAX parameter pytree, as numpy arrays, into the
-port's model.
+"""Carry weights (and a training state) across: the JAX parameter pytree,
+as numpy arrays, into the port's model.
 
 ``jax.random`` cannot be reproduced in PyTorch, so every parity check
 initializes in JAX, converts the leaves to numpy (``np.asarray``) on the
@@ -37,3 +37,21 @@ def from_jax_params(tree_of_numpy: dict, cfg, device=None) -> Transformer:
     """Build the port's ``Transformer`` on ``device`` from the JAX tree.
     Raises if the tree's paths or shapes differ from ``model_params(cfg)``."""
     return Transformer(cfg, params_from_numpy(tree_of_numpy), device)
+
+
+def from_jax_train_state(tree_of_numpy: dict, cfg, device=None):
+    """A port ``TrainState`` from the JAX ``TrainState.tree()`` as numpy:
+    ``{"params", "opt_state": {"step", "m", "v"[, "master"]}, "step"}``.
+    The optimizer trees are flattened to the port's ``{path: tensor}``
+    dicts on the model's device, so a port run resumes from a JAX one."""
+    from repro_torch.layers.common import tree_leaves
+    from repro_torch.train.train import TrainState
+
+    model = from_jax_params(tree_of_numpy["params"], cfg, device)
+    dev = model.device
+    opt = tree_of_numpy["opt_state"]
+    opt_state = {"step": int(np.asarray(opt["step"]))}
+    for key in ("m", "v", "master"):
+        if key in opt:
+            opt_state[key] = {p: _to_torch(a).to(dev) for p, a in tree_leaves(opt[key])}
+    return TrainState(model, opt_state, int(np.asarray(tree_of_numpy["step"])))

@@ -1,15 +1,37 @@
 """Seeded kernel test cases, as numpy, for both frameworks.
 
 The case tables are those of the JAX package's ``tests/test_kernels.py``
-(``PAGED_CASES``, ``PREFILL_CASES``, ``RMS_CASES``); the functions below
-make the inputs with numpy from a seed, so the JAX kernels and the port's
-kernels and plain versions see the same numbers. ``MAIN_*`` are the shapes the
-serving path gives the kernels at tinyllama-1.1b's full width.
+(``FLASH_CASES``, ``PAGED_CASES``, ``PREFILL_CASES``, ``RMS_CASES``), plus
+``FLASH_KVLEN_CASES`` for the position and ``kv_len`` masking of
+``layers.attention.flash_attention``; the functions below make the inputs
+with numpy from a seed, so the JAX functions and the port's kernels and
+plain versions see the same numbers. ``MAIN_*`` are the shapes the serving
+and training paths give the kernels at tinyllama-1.1b's full width.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+FLASH_CASES = [
+    # B, Sq, Sk, Hq, Hkv, D, causal, window, softcap
+    (2, 256, 256, 4, 2, 64, True, None, None),
+    (1, 128, 128, 4, 4, 64, False, None, None),
+    (1, 256, 256, 2, 1, 64, True, 64, None),      # sliding window
+    (2, 64, 64, 8, 2, 32, True, None, 30.0),      # softcap (gemma2)
+    (1, 200, 200, 2, 2, 48, True, None, None),    # non-multiple-of-block seq
+    (1, 96, 96, 2, 1, 100, False, 32, 50.0),      # padding in D + win + cap
+]
+
+FLASH_KVLEN_CASES = [
+    # B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset, kv_len
+    # a chunk at positions 64.. against 128 keys, one row's keys cut at 90
+    (2, 64, 128, 4, 2, 64, True, None, None, 64, (128, 90)),
+    # bidirectional, window and softcap, a short row
+    (2, 48, 48, 4, 4, 32, False, 16, 30.0, 0, (48, 20)),
+    # kv_len 0: every row of batch row 1 fully masked (output and grads 0)
+    (2, 40, 40, 2, 1, 100, True, None, None, 0, (40, 0)),
+]
 
 PAGED_CASES = [
     # B, Hq, Hkv, D, psize, nL, P, lens, window, softcap
@@ -36,6 +58,10 @@ RMS_CASES = [(4, 128), (3, 300), (1, 1024), (17, 96)]
 MAIN_PAGED = (4, 32, 4, 64, 16, 32, 128, (97, 160, 223, 288), None, None)
 MAIN_PREFILL = (1, 64, 32, 4, 64, 16, 32, 128, (192,), None, None)
 MAIN_RMS = [(4, 2048), (64, 2048)]
+# tinyllama-1.1b training step: B=4, S=2048, Hq=32, Hkv=4, D=64, causal;
+# RMSNorm over B*S = 8192 rows of 2048
+MAIN_FLASH = (4, 2048, 2048, 32, 4, 64, True, None, None)
+MAIN_RMS_TRAIN = (8192, 2048)
 
 
 def _table(rng, B, nL, P, psize, lens):
@@ -75,7 +101,22 @@ def prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=0) -> dict:
             "cache_len": lens, "q_positions": qpos}
 
 
+def flash_case(B, Sq, Sk, Hq, Hkv, D, seed=0, q_offset=0, kv_len=None) -> dict:
+    """q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) and a cotangent dout like q, fp32;
+    positions: queries at ``q_offset + i``, keys at ``j``; kv_len (B,) or
+    None."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return {"q": f(B, Sq, Hq, D), "k": f(B, Sk, Hkv, D), "v": f(B, Sk, Hkv, D),
+            "dout": f(B, Sq, Hq, D),
+            "q_positions": np.broadcast_to(q_offset + np.arange(Sq, dtype=np.int32),
+                                           (B, Sq)).copy(),
+            "k_positions": np.broadcast_to(np.arange(Sk, dtype=np.int32), (B, Sk)).copy(),
+            "kv_len": None if kv_len is None else np.asarray(kv_len, np.int32)}
+
+
 def rms_case(rows, d, seed=0) -> dict:
     rng = np.random.default_rng(seed)
     return {"x": rng.standard_normal((rows, d)).astype(np.float32),
-            "scale": rng.standard_normal(d).astype(np.float32)}
+            "scale": rng.standard_normal(d).astype(np.float32),
+            "dy": rng.standard_normal((rows, d)).astype(np.float32)}

@@ -1,8 +1,8 @@
 """Attention (``repro.layers.attention``): RoPE, the paged KV write, and the
-paged branch of the attention block.
+paged and cache-less branches of the attention block.
 
 Shapes follow (batch, seq, heads, head_dim) throughout, as in the JAX
-package. The dense-cache and cache-less branches wait for a later slice.
+package. The dense-cache branch waits for a later slice.
 
 Paged pool layout: ``(P + 1, page, Hkv, hd)`` per layer. Pages ``0..P-1``
 are the pool the allocator hands out; page ``P`` is a spare that receives
@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (
     paged_attention,
     paged_prefill_attention,
@@ -112,16 +113,19 @@ def attention_params(cfg) -> dict:
 def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
                     cache_len, block_tables, seq_mask=None, causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
-    """The paged branch of the JAX ``attention_block``: project, rotate,
-    write this step's K/V into the pool (in place), attend through the
-    block table. ``cache``: dict(k_pages=(P+1,page,Hkv,hd), v_pages=...);
-    ``positions`` (B,S) doubles as each row's write index. S == 1 is a
-    decode step (paged decode kernel), S > 1 a prefill chunk (paged
-    prefill kernel). Returns (B,S,d)."""
-    if cache is None or "k_pages" not in cache:
+    """The paged and cache-less branches of the JAX ``attention_block``.
+
+    ``cache`` None (training, full-sequence forward): project, rotate and
+    attend over the sequence itself through the flash-attention kernel,
+    at ``positions`` (B,S). ``cache`` dict(k_pages=(P+1,page,Hkv,hd),
+    v_pages=...): write this step's K/V into the pool (in place), attend
+    through the block table; ``positions`` doubles as each row's write
+    index. S == 1 is a decode step (paged decode kernel), S > 1 a prefill
+    chunk (paged prefill kernel). Returns (B,S,d)."""
+    if cache is not None and "k_pages" not in cache:
         raise NotImplementedError(
-            "only the paged-cache attention path is ported; the dense and "
-            "cache-less branches wait for a later slice"
+            "the dense-cache attention branch is not ported yet: use the "
+            "paged cache"
         )
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -132,6 +136,11 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
     if cfg.rope_theta:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
+
+    if cache is None:
+        o = flash_attention(q, k, v, q_positions=positions, k_positions=positions,
+                            causal=causal, window=window, softcap=cfg.attn_softcap)
+        return o.reshape(B, S, hq * hd) @ params["wo"].to(compute)
 
     k_pool, v_pool = cache["k_pages"], cache["v_pages"]
     paged_write(k_pool, k, positions, block_tables, seq_mask)

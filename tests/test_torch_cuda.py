@@ -6,9 +6,12 @@ imports no JAX, so it runs on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Cases are the JAX package's kernel case tables plus the serving path's
-shapes at tinyllama-1.1b's full width. Tolerances: f32 1e-4 (the page loop
-sums in another order than the gather), bf16 2e-2.
+Cases are the JAX package's kernel case tables plus the serving and
+training paths' shapes at tinyllama-1.1b's full width. Tolerances: paged
+attention and forwards f32 1e-4 (the kernels sum in another order than the
+plain versions), bf16 2e-2; the training kernels' outputs and gradients
+f32 1e-4 and bf16 2e-2 of the largest |value| (at least of 1): bf16 keeps
+~3 significant digits, so one rounding of a value near 16 is 0.06.
 """
 
 import numpy as np
@@ -23,7 +26,15 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_prefill_attention_reference,
 )
 from repro_torch.kernels.rmsnorm import ops as RMS  # noqa: E402
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FA  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_backward_reference,
+    flash_attention_reference,
+)
+from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
+    rmsnorm_backward_reference,
+    rmsnorm_reference,
+)
 
 DTYPES = ["float32", "bfloat16"]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -101,3 +112,115 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, zero_centered):
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == "float32" else 2e-2
     _close(_f32(out), _f32(rmsnorm_reference(x, s, zero_centered=zero_centered)), tol)
+
+
+# ---------------------------------------------------------------------------
+# training kernels: flash attention (K2) forward and backward, RMSNorm (K1)
+# backward
+# ---------------------------------------------------------------------------
+
+FLASH_ALL = [c + (0, None) for c in cases.FLASH_CASES] + cases.FLASH_KVLEN_CASES
+
+
+def _rel_close(got, want, dtype):
+    scale = max(1.0, float(np.abs(want).max()))
+    tol = (1e-4 if dtype == "float32" else 2e-2) * scale
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+def _flash_args(case, dtype, cuda, seed):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_off, kv_len = case
+    c = cases.flash_case(B, Sq, Sk, Hq, Hkv, D, seed=seed, q_offset=q_off, kv_len=kv_len)
+    td = TORCH_DT[dtype]
+    qkv = [_th(c[n], td, cuda) for n in ("q", "k", "v")]
+    kw = dict(q_positions=_th(c["q_positions"], None, cuda),
+              k_positions=_th(c["k_positions"], None, cuda),
+              kv_len=None if c["kv_len"] is None else _th(c["kv_len"], None, cuda),
+              causal=causal, window=window, softcap=softcap)
+    return qkv, _th(c["dout"], td, cuda), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_ALL, ids=[str(c[:6]) for c in FLASH_ALL])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    """Forward output, then dq, dk, dv against the plain version's autograd."""
+    (q, k, v), dout, kw = _flash_args(case, dtype, cuda, seed=10)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = FA.flash_attention(*leaves, **kw)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    _rel_close(_f32(out), _f32(flash_attention_reference(q, k, v, **kw)), dtype)
+    for got, want in zip(leaves, flash_attention_backward_reference(q, k, v, dout, **kw)):
+        _rel_close(_f32(got.grad), _f32(want), dtype)
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic(cuda):
+    """No atomics: two backward calls give bitwise-equal gradients."""
+    (q, k, v), dout, kw = _flash_args(cases.FLASH_CASES[0] + (0, None), "bfloat16", cuda, 11)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        FA.flash_attention(*leaves, **kw).backward(dout)
+        runs.append([t.grad for t in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", cases.RMS_CASES + cases.MAIN_RMS + [cases.MAIN_RMS_TRAIN])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("zero_centered", [False, True])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d, dtype, zero_centered):
+    c = cases.rms_case(rows, d, seed=12)
+    td = TORCH_DT[dtype]
+    x, s, dy = (_th(c[n], td, cuda) for n in ("x", "scale", "dy"))
+    xl, sl = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    RMS.rmsnorm(xl, sl, 1e-6, zero_centered).backward(dy)
+    torch.cuda.synchronize()
+    dx, ds = rmsnorm_backward_reference(x, s, dy, 1e-6, zero_centered)
+    _rel_close(_f32(xl.grad), _f32(dx), dtype)
+    _rel_close(_f32(sl.grad), _f32(ds), dtype)
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """The smoke tinyllama in fp32, loss and gradients of one microbatch on
+    the card (kernels) and on the CPU (plain versions), each against a
+    float64 CPU run of the same weights: the card's loss within 1e-5
+    relative, and its gradients' RMS error, all leaves together and each
+    leaf, within 2x the CPU fp32 run's. (Two fp32 runs of this model
+    disagree by up to ~4e-4 of a leaf's largest gradient: the JAX
+    initializer's scales make the attention near one-hot, so the float64
+    run, not the other fp32 run, is the reference.)"""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.layers.common import tree_map
+    from repro_torch.models.transformer import Transformer
+
+    cfg = smoke_config("tinyllama-1.1b").replace(
+        compute_dtype_name="float32", param_dtype_name="float32", remat="full")
+    cpu = Transformer.from_init(cfg, seed=0, device="cpu")
+    cfg64 = cfg.replace(compute_dtype_name="float64", param_dtype_name="float64")
+    exact = Transformer(cfg64, tree_map(lambda t: t.detach().double(), cpu.params()), "cpu")
+    batch = {k: v[0] for k, v in SyntheticLM(DataConfig(
+        global_batch=2, seq_len=64, vocab=cfg.vocab, pad_fraction=0.05)).batch_at(0).items()}
+    results = {}
+    for name, model in (("cpu", cpu), ("card", Transformer(cfg, cpu.params(), cuda)),
+                        ("exact", exact)):
+        loss, _ = model(batch)
+        grads = torch.autograd.grad(loss, list(model.named_params().values()))
+        results[name] = (float(loss.detach()), [g.detach().double().cpu() for g in grads])
+    loss64, g64 = results["exact"]
+    assert results["card"][0] == pytest.approx(loss64, rel=1e-5)
+
+    def rms_err(gs):
+        per = [float((g - e).norm() / e.norm()) for g, e in zip(gs, g64)]
+        total = float(sum((g - e).pow(2).sum() for g, e in zip(gs, g64)) ** 0.5
+                      / sum(e.pow(2).sum() for e in g64) ** 0.5)
+        return total, per
+
+    card, cpu_err = rms_err(results["card"][1]), rms_err(results["cpu"][1])
+    assert card[0] <= 2 * cpu_err[0] + 1e-7
+    for c, p in zip(card[1], cpu_err[1]):
+        assert c <= 2 * p + 1e-7
