@@ -10,9 +10,14 @@ sources in the checkout and imports no JAX. Phases, each printing one JSON
 line with its own seconds, and any failure ends the run with a non-zero
 exit:
 
-1. build   compile ``csrc/paged_attention.cu`` and ``csrc/flash_attention.cu``
-           (one nvcc each, sm_90a) and the Triton RMSNorm kernels (forward
-           and backward), concurrently;
+1. build   compile ``csrc/paged_attention.cu``, ``csrc/flash_attention.cu``
+           (K2's fp32 route) and ``csrc/flash_attention_tc.cu`` (K2's bf16
+           tensor-core route), one nvcc each, sm_90a, and the Triton RMSNorm
+           kernels (forward and backward), concurrently; report each
+           tensor-core kernel's registers, spills and shared memory (ptxas
+           log) and check with ``cuobjdump -sass``, where the toolkit has
+           it, that the bf16 K2 forward holds HGMMA and its backward kernels
+           HGMMA or HMMA (a kernel with neither fails the phase);
 2. kernels each kernel against its plain PyTorch version on the card, over
            the JAX package's case tables and the serving and training
            paths' shapes: paged attention and RMSNorm forward f32 within
@@ -21,7 +26,9 @@ exit:
            dv against the plain version's autograd) and the RMSNorm
            backward within 1e-4 (f32) and 2e-2 (bf16) of the largest
            |value| (at least of 1); two flash backward calls must give
-           bitwise-equal gradients. TF32 is off for every matmul;
+           bitwise-equal gradients; f32 flash must launch only the
+           CUDA-core route and bf16 only the tensor-core route. TF32 is off
+           for every matmul;
 3. parity  tinyllama-1.1b at full width in fp32 with seeded weights: one
            64-token ``prefill_chunk`` (logits at every position) and
            DECODE_STEPS ``decode_step``s on the card (kernels) and on the
@@ -70,6 +77,8 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -142,19 +151,20 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return a.elapsed_time(b) / iters
 
 
-def graph_ms(fn, iters: int = 100) -> float:
+def graph_ms(fn, iters: int = 100, stream=None) -> float:
     """Device time per call without host dispatch: ``iters`` calls captured
-    into one CUDA graph, replayed once between two events."""
+    into one CUDA graph (on ``stream``, or a new side stream), replayed once
+    between two events."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -168,12 +178,53 @@ def graph_ms(fn, iters: int = 100) -> float:
     return a.elapsed_time(b) / iters
 
 
+def profiler_device_ms(fn, iters: int = 10) -> float:
+    """Device time per call as ``torch.profiler`` sums its kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in _device_events(prof)) / 1e3 / iters
+
+
+def autograd_device_ms(forward, leaves, grad_out, iters: int = 10):
+    """Device time of ``torch.autograd.grad`` of one saved output of
+    ``forward()`` alone: the forward runs on a side stream, so its backward
+    kernels go to that stream and a CUDA graph captured on it holds them.
+    Where capture refuses, the profiler's summed device time of the same
+    call. Returns (ms, how)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward()
+    fn = lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True)  # noqa: E731
+    try:
+        return graph_ms(fn, iters, stream=side), "cuda graph"
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        why = (str(e).splitlines() or [""])[0][:80]
+        return profiler_device_ms(fn, iters), f"profiler (capture refused: {why})"
+
+
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
 
 
-CUDA_SOURCES = ("paged_attention", "flash_attention")
+CUDA_SOURCES = ("paged_attention", "flash_attention", "flash_attention_tc")
+# the bf16 K2 kernels and the SASS instructions that show they run on the
+# tensor cores: wgmma (HGMMA) for the forward, wgmma or mma.sync (HMMA) for
+# the backward
+TC_KERNELS = {"flash_fwd_tc_kernel": ("HGMMA",),
+              "flash_bwd_dq_tc_kernel": ("HGMMA", "HMMA"),
+              "flash_bwd_dkdv_tc_kernel": ("HGMMA", "HMMA")}
 SERVE_KERNELS = ("paged_attention", "paged_prefill_attention", "rmsnorm")
 TRAIN_KERNELS = ("flash_attention", "flash_attention_backward", "rmsnorm",
                  "rmsnorm_backward")
@@ -206,10 +257,85 @@ def phase_build():
         log = path.with_name(path.name + ".log")
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+    tc_log = paths["flash_attention_tc"].with_name(paths["flash_attention_tc"].name + ".log")
+    tc_ptxas = _ptxas_by_kernel(tc_log.read_text())
+    sass = _sass_check(paths["flash_attention_tc"])
     from repro_torch.device import features
 
     emit("build", features=features(),
-         libraries={n: str(p.relative_to(ROOT)) for n, p in paths.items()}, ptxas=ptxas)
+         libraries={n: str(p.relative_to(ROOT)) for n, p in paths.items()},
+         tensor_core_kernels=tc_ptxas, sass=sass, ptxas=ptxas)
+    if sass.get("missing"):
+        raise AssertionError(f"build: bf16 K2 kernels without tensor-core instructions: "
+                             f"{sass['missing']}")
+
+
+def _kernel_key(mangled: str) -> str | None:
+    """``flash_fwd_tc_kernel<64>`` from a mangled name, None for others."""
+    m = re.search(r"(flash_(?:fwd|bwd)_\w*?(?:tc|sum)_kernel)(?:ILi(\d+)E)?", mangled)
+    if not m:
+        return None
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def _ptxas_by_kernel(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel in a
+    ptxas ``-v`` report, and the dynamic shared memory its launcher asks
+    for (``ops.tc_plan``)."""
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = _kernel_key(m.group(1))
+            if cur:
+                out[cur] = {}
+            continue
+        if not cur:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[cur]["spill_stores"], out[cur]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[cur]["static_smem"] = int(sm.group(1)) if sm else 0
+            cur = None
+    for key, row in out.items():
+        name, _, dp = key.partition("<")
+        if dp and name in TC_KERNELS:
+            row["dynamic_smem"] = FA.tc_plan(int(dp[:-1]))["smem"][name]
+    return out
+
+
+def _sass_check(lib) -> dict:
+    """Count HGMMA / HMMA in the SASS of each bf16 K2 kernel
+    (``cuobjdump -sass``); ``missing`` lists the kernels with neither of
+    the instructions ``TC_KERNELS`` asks of them."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        return {"cuobjdump": "not available"}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = _kernel_key(m.group(1))
+            if cur:
+                counts[cur] = {"HGMMA": 0, "HMMA": 0}
+            continue
+        if cur:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", ln):
+                    counts[cur][op] += 1
+    missing = [k for k, c in counts.items() if k.partition("<")[0] in TC_KERNELS
+               and not any(c[op] for op in TC_KERNELS[k.partition("<")[0]])]
+    seen = {k.partition("<")[0] for k in counts}
+    missing += [k for k in TC_KERNELS if k not in seen]
+    return {"cuobjdump": tool, "counts": counts, "missing": missing}
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +414,8 @@ def phase_kernels():
     deterministic = _check_training_kernels(checks, main_err)
     emit("kernels", tf32=False, tolerance={"float32": 1e-4, "bfloat16": 2e-2},
          training_tolerance="of the largest |value|, at least of 1",
-         max_abs_err={k: max(c[2] for c in v) for k, v in checks.items()},
+         max_abs_err={k: max(c[2] for c in v) for k, v in checks.items() if k != "flash_routes"},
+         flash_routes=checks["flash_routes"],
          main_shape_bf16_err=main_err, flash_backward_bitwise_repeatable=deterministic,
          cases=checks)
     return main_err
@@ -321,8 +448,10 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
     flash_cases = ([c + (0, None) for c in cases.FLASH_CASES] + cases.FLASH_KVLEN_CASES
                    + [cases.MAIN_FLASH + (0, None)])
     deterministic = True
+    checks["flash_routes"] = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
+        before = dict(FA.ROUTE_LAUNCHES)
         for case in flash_cases:
             B, Sq, Sk, Hq, Hkv, D, causal, win, cap, off, kvl = case
             c = cases.flash_case(B, Sq, Sk, Hq, Hkv, D, seed=14, q_offset=off, kv_len=kvl)
@@ -353,6 +482,12 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
                 main_err["flash_attention_backward"] = e_bwd
             del grads, out
             torch.cuda.empty_cache()
+        # each dtype on its own route: two forwards and two backwards a case
+        moved = {r: FA.ROUTE_LAUNCHES[r] - before[r] for r in before}
+        want = {r: (4 * len(flash_cases) if r == FA.route(dtype) else 0) for r in before}
+        checks["flash_routes"][dn] = moved
+        if moved != want:
+            raise AssertionError(f"flash attention {dn}: route launches {moved} != {want}")
         for rows, d in cases.RMS_CASES + cases.MAIN_RMS + [cases.MAIN_RMS_TRAIN]:
             for zc in (False, True):
                 c = cases.rms_case(rows, d, seed=15)
@@ -1030,7 +1165,9 @@ def _training_timing() -> list:
     The library calls: SDPA (causal; k/v repeated to the q heads, prepared
     outside the timing), its backward alone (autograd of one saved SDPA
     output; its dk/dv are per q head, so the GQA sum is not in it), and
-    the autograd of ``F.rms_norm``."""
+    the autograd of ``F.rms_norm``; the two backwards' device times from
+    ``autograd_device_ms``. K2 is the bf16 route (``tensor_cores``), with
+    its achieved TFLOP/s over the counted FLOPs (``launch_costs``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1057,34 +1194,42 @@ def _training_timing() -> list:
     leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
     out_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
     shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16"
-    common = dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+    common = dict(route="cuda", variant=FA.route(bf),
+                  source="src/repro_torch/csrc/flash_attention_tc.cu",
                   replaces="src/repro/kernels/flash_attention/kernel.py:35", shape=shape)
     fwd = lambda: FA.flash_forward(q, k, v, pos, pos, None, causal, None, None)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
     flops, nbytes = FA.launch_costs(q, k, causal, None, False)
     bound, by = _bound_ms(nbytes, flops, "bfloat16")
+    dev = graph_ms(fwd, iters=20)
     rows.append(dict(name="flash_attention", **common,
-                     ms=cuda_ms(fwd, iters=20, warmup=3), device_ms=graph_ms(fwd, iters=10),
+                     ms=cuda_ms(fwd, iters=50, warmup=5), device_ms=dev,
+                     tflops=flops / dev / 1e9,
                      plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v), 5, 1),
                      library_ms=cuda_ms(sdpa, iters=20, warmup=3),
                      library_device_ms=graph_ms(sdpa, iters=10),
+                     library_device_via="cuda graph",
                      library="F.scaled_dot_product_attention(is_causal=True), k/v repeated",
                      bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops))
     bwd = lambda: FA.flash_backward(q, k, v, o, lse, do, pos, pos, None,  # noqa: E731
                                     causal, None, None)
     flops, nbytes = FA.launch_costs(q, k, causal, None, True)
     bound, by = _bound_ms(nbytes, flops, "bfloat16")
+    dev = graph_ms(bwd, iters=10)
+    lib_dev, via = autograd_device_ms(
+        lambda: F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, dot)
     rows.append(dict(name="flash_attention_backward", **common,
                      note="the backward of K2: no Pallas counterpart",
-                     ms=cuda_ms(bwd, iters=10, warmup=2), device_ms=graph_ms(bwd, iters=5),
+                     ms=cuda_ms(bwd, iters=20, warmup=3), device_ms=dev,
+                     tflops=flops / dev / 1e9,
                      plain_ms=cuda_ms(lambda: flash_attention_backward_reference(q, k, v, do),
                                       3, 1),
                      library_ms=cuda_ms(lambda: torch.autograd.grad(
                          out_lib, leaves, dot, retain_graph=True), iters=10, warmup=2),
-                     library_device_ms=None,
+                     library_device_ms=lib_dev, library_device_via=via,
                      library="autograd of one saved F.scaled_dot_product_attention output",
                      bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops))
-    del out_lib, leaves
+    del out_lib
     r, d = cases.MAIN_RMS_TRAIN
     rc = cases.rms_case(r, d, seed=46)
     x, sc, dy = (torch.from_numpy(rc[n]).to(DEV, bf) for n in ("x", "scale", "dy"))
@@ -1093,6 +1238,8 @@ def _training_timing() -> list:
     kb = lambda: RK.rmsnorm_backward_triton(x, sc, dy, 1e-6, False)  # noqa: E731
     nbytes = 3 * r * d * 2 + 2 * d * 2  # x, dy read, dx written; scale, dscale
     bound, by = _bound_ms(nbytes, 8 * r * d, "bfloat16")
+    lib_dev, via = autograd_device_ms(lambda: F.rms_norm(xl, (d,), sl, 1e-6), (xl, sl), dy,
+                                      iters=20)
     rows.append(dict(name="rmsnorm_backward", route="triton",
                      source="src/repro_torch/kernels/rmsnorm/kernel.py",
                      replaces="src/repro/kernels/rmsnorm/kernel.py:22",
@@ -1101,7 +1248,8 @@ def _training_timing() -> list:
                      plain_ms=cuda_ms(lambda: rmsnorm_backward_reference(x, sc, dy), iters=20),
                      library_ms=cuda_ms(lambda: torch.autograd.grad(
                          y_lib, (xl, sl), dy, retain_graph=True)),
-                     library_device_ms=None, library="autograd of F.rms_norm",
+                     library_device_ms=lib_dev, library_device_via=via,
+                     library="autograd of F.rms_norm",
                      bound_ms=bound, bound_by=by, bytes=nbytes, flops=8 * r * d))
     return rows
 
@@ -1145,9 +1293,10 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(RESULT, f, indent=1)
     print(json.dumps({"kernels": [
-        {k: row[k] for k in ("name", "route", "source", "replaces", "launches",
-                             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms", "device_ms", "library_device_ms")}
+        {**{k: row[k] for k in ("name", "route", "source", "replaces", "launches",
+                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "device_ms", "library_device_ms")},
+         **{k: row[k] for k in ("variant", "tflops") if k in row}}
         for row in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 // Flash attention for Hopper (sm_90a): the forward and its backward, for the
-// training path (cache-less attention over a whole sequence).
+// training path (cache-less attention over a whole sequence), in fp32. This
+// is K2's fp32 route, on the CUDA cores: fp32 on the tensor cores would mean
+// TF32. bf16 takes the tensor-core kernels of flash_attention_tc.cu.
 //
 // Replaces:
 //   flash_fwd_kernel  <- repro/kernels/flash_attention/kernel.py _flash_kernel
@@ -96,13 +98,9 @@ struct Args {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // max / sum over the 16 threads of one score row (lanes differing in bits 0-3)
 __device__ __forceinline__ float row_max(float v) {
@@ -617,21 +615,19 @@ int launch_dtype(Which which, const Args& a, cudaStream_t stream) {
   return launch_one<T, 256, 2>(which, a, stream);
 }
 
-int launch(int dtype, Which which, const Args& a, void* stream) {
+int launch(Which which, const Args& a, void* stream) {
   if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0) return 0;
   if (a.D <= 0 || a.D > 256 || a.Hkv <= 0 || a.Hq % a.Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dtype<float>(which, a, s);
-  if (dtype == 1) return launch_dtype<__nv_bfloat16>(which, a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype<float>(which, a, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. kvlen may be null. Returns the
+// float32 tensors. kvlen may be null. Returns the
 // cudaError_t of the launch.
-extern "C" int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v,
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const int* qpos, const int* kpos, const int* kvlen,
                                 void* out, float* lse, int B, int Sq, int Sk, int Hq,
                                 int Hkv, int D, int causal, int window, float softcap,
@@ -641,12 +637,12 @@ extern "C" int flash_fwd_launch(int dtype, const void* q, const void* k, const v
   a.out = out; a.lse_out = lse;
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv; a.D = D;
   a.causal = causal; a.window = window; a.softcap = softcap; a.scale = scale;
-  return launch(dtype, FWD, a, stream);
+  return launch(FWD, a, stream);
 }
 
 // The backward: the dq kernel (which also writes delta), then the dk/dv
 // kernel on the same stream.
-extern "C" int flash_bwd_launch(int dtype, const void* q, const void* k, const void* v,
+extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout, const float* lse,
                                 const int* qpos, const int* kpos, const int* kvlen,
                                 float* delta, void* dq, void* dk, void* dv, int B, int Sq,
@@ -658,7 +654,7 @@ extern "C" int flash_bwd_launch(int dtype, const void* q, const void* k, const v
   a.out = dq; a.dk = dk; a.dv = dv;
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv; a.D = D;
   a.causal = causal; a.window = window; a.softcap = softcap; a.scale = scale;
-  const int rc = launch(dtype, BWD_DQ, a, stream);
+  const int rc = launch(BWD_DQ, a, stream);
   if (rc != 0) return rc;
-  return launch(dtype, BWD_DKDV, a, stream);
+  return launch(BWD_DKDV, a, stream);
 }

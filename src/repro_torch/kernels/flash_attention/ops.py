@@ -5,12 +5,21 @@ version on the CPU.
 .flash_attention`` (positions, ``kv_len``, causal, window, softcap; the
 chunk sizes are the jnp scan's and have no meaning here). For CPU tensors
 it runs ``ref.flash_attention_reference`` and autograd differentiates it.
-For CUDA tensors it goes through ``_FlashAttention``, whose forward
-launches ``flash_fwd_kernel`` (saving O and the fp32 row log-sum-exp) and
-whose backward launches ``flash_bwd_dq_kernel`` then
-``flash_bwd_dkdv_kernel`` from ``csrc/flash_attention.cu`` through
-``ctypes`` on PyTorch's current stream, raising if a launch returns a CUDA
-error. Nothing falls back.
+For CUDA tensors it goes through ``_FlashAttention``, whose forward saves O
+and the fp32 row log-sum-exp and whose backward launches the dq kernel,
+then the dk/dv kernel. The dtype picks the route before the launch
+(``route``):
+
+- bfloat16 -> ``tensor_cores``: ``csrc/flash_attention_tc.cu`` (wgmma,
+  bf16 tiles staged by cp.async; the head dim padded to ``tc_plan``'s DP;
+  the backward writes fp32 partial dK/dV per q head, ``dkdv_partial_shape``,
+  and sums them per kv head in a third kernel);
+- float32 -> ``cuda_cores``: ``csrc/flash_attention.cu`` (fp32 FMAs; on the
+  tensor cores fp32 would mean TF32).
+
+Both go through ``ctypes`` on PyTorch's current stream and raise if a
+launch returns a CUDA error. Nothing falls back: not to the other route,
+not to the plain version.
 """
 
 from __future__ import annotations
@@ -25,8 +34,17 @@ import torch
 from repro_torch.kernels import LAUNCHES, build, record_cost
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
+ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores"}
+# launches per route (forward and backward calls alike); LAUNCHES counts
+# per wrapper
+ROUTE_LAUNCHES = {"cuda_cores": 0, "tensor_cores": 0}
+# tensor-core tiles: a block owns 128 rows (two warpgroups of 64) and
+# iterates over tiles of 64 (csrc/flash_attention_tc.cu TR, TI)
+TC_BLOCK_ROWS, TC_ITER_ROWS = 128, 64
+# a block flags the iterated tiles it needs in shared memory (MAX_TILES bits)
+TC_MAX_TILES = 2048
+TC_MAX_SEQ = TC_MAX_TILES * TC_ITER_ROWS
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -34,16 +52,61 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load_library("flash_attention")
-    lib.flash_fwd_launch.argtypes = [_I] + [_P] * 8 + [_I] * 8 + [_F, _F, _P]
+    lib.flash_fwd_launch.argtypes = [_P] * 8 + [_I] * 8 + [_F, _F, _P]
     lib.flash_fwd_launch.restype = _I
-    lib.flash_bwd_launch.argtypes = [_I] + [_P] * 13 + [_I] * 8 + [_F, _F, _P]
+    lib.flash_bwd_launch.argtypes = [_P] * 13 + [_I] * 8 + [_F, _F, _P]
     lib.flash_bwd_launch.restype = _I
     return lib
 
 
+@functools.cache
+def _lib_tc() -> ctypes.CDLL:
+    lib = build.load_library("flash_attention_tc")
+    lib.flash_tc_fwd_launch.argtypes = [_P] * 8 + [_I] * 8 + [_F, _F, _P]
+    lib.flash_tc_fwd_launch.restype = _I
+    lib.flash_tc_bwd_launch.argtypes = [_P] * 15 + [_I] * 8 + [_F, _F, _P]
+    lib.flash_tc_bwd_launch.restype = _I
+    return lib
+
+
 def load() -> None:
-    """Build (if needed) and load the CUDA library."""
+    """Build (if needed) and load both routes' CUDA libraries."""
     _lib()
+    _lib_tc()
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernels a CUDA tensor of ``dtype`` launches."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash attention kernel: dtype {dtype}; need float32 or bfloat16")
+    return ROUTES[dtype]
+
+
+def tc_plan(D: int) -> dict:
+    """The tensor-core kernels' tiling for head dim D: DP, D zero-padded to
+    a multiple of 64 (one 128-byte swizzle row of bf16; a multiple of the
+    k16 depth of one bf16 MMA step), and the ring's stages (one at DP = 256,
+    where two do not fit in shared memory)."""
+    if not 0 < D <= _MAX_D:
+        raise ValueError(f"flash attention kernel: head dim {D}, need 1..{_MAX_D}")
+    dp = -(-D // 64) * 64
+    ns = 1 if dp == 256 else 2
+    own, it = TC_BLOCK_ROWS * dp * 2, TC_ITER_ROWS * dp * 2  # bf16 tiles
+    # dynamic shared memory of each kernel (its launcher's smem_bytes): the
+    # tiles, the ring's per-row positions (and LSE, Delta), the tile flags,
+    # 1 KB of alignment
+    fixed, ring = 1024 + TC_MAX_TILES // 8, ns * TC_ITER_ROWS * 4
+    smem = {"flash_fwd_tc_kernel": fixed + own + 2 * ns * it + ring,
+            "flash_bwd_dq_tc_kernel": fixed + 2 * own + 2 * ns * it + ring + TC_BLOCK_ROWS * 4,
+            "flash_bwd_dkdv_tc_kernel": fixed + 2 * own + 2 * ns * it + 3 * ring}
+    return {"dp": dp, "block_rows": TC_BLOCK_ROWS, "iter_rows": TC_ITER_ROWS,
+            "stages": ns, "smem": smem}
+
+
+def dkdv_partial_shape(B: int, Sk: int, Hq: int, D: int) -> tuple:
+    """fp32 partial dK (and dV) of the tensor-core backward: one per q head,
+    summed over the G q heads of each kv head afterwards."""
+    return (B, Sk, Hq, D)
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
@@ -79,7 +142,7 @@ def _check(q, k, v):
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"flash attention kernel: {name} on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention kernel: dtypes q={q.dtype} k={k.dtype} "
                         f"v={v.dtype}; need one of float32/bfloat16 for all three")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -95,51 +158,74 @@ def _check(q, k, v):
     return B, Sq, Sk, Hq, Hkv, D
 
 
+def _check_route(rt: str, Sq: int, Sk: int) -> None:
+    if rt == "tensor_cores" and max(Sq, Sk) > TC_MAX_SEQ:
+        raise ValueError(f"flash attention tensor-core kernels: Sq={Sq}, Sk={Sk}; "
+                         f"at most {TC_MAX_SEQ} rows each")
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
 def flash_forward(q, k, v, qpos, kpos, kv_len, causal, window, softcap):
-    """Launch ``flash_fwd_kernel``. q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) CUDA,
+    """Launch the forward of ``q.dtype``'s route: ``flash_fwd_tc_kernel``
+    (bf16) or ``flash_fwd_kernel`` (fp32). q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) CUDA,
     contiguous; qpos (B,Sq) / kpos (B,Sk) int32; kv_len (B,) int32 or None.
     Returns (o like q, fp32 LSE (B,Hq,Sq))."""
     B, Sq, Sk, Hq, Hkv, D = _check(q, k, v)
+    rt = route(q.dtype)
+    _check_route(rt, Sq, Sk)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    rc = _lib().flash_fwd_launch(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        qpos.data_ptr(), kpos.data_ptr(),
-        None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(bool(causal)),
-        int(window or 0), float(softcap or 0.0), 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on(rc, "flash_fwd_kernel")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+            None if kv_len is None else kv_len.data_ptr(), out.data_ptr(), lse.data_ptr())
+    opts = (B, Sq, Sk, Hq, Hkv, D, int(bool(causal)), int(window or 0),
+            float(softcap or 0.0), 1.0 / math.sqrt(D),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rt == "tensor_cores":
+        _raise_on(_lib_tc().flash_tc_fwd_launch(*ptrs, *opts), "flash_fwd_tc_kernel")
+    else:
+        _raise_on(_lib().flash_fwd_launch(*ptrs, *opts), "flash_fwd_kernel")
     LAUNCHES["flash_attention"] += 1
+    ROUTE_LAUNCHES[rt] += 1
     record_cost("flash_attention", lambda: launch_costs(q, k, causal, window, False))
     return out, lse
 
 
 def flash_backward(q, k, v, out, lse, dout, qpos, kpos, kv_len, causal, window, softcap):
-    """Launch ``flash_bwd_dq_kernel`` then ``flash_bwd_dkdv_kernel`` for the
-    cotangent ``dout`` of ``out`` (whose LSE the forward wrote). Returns
-    (dq, dk, dv), each like its input."""
+    """Launch the backward of ``q.dtype``'s route for the cotangent ``dout``
+    of ``out`` (whose LSE the forward wrote): the dq kernel (which writes
+    Delta), then the dk/dv kernel; on the tensor-core route the dk/dv
+    kernel writes fp32 partials per q head and a third kernel sums them per
+    kv head. Returns (dq, dk, dv), each like its input."""
     B, Sq, Sk, Hq, Hkv, D = _check(q, k, v)
+    rt = route(q.dtype)
+    _check_route(rt, Sq, Sk)
     dout = dout.to(q.dtype).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    rc = _lib().flash_bwd_launch(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), qpos.data_ptr(),
-        kpos.data_ptr(), None if kv_len is None else kv_len.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, Sq, Sk, Hq, Hkv, D, int(bool(causal)), int(window or 0),
-        float(softcap or 0.0), 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on(rc, "flash_bwd_dq_kernel / flash_bwd_dkdv_kernel")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+            None if kv_len is None else kv_len.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    opts = (B, Sq, Sk, Hq, Hkv, D, int(bool(causal)), int(window or 0),
+            float(softcap or 0.0), 1.0 / math.sqrt(D),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rt == "tensor_cores":
+        shape = dkdv_partial_shape(B, Sk, Hq, D)
+        dk_part = torch.empty(shape, dtype=torch.float32, device=q.device)
+        dv_part = torch.empty(shape, dtype=torch.float32, device=q.device)
+        rc = _lib_tc().flash_tc_bwd_launch(
+            *ptrs, dk_part.data_ptr(), dv_part.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *opts)
+        _raise_on(rc, "flash_bwd_dq_tc_kernel / flash_bwd_dkdv_tc_kernel / "
+                      "flash_bwd_dkdv_sum_kernel")
+    else:
+        rc = _lib().flash_bwd_launch(*ptrs, dk.data_ptr(), dv.data_ptr(), *opts)
+        _raise_on(rc, "flash_bwd_dq_kernel / flash_bwd_dkdv_kernel")
     LAUNCHES["flash_attention_backward"] += 1
+    ROUTE_LAUNCHES[rt] += 1
     record_cost("flash_attention_backward", lambda: launch_costs(q, k, causal, window, True))
     return dq, dk, dv
 

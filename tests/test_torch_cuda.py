@@ -167,6 +167,52 @@ def test_flash_backward_is_deterministic(cuda):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+MAIN_FLASH_CASE = cases.MAIN_FLASH + (0, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernels_match_plain_at_the_training_shape(cuda, dtype):
+    """tinyllama-1.1b's training shape (B=4, S=2048, Hq=32, Hkv=4, D=64,
+    causal): bf16 on the tensor-core route, f32 on the CUDA-core route."""
+    (q, k, v), dout, kw = _flash_args(MAIN_FLASH_CASE, dtype, cuda, seed=13)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = FA.flash_attention(*leaves, **kw)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    _rel_close(_f32(out), _f32(flash_attention_reference(q, k, v, **kw)), dtype)
+    for got, want in zip(leaves, flash_attention_backward_reference(q, k, v, dout, **kw)):
+        _rel_close(_f32(got.grad), _f32(want), dtype)
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic_at_the_training_shape(cuda):
+    """The tensor-core backward sums the G partial dK/dV in a fixed order:
+    two calls give bitwise-equal gradients at the training shape too."""
+    (q, k, v), dout, kw = _flash_args(MAIN_FLASH_CASE, "bfloat16", cuda, 14)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        FA.flash_attention(*leaves, **kw).backward(dout)
+        runs.append([t.grad for t in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_dtype_launches_its_own_route(cuda, dtype):
+    """bf16 launches the tensor-core kernels, f32 the CUDA-core kernels:
+    one forward and one backward on its route, none on the other."""
+    (q, k, v), dout, kw = _flash_args(FLASH_ALL[0], dtype, cuda, seed=15)
+    before = dict(FA.ROUTE_LAUNCHES)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    FA.flash_attention(*leaves, **kw).backward(dout)
+    torch.cuda.synchronize()
+    moved = {r: FA.ROUTE_LAUNCHES[r] - before[r] for r in before}
+    want = FA.route(TORCH_DT[dtype])
+    assert moved == {r: (2 if r == want else 0) for r in before}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d", cases.RMS_CASES + cases.MAIN_RMS + [cases.MAIN_RMS_TRAIN])
 @pytest.mark.parametrize("dtype", DTYPES)
