@@ -25,7 +25,10 @@ exit:
            bf16 within 2e-2; flash attention forward and backward (dq, dk,
            dv against the plain version's autograd) and the RMSNorm
            backward within 1e-4 (f32) and 2e-2 (bf16) of the largest
-           |value| (at least of 1); two flash backward calls must give
+           |value| (at least of 1), flash attention also within
+           ``cases.TOL_L2`` of the relative L2 error (which a fault in
+           some rows moves where the largest |value| lies in others); two
+           flash backward calls must give
            bitwise-equal gradients; f32 flash must launch only the
            CUDA-core route and bf16 only the tensor-core route. TF32 is off
            for every matmul;
@@ -281,7 +284,7 @@ def _kernel_key(mangled: str) -> str | None:
 def _ptxas_by_kernel(log: str) -> dict:
     """Registers, spill bytes and static shared memory of each kernel in a
     ptxas ``-v`` report, and the dynamic shared memory its launcher asks
-    for (``ops.tc_plan``)."""
+    for (the library's own ``flash_tc_smem_bytes``)."""
     from repro_torch.kernels.flash_attention import ops as FA
 
     out, cur = {}, None
@@ -306,7 +309,7 @@ def _ptxas_by_kernel(log: str) -> dict:
     for key, row in out.items():
         name, _, dp = key.partition("<")
         if dp and name in TC_KERNELS:
-            row["dynamic_smem"] = FA.tc_plan(int(dp[:-1]))["smem"][name]
+            row["dynamic_smem"] = FA.tc_smem_bytes(int(dp[:-1]))[name]
     return out
 
 
@@ -414,6 +417,7 @@ def phase_kernels():
     deterministic = _check_training_kernels(checks, main_err)
     emit("kernels", tf32=False, tolerance={"float32": 1e-4, "bfloat16": 2e-2},
          training_tolerance="of the largest |value|, at least of 1",
+         flash_l2_tolerance=cases.TOL_L2,
          max_abs_err={k: max(c[2] for c in v) for k, v in checks.items() if k != "flash_routes"},
          flash_routes=checks["flash_routes"],
          main_shape_bf16_err=main_err, flash_backward_bitwise_repeatable=deterministic,
@@ -421,28 +425,77 @@ def phase_kernels():
     return main_err
 
 
-def _rel_err(got, want) -> float:
-    """max |got - want| over max(1, max |want|)."""
-    return _err(got, want) / max(1.0, float(want.float().abs().max()))
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def flash_inputs(case, dtype, seed: int):
+    """q, k, v, dout on the card and the wrapper's keyword arguments for a
+    flash case (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset,
+    kv_len)."""
+    import torch
+
+    from repro_torch.kernels import cases
+
+    B, Sq, Sk, Hq, Hkv, D, causal, win, cap, off, kvl = case
+    c = cases.flash_case(B, Sq, Sk, Hq, Hkv, D, seed=seed, q_offset=off, kv_len=kvl)
+    q, k, v, dout = (torch.from_numpy(c[n]).to(DEV, dtype) for n in ("q", "k", "v", "dout"))
+    kw = dict(q_positions=torch.from_numpy(c["q_positions"]).to(DEV),
+              k_positions=torch.from_numpy(c["k_positions"]).to(DEV),
+              kv_len=None if kvl is None else torch.from_numpy(c["kv_len"]).to(DEV),
+              causal=causal, window=win, softcap=cap)
+    return (q, k, v, dout), kw
+
+
+def flash_reference(q, k, v, dout, kw):
+    """The plain version's output and its autograd's (dq, dk, dv), as numpy."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_backward_reference,
+        flash_attention_reference,
+    )
+
+    return (_np(flash_attention_reference(q, k, v, **kw)),
+            [_np(w) for w in flash_attention_backward_reference(q, k, v, dout, **kw)])
+
+
+def flash_errors(out, grads, want) -> dict:
+    """Both gates' readings of a flash output and its gradients (dq, dk,
+    dv) against ``flash_reference``'s ``want``: ``max`` is
+    ``cases.max_rel_err``, ``l2`` is ``cases.l2_rel_err``; the backward's
+    are the largest over the three gradients."""
+    from repro_torch.kernels import cases
+
+    want_o, want_g = want
+    got = _np(out)
+    errs = {"fwd_max": cases.max_rel_err(got, want_o), "fwd_l2": cases.l2_rel_err(got, want_o)}
+    got = [_np(g) for g in grads]
+    errs["bwd_max"] = max(cases.max_rel_err(g, w) for g, w in zip(got, want_g))
+    errs["bwd_l2"] = max(cases.l2_rel_err(g, w) for g, w in zip(got, want_g))
+    return errs
+
+
+def flash_failures(errs: dict, dtype_name: str) -> list:
+    """The readings of ``flash_errors`` past their gate (cases.TOL_MAX,
+    cases.TOL_L2)."""
+    from repro_torch.kernels import cases
+
+    tol = {"max": cases.TOL_MAX[dtype_name], "l2": cases.TOL_L2[dtype_name]}
+    return [f"{k} {e:.3g} > {tol[k[4:]]}" for k, e in errs.items() if e > tol[k[4:]]]
 
 
 def _check_training_kernels(checks: dict, main_err: dict) -> bool:
     """Flash attention forward and backward and the RMSNorm backward against
     their plain versions (the backward: the plain version's autograd), over
     the JAX case tables, the position / kv_len cases and the training
-    shapes. Errors are relative to the largest |value| (at least 1)."""
+    shapes. Errors are relative to the largest |value| (at least 1); flash
+    attention is also held to the relative L2 error."""
     import torch
 
     from repro_torch.kernels import cases
     from repro_torch.kernels.flash_attention import ops as FA
-    from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_backward_reference,
-        flash_attention_reference,
-    )
     from repro_torch.kernels.rmsnorm import ops as RMS
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_reference
 
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     for k in ("flash_attention", "flash_attention_backward", "rmsnorm_backward"):
         checks[k] = []
     flash_cases = ([c + (0, None) for c in cases.FLASH_CASES] + cases.FLASH_KVLEN_CASES
@@ -453,14 +506,7 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
         dn = str(dtype).split(".")[-1]
         before = dict(FA.ROUTE_LAUNCHES)
         for case in flash_cases:
-            B, Sq, Sk, Hq, Hkv, D, causal, win, cap, off, kvl = case
-            c = cases.flash_case(B, Sq, Sk, Hq, Hkv, D, seed=14, q_offset=off, kv_len=kvl)
-            q, k, v, dout = (torch.from_numpy(c[n]).to(DEV, dtype)
-                             for n in ("q", "k", "v", "dout"))
-            kw = dict(q_positions=torch.from_numpy(c["q_positions"]).to(DEV),
-                      k_positions=torch.from_numpy(c["k_positions"]).to(DEV),
-                      kv_len=None if kvl is None else torch.from_numpy(c["kv_len"]).to(DEV),
-                      causal=causal, window=win, softcap=cap)
+            (q, k, v, dout), kw = flash_inputs(case, dtype, seed=14)
             grads = []
             for _ in range(2):
                 leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -469,17 +515,19 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
                 grads.append([t.grad for t in leaves])
             torch.cuda.synchronize()
             deterministic &= all(torch.equal(a, b) for a, b in zip(*grads))
-            e_fwd = _rel_err(out.detach(), flash_attention_reference(q, k, v, **kw))
-            e_bwd = max(_rel_err(g, w) for g, w in zip(
-                grads[0], flash_attention_backward_reference(q, k, v, dout, **kw)))
-            checks["flash_attention"].append([dn, list(case[:9]), e_fwd])
-            checks["flash_attention_backward"].append([dn, list(case[:9]), e_bwd])
-            if max(e_fwd, e_bwd) > tol[dtype]:
-                raise AssertionError(f"flash attention {dn} {case}: forward {e_fwd}, "
-                                     f"backward {e_bwd} > {tol[dtype]}")
+            errs = flash_errors(out, grads[0], flash_reference(q, k, v, dout, kw))
+            checks["flash_attention"].append([dn, list(case[:9]), errs["fwd_max"],
+                                              errs["fwd_l2"]])
+            checks["flash_attention_backward"].append([dn, list(case[:9]), errs["bwd_max"],
+                                                       errs["bwd_l2"]])
+            bad = flash_failures(errs, dn)
+            if bad:
+                raise AssertionError(f"flash attention {dn} {case}: {', '.join(bad)}")
             if case[:9] == cases.MAIN_FLASH and dtype is torch.bfloat16:
-                main_err["flash_attention"] = e_fwd
-                main_err["flash_attention_backward"] = e_bwd
+                main_err["flash_attention"] = errs["fwd_max"]
+                main_err["flash_attention_backward"] = errs["bwd_max"]
+                main_err["l2_rel_err"] = {"flash_attention": errs["fwd_l2"],
+                                          "flash_attention_backward": errs["bwd_l2"]}
             del grads, out
             torch.cuda.empty_cache()
         # each dtype on its own route: two forwards and two backwards a case
@@ -496,9 +544,10 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
                 RMS.rmsnorm(xl, sl, 1e-6, zc).backward(dy)
                 torch.cuda.synchronize()
                 dx, ds = rmsnorm_backward_reference(x, sc, dy, 1e-6, zc)
-                e = max(_rel_err(xl.grad, dx), _rel_err(sl.grad, ds))
+                e = max(cases.max_rel_err(_np(xl.grad), _np(dx)),
+                        cases.max_rel_err(_np(sl.grad), _np(ds)))
                 checks["rmsnorm_backward"].append([dn, [rows, d, zc], e])
-                if e > tol[dtype]:
+                if e > cases.TOL_MAX[dn]:
                     raise AssertionError(f"rmsnorm backward {dn} {(rows, d, zc)}: err {e}")
                 if (rows, d) == cases.MAIN_RMS_TRAIN and not zc and dtype is torch.bfloat16:
                     main_err["rmsnorm_backward"] = e
@@ -1133,6 +1182,8 @@ def phase_timing(main_err, counts):
         row["launches"] = counts["train"].get(row["name"], 0) or counts["serve"][row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in counts.items()}
         row["max_abs_err"] = main_err[row["name"]]
+        if row["name"] in main_err["l2_rel_err"]:
+            row["l2_rel_err"] = main_err["l2_rel_err"][row["name"]]
     return rows
 
 

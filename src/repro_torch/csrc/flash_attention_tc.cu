@@ -36,9 +36,9 @@
 // guarded by __syncthreads and cp.async groups, not by mbarriers.
 //
 // Per-score code (scale, soft-cap, mask, exp) runs on every score of every
-// tile; with a branch per score it took most of the forward's time on the
-// H100 (about 2/3 at the training shape, measured by leaving it out), so
-// the uniform branches sit outside the loops, the mask is a bit set built
+// tile and is the largest part of the forward's time on the H100
+// (tools/flash_tc_variants.py times the forward without it), so the
+// uniform branches sit outside the loops, the mask is a bit set built
 // without branches (only for tiles not proven fully visible), and exp runs
 // as the special-function unit's ex2.approx.
 //
@@ -70,6 +70,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <atomic>
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -936,24 +937,38 @@ int launch_one(Which which, const Args& a, cudaStream_t stream) {
     grid = dim3((a.Sk + TR - 1) / TR, a.Hq, a.B);
   }
   const size_t smem = smem_bytes<DP>(which);
-  // once per kernel, so never inside a CUDA-graph capture after the first launch
-  static bool allowed[3] = {false, false, false};
-  if (!allowed[which]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  // The limit on dynamic shared memory is an attribute of the kernel on one
+  // device: set once per (kernel, device), one bit a device, so a graph
+  // capture after the first launch on a device makes no such call. Devices
+  // past 63 set it on every launch.
+  static std::atomic<uint64_t> allowed[3];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(allowed[which].load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    allowed[which] = true;
+    allowed[which].fetch_or(bit, std::memory_order_relaxed);
   }
   kernel<<<grid, NT, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// DP: the head dim padded to a multiple of 64 (python: ops.tc_plan)
+// DP: the head dim padded to a multiple of 64
 int launch(Which which, const Args& a, cudaStream_t stream) {
   if (a.D <= 64) return launch_one<64>(which, a, stream);
   if (a.D <= 128) return launch_one<128>(which, a, stream);
   if (a.D <= 192) return launch_one<192>(which, a, stream);
   return launch_one<256>(which, a, stream);
+}
+
+size_t smem_for(Which which, int D) {
+  if (D <= 64) return smem_bytes<64>(which);
+  if (D <= 128) return smem_bytes<128>(which);
+  if (D <= 192) return smem_bytes<192>(which);
+  return smem_bytes<256>(which);
 }
 
 int aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -964,6 +979,13 @@ bool bad_shape(const Args& a) {
 }
 
 }  // namespace
+
+// The dynamic shared memory one launch of a kernel asks for at head dim D
+// (which: 0 forward, 1 dq, 2 dk/dv), 0 for a D the kernels do not take.
+extern "C" long flash_tc_smem_bytes(int which, int D) {
+  if (which < FWD || which > BWD_DKDV || D <= 0 || D > 256) return 0;
+  return static_cast<long>(smem_for(static_cast<Which>(which), D));
+}
 
 // bf16 only. kvlen may be null. Returns the cudaError_t of the launch.
 extern "C" int flash_tc_fwd_launch(const void* q, const void* k, const void* v,

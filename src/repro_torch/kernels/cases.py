@@ -64,6 +64,28 @@ MAIN_FLASH = (4, 2048, 2048, 32, 4, 64, True, None, None)
 MAIN_RMS_TRAIN = (8192, 2048)
 
 
+# Gates of a kernel against its plain version, by dtype. TOL_MAX bounds the
+# largest error over the largest |value| (at least 1); TOL_L2 bounds the
+# relative L2 error, which a fault confined to some rows (a lost rescale, a
+# skipped tile) moves even where the largest |value| lies in rows that the
+# fault leaves alone. Both take numpy arrays.
+TOL_MAX = {"float32": 1e-4, "bfloat16": 2e-2}
+TOL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def max_rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max(initial=0.0) / max(1.0, np.abs(want).max(initial=0.0)))
+
+
+def l2_rel_err(got, want) -> float:
+    """||got - want||_2 over ||want||_2; the absolute norm where want is 0."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err, ref = float(np.linalg.norm(got - want)), float(np.linalg.norm(want))
+    return err / ref if ref > 0 else err
+
+
 def _table(rng, B, nL, P, psize, lens):
     """Scrambled block table backing ``lens[b]`` tokens per row, -1 past."""
     perm = rng.permutation(P)

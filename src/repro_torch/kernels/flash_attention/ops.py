@@ -11,9 +11,10 @@ then the dk/dv kernel. The dtype picks the route before the launch
 (``route``):
 
 - bfloat16 -> ``tensor_cores``: ``csrc/flash_attention_tc.cu`` (wgmma,
-  bf16 tiles staged by cp.async; the head dim padded to ``tc_plan``'s DP;
-  the backward writes fp32 partial dK/dV per q head, ``dkdv_partial_shape``,
-  and sums them per kv head in a third kernel);
+  bf16 tiles staged by cp.async, the head dim zero-padded to a multiple of
+  64; the backward writes fp32 partial dK/dV per q head, (B, Sk, Hq, D),
+  and sums them per kv head in a third kernel; the library decides the
+  tiling and rejects sequences past 131072 rows);
 - float32 -> ``cuda_cores``: ``csrc/flash_attention.cu`` (fp32 FMAs; on the
   tensor cores fp32 would mean TF32).
 
@@ -39,12 +40,6 @@ ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores"}
 # launches per route (forward and backward calls alike); LAUNCHES counts
 # per wrapper
 ROUTE_LAUNCHES = {"cuda_cores": 0, "tensor_cores": 0}
-# tensor-core tiles: a block owns 128 rows (two warpgroups of 64) and
-# iterates over tiles of 64 (csrc/flash_attention_tc.cu TR, TI)
-TC_BLOCK_ROWS, TC_ITER_ROWS = 128, 64
-# a block flags the iterated tiles it needs in shared memory (MAX_TILES bits)
-TC_MAX_TILES = 2048
-TC_MAX_SEQ = TC_MAX_TILES * TC_ITER_ROWS
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -61,11 +56,18 @@ def _lib() -> ctypes.CDLL:
 
 @functools.cache
 def _lib_tc() -> ctypes.CDLL:
-    lib = build.load_library("flash_attention_tc")
+    return bind_tc(build.load_library("flash_attention_tc"))
+
+
+def bind_tc(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from
+    ``csrc/flash_attention_tc.cu``."""
     lib.flash_tc_fwd_launch.argtypes = [_P] * 8 + [_I] * 8 + [_F, _F, _P]
     lib.flash_tc_fwd_launch.restype = _I
     lib.flash_tc_bwd_launch.argtypes = [_P] * 15 + [_I] * 8 + [_F, _F, _P]
     lib.flash_tc_bwd_launch.restype = _I
+    lib.flash_tc_smem_bytes.argtypes = [_I, _I]
+    lib.flash_tc_smem_bytes.restype = ctypes.c_long
     return lib
 
 
@@ -82,31 +84,13 @@ def route(dtype: torch.dtype) -> str:
     return ROUTES[dtype]
 
 
-def tc_plan(D: int) -> dict:
-    """The tensor-core kernels' tiling for head dim D: DP, D zero-padded to
-    a multiple of 64 (one 128-byte swizzle row of bf16; a multiple of the
-    k16 depth of one bf16 MMA step), and the ring's stages (one at DP = 256,
-    where two do not fit in shared memory)."""
-    if not 0 < D <= _MAX_D:
-        raise ValueError(f"flash attention kernel: head dim {D}, need 1..{_MAX_D}")
-    dp = -(-D // 64) * 64
-    ns = 1 if dp == 256 else 2
-    own, it = TC_BLOCK_ROWS * dp * 2, TC_ITER_ROWS * dp * 2  # bf16 tiles
-    # dynamic shared memory of each kernel (its launcher's smem_bytes): the
-    # tiles, the ring's per-row positions (and LSE, Delta), the tile flags,
-    # 1 KB of alignment
-    fixed, ring = 1024 + TC_MAX_TILES // 8, ns * TC_ITER_ROWS * 4
-    smem = {"flash_fwd_tc_kernel": fixed + own + 2 * ns * it + ring,
-            "flash_bwd_dq_tc_kernel": fixed + 2 * own + 2 * ns * it + ring + TC_BLOCK_ROWS * 4,
-            "flash_bwd_dkdv_tc_kernel": fixed + 2 * own + 2 * ns * it + 3 * ring}
-    return {"dp": dp, "block_rows": TC_BLOCK_ROWS, "iter_rows": TC_ITER_ROWS,
-            "stages": ns, "smem": smem}
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkdv_tc_kernel")
 
 
-def dkdv_partial_shape(B: int, Sk: int, Hq: int, D: int) -> tuple:
-    """fp32 partial dK (and dV) of the tensor-core backward: one per q head,
-    summed over the G q heads of each kv head afterwards."""
-    return (B, Sk, Hq, D)
+def tc_smem_bytes(D: int) -> dict:
+    """The dynamic shared memory each tensor-core kernel asks for at head
+    dim D, as its launcher computes it (needs the built library)."""
+    return {name: int(_lib_tc().flash_tc_smem_bytes(i, D)) for i, name in enumerate(TC_KERNELS)}
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
@@ -136,12 +120,9 @@ def launch_costs(q, k, causal, window, backward: bool):
 
 
 def _check(q, k, v):
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash attention kernel: q on {dev}, expected CUDA")
-    for name, t in (("k", k), ("v", v)):
-        if t.device != dev:
-            raise ValueError(f"flash attention kernel: {name} on {t.device}, q on {dev}")
+    """(B, Sq, Sk, Hq, Hkv, D) of inputs a launch takes; raises for others.
+    Dtypes and shapes are checked before the device, so every check but the
+    last can be exercised without a card."""
     if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention kernel: dtypes q={q.dtype} k={k.dtype} "
                         f"v={v.dtype}; need one of float32/bfloat16 for all three")
@@ -155,13 +136,13 @@ def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash attention kernel: {name} must be contiguous")
+    dev = q.device
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"flash attention kernel: {name} on {t.device}, q on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"flash attention kernel: q on {dev}, expected CUDA")
     return B, Sq, Sk, Hq, Hkv, D
-
-
-def _check_route(rt: str, Sq: int, Sk: int) -> None:
-    if rt == "tensor_cores" and max(Sq, Sk) > TC_MAX_SEQ:
-        raise ValueError(f"flash attention tensor-core kernels: Sq={Sq}, Sk={Sk}; "
-                         f"at most {TC_MAX_SEQ} rows each")
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -176,7 +157,6 @@ def flash_forward(q, k, v, qpos, kpos, kv_len, causal, window, softcap):
     Returns (o like q, fp32 LSE (B,Hq,Sq))."""
     B, Sq, Sk, Hq, Hkv, D = _check(q, k, v)
     rt = route(q.dtype)
-    _check_route(rt, Sq, Sk)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
@@ -202,7 +182,6 @@ def flash_backward(q, k, v, out, lse, dout, qpos, kpos, kv_len, causal, window, 
     kv head. Returns (dq, dk, dv), each like its input."""
     B, Sq, Sk, Hq, Hkv, D = _check(q, k, v)
     rt = route(q.dtype)
-    _check_route(rt, Sq, Sk)
     dout = dout.to(q.dtype).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
@@ -213,7 +192,7 @@ def flash_backward(q, k, v, out, lse, dout, qpos, kpos, kv_len, causal, window, 
             float(softcap or 0.0), 1.0 / math.sqrt(D),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rt == "tensor_cores":
-        shape = dkdv_partial_shape(B, Sk, Hq, D)
+        shape = (B, Sk, Hq, D)  # one partial per q head
         dk_part = torch.empty(shape, dtype=torch.float32, device=q.device)
         dv_part = torch.empty(shape, dtype=torch.float32, device=q.device)
         rc = _lib_tc().flash_tc_bwd_launch(

@@ -11,7 +11,8 @@ training paths' shapes at tinyllama-1.1b's full width. Tolerances: paged
 attention and forwards f32 1e-4 (the kernels sum in another order than the
 plain versions), bf16 2e-2; the training kernels' outputs and gradients
 f32 1e-4 and bf16 2e-2 of the largest |value| (at least of 1): bf16 keeps
-~3 significant digits, so one rounding of a value near 16 is 0.06.
+~3 significant digits, so one rounding of a value near 16 is 0.06; flash
+attention's also within ``cases.TOL_L2`` of the relative L2 error.
 """
 
 import numpy as np
@@ -128,6 +129,14 @@ def _rel_close(got, want, dtype):
     np.testing.assert_allclose(got, want, atol=tol, rtol=0)
 
 
+def _flash_close(got, want, dtype):
+    """Both gates of flash attention: the largest error (``_rel_close``) and
+    the relative L2 error (``cases.TOL_L2``), which a fault confined to some
+    rows moves even where the largest |value| lies in other rows."""
+    _rel_close(got, want, dtype)
+    assert cases.l2_rel_err(got, want) <= cases.TOL_L2[dtype]
+
+
 def _flash_args(case, dtype, cuda, seed):
     B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_off, kv_len = case
     c = cases.flash_case(B, Sq, Sk, Hq, Hkv, D, seed=seed, q_offset=q_off, kv_len=kv_len)
@@ -150,9 +159,9 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
     out = FA.flash_attention(*leaves, **kw)
     out.backward(dout)
     torch.cuda.synchronize()
-    _rel_close(_f32(out), _f32(flash_attention_reference(q, k, v, **kw)), dtype)
+    _flash_close(_f32(out), _f32(flash_attention_reference(q, k, v, **kw)), dtype)
     for got, want in zip(leaves, flash_attention_backward_reference(q, k, v, dout, **kw)):
-        _rel_close(_f32(got.grad), _f32(want), dtype)
+        _flash_close(_f32(got.grad), _f32(want), dtype)
 
 
 @pytest.mark.cuda
@@ -180,9 +189,9 @@ def test_flash_kernels_match_plain_at_the_training_shape(cuda, dtype):
     out = FA.flash_attention(*leaves, **kw)
     out.backward(dout)
     torch.cuda.synchronize()
-    _rel_close(_f32(out), _f32(flash_attention_reference(q, k, v, **kw)), dtype)
+    _flash_close(_f32(out), _f32(flash_attention_reference(q, k, v, **kw)), dtype)
     for got, want in zip(leaves, flash_attention_backward_reference(q, k, v, dout, **kw)):
-        _rel_close(_f32(got.grad), _f32(want), dtype)
+        _flash_close(_f32(got.grad), _f32(want), dtype)
 
 
 @pytest.mark.cuda
@@ -211,6 +220,22 @@ def test_flash_dtype_launches_its_own_route(cuda, dtype):
     moved = {r: FA.ROUTE_LAUNCHES[r] - before[r] for r in before}
     want = FA.route(TORCH_DT[dtype])
     assert moved == {r: (2 if r == want else 0) for r in before}
+
+
+@pytest.mark.cuda
+def test_tensor_core_route_raises_past_its_sequence_limit(cuda):
+    """The tensor-core library flags a block's tiles in 2048 bits of shared
+    memory, so it takes at most 131072 rows; past that the launch is
+    refused and the wrapper raises (the CUDA-core route has no such limit)."""
+    S = 2048 * 64 + 1
+    q = torch.zeros(1, S, 1, 64, dtype=torch.bfloat16, device=cuda)
+    pos = FA.positions_rows(None, 1, S, cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FA.flash_forward(q, q, q, pos, pos, None, True, None, None)
+    out, lse = FA.flash_forward(q[:, :-1], q[:, :-1], q[:, :-1], pos[:, :-1].contiguous(),
+                                pos[:, :-1].contiguous(), None, True, None, None)
+    torch.cuda.synchronize()
+    assert out.shape == (1, S - 1, 1, 64)
 
 
 @pytest.mark.cuda

@@ -2,10 +2,11 @@
 
 bf16 CUDA tensors go to the tensor-core kernels (``flash_attention_tc.cu``),
 fp32 CUDA tensors to the CUDA-core kernels (``flash_attention.cu``); the
-choice, the tiling and padding of the tensor-core route and the size of its
-partial dK/dV scratch are plain Python, so they are held here. The kernels
-themselves are held against their plain versions on the card
-(``tests/test_torch_cuda.py``).
+choice, the checks of the inputs and the counted work are plain Python, so
+they are held here, as are the gates (``cases.max_rel_err``,
+``cases.l2_rel_err``) that hold the kernels to their plain versions on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``). The tiling is the
+library's own and is checked on the card.
 """
 
 import numpy as np
@@ -17,11 +18,7 @@ from repro_torch.kernels import cases  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FA  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference  # noqa: E402
 
-# every head dim the case tables and the training path give K2, and the ends
-HEAD_DIMS = sorted({c[5] for c in cases.FLASH_CASES + cases.FLASH_KVLEN_CASES}
-                   | {cases.MAIN_FLASH[5], 1, 128, 192, 256})
-# the most dynamic shared memory a block may use on an H100
-SMEM_LIMIT = 232448
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_cores"),
@@ -36,56 +33,142 @@ def test_route_raises_on_other_dtypes(dtype):
         FA.route(dtype)
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
-def test_tc_plan_pads_the_head_dim(D):
-    """DP is the smallest multiple of 64 (one 128-byte swizzle row of bf16,
-    four k16 MMA steps) that holds D; the padding is zeros in shared memory."""
-    plan = FA.tc_plan(D)
-    assert plan["dp"] % 64 == 0 and plan["dp"] % 16 == 0
-    assert D <= plan["dp"] < D + 64
-    assert (plan["block_rows"], plan["iter_rows"]) == (128, 64)
+def _qkv(B=1, Sq=8, Sk=8, Hq=2, Hkv=1, D=64, dtype=torch.bfloat16):
+    return (torch.zeros(B, Sq, Hq, D, dtype=dtype), torch.zeros(B, Sk, Hkv, D, dtype=dtype),
+            torch.zeros(B, Sk, Hkv, D, dtype=dtype))
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
-def test_tc_plan_fits_shared_memory(D):
-    """Two stages of the ring where they fit, one at DP = 256; every kernel
-    within the 227 KB a block may use."""
-    plan = FA.tc_plan(D)
-    assert plan["stages"] == (1 if plan["dp"] == 256 else 2)
-    assert set(plan["smem"]) == {"flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
-                                 "flash_bwd_dkdv_tc_kernel"}
-    assert all(0 < b <= SMEM_LIMIT for b in plan["smem"].values())
+def _bad_inputs():
+    q, k, v = _qkv()
+    return {
+        "float16": (TypeError, _qkv(dtype=torch.float16)),
+        "mixed dtypes": (TypeError, (q, k.float(), v)),
+        "3-d q": (ValueError, (q[0], k, v)),
+        "v unlike k": (ValueError, (q, k, v[:, :4])),
+        "batch mismatch": (ValueError, (q, *_qkv(B=2)[1:])),
+        "head dim 257": (ValueError, _qkv(D=257)),
+        "Hq not a multiple of Hkv": (ValueError, _qkv(Hq=3, Hkv=2)),
+        "strided q": (ValueError, (q.transpose(1, 2).contiguous().transpose(1, 2), k, v)),
+    }
 
 
-def test_tc_plan_at_the_training_shape():
-    plan = FA.tc_plan(cases.MAIN_FLASH[5])
-    assert plan["dp"] == 64 and plan["stages"] == 2
-    # Q tile 16 KB, K and V rings 2 x 2 x 8 KB, positions, tile flags, alignment
-    assert plan["smem"]["flash_fwd_tc_kernel"] == 16384 + 32768 + 512 + 256 + 1024
+@pytest.mark.parametrize("what", list(_bad_inputs()))
+def test_launchers_raise_on_inputs_no_kernel_takes(what):
+    """Dtypes and shapes are checked before the device, so each refusal
+    shows here, without a card; a sequence past 131072 rows is refused by
+    the tensor-core library itself (a launch error, raised)."""
+    err, (q, k, v) = _bad_inputs()[what]
+    with pytest.raises(err):
+        FA._check(q, k, v)
 
 
-@pytest.mark.parametrize("D", [0, -1, 257, 512])
-def test_tc_plan_raises_outside_the_head_dims_it_takes(D):
-    with pytest.raises(ValueError):
-        FA.tc_plan(D)
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (8, 8, True, None), (8, 8, False, None), (16, 16, True, 4), (12, 20, True, None),
+    (20, 12, True, 3), (9, 9, False, 2)])
+def test_visible_pairs_counts_every_visible_pair(Sq, Sk, causal, window):
+    """The work ``launch_costs`` counts, against a brute-force count over
+    every (query, key) pair at index positions."""
+    i, j = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    vis = np.ones((Sq, Sk), bool)
+    if causal:
+        vis &= j <= i
+    if window:
+        vis &= j > i - window
+    assert FA.visible_pairs(Sq, Sk, causal, window) == int(vis.sum())
 
 
-def test_partial_scratch_at_the_training_shape():
-    """One fp32 partial dK (and dV) per q head: (B, Sk, Hq, D), 2 x 67 MB
-    at tinyllama's training shape."""
-    B, _, Sk, Hq, _, D = cases.MAIN_FLASH[:6]
-    shape = FA.dkdv_partial_shape(B, Sk, Hq, D)
-    assert shape == (4, 2048, 32, 64)
-    assert 2 * int(np.prod(shape)) * 4 == 134_217_728
+# The relative L2 gate (cases.TOL_L2) against faults a flash kernel could
+# have, emulated in plain float64 attention over a causal sequence of 512
+# rows in 128-row blocks of 64-key tiles: each fault leaves the early rows,
+# where the largest |value| lies, alone or nearly so.
+S_G, H_G, D_G = 512, 2, 64
 
 
-def test_tensor_core_route_raises_past_its_sequence_limit():
-    FA._check_route("tensor_cores", FA.TC_MAX_SEQ, FA.TC_MAX_SEQ)
-    FA._check_route("cuda_cores", FA.TC_MAX_SEQ + 1, 1)
-    with pytest.raises(ValueError):
-        FA._check_route("tensor_cores", FA.TC_MAX_SEQ + 1, 16)
-    with pytest.raises(ValueError):
-        FA._check_route("tensor_cores", 16, FA.TC_MAX_SEQ + 1)
+def _gate_qkv(dtype):
+    c = cases.flash_case(1, S_G, S_G, H_G, H_G, D_G, seed=5)
+    return [torch.from_numpy(c[n][0]).to(TORCH_DT[dtype]).double().transpose(0, 1)
+            for n in ("q", "k", "v")]  # (H, S, D), rounded to the dtype
+
+
+def _attention(q, k, v, visible):
+    s = (q @ k.transpose(-1, -2) / D_G ** 0.5).masked_fill(~visible, float("-inf"))
+    return torch.softmax(s, -1) @ v
+
+
+def _causal():
+    i = torch.arange(S_G)
+    return i[:, None], i[None, :], i[:, None] >= i[None, :]
+
+
+def _late_rows_30pct(q, k, v):
+    o = _attention(q, k, v, _causal()[2])
+    o[:, S_G // 2:] *= 1.3
+    return o
+
+
+def _late_rows_skip_diagonal_tile(q, k, v):
+    """The second warpgroup of each late block drops its diagonal key tile."""
+    i, j, vis = _causal()
+    drop = (i >= S_G // 2) & (i % 128 >= 64) & (j // 64 == i // 64)
+    return _attention(q, k, v, vis & ~drop)
+
+
+def _second_warpgroup_row_map(q, k, v):
+    """Rows 64..127 of each block masked with the positions 64 rows back."""
+    i, j, vis = _causal()
+    return _attention(q, k, v, j <= i - 64 * (i % 128 >= 64).long())
+
+
+def _no_rescale(q, k, v):
+    """Online softmax over 64-key tiles whose O is not rescaled when the
+    running max grows (its sum is)."""
+    i, j, vis = _causal()
+    m = torch.full((H_G, S_G, 1), float("-inf"), dtype=torch.float64)
+    l, acc = torch.zeros_like(m), torch.zeros_like(q)
+    for t in range(0, S_G, 64):
+        s = (q @ k[:, t:t + 64].transpose(-1, -2) / D_G ** 0.5).masked_fill(
+            ~vis[:, t:t + 64], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new).nan_to_num(0.0)
+        l = l * torch.exp(m - m_new).nan_to_num(0.0) + p.sum(-1, keepdim=True)
+        acc = acc + p @ v[:, t:t + 64]
+        m = m_new
+    return acc / l
+
+
+FAULTS = {"late rows 30% off": _late_rows_30pct,
+          "late rows without their diagonal tile": _late_rows_skip_diagonal_tile,
+          "second warpgroup's row map": _second_warpgroup_row_map,
+          "O not rescaled": _no_rescale}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gates_pass_rounding_alone(dtype):
+    """The exact output rounded once to the dtype passes both gates."""
+    q, k, v = _gate_qkv(dtype)
+    want = _attention(q, k, v, _causal()[2])
+    got = want.to(TORCH_DT[dtype]).double()
+    assert cases.max_rel_err(got.numpy(), want.numpy()) <= cases.TOL_MAX[dtype]
+    assert cases.l2_rel_err(got.numpy(), want.numpy()) <= cases.TOL_L2[dtype]
+
+
+@pytest.mark.parametrize("fault", list(FAULTS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_l2_gate_fails_faults_confined_to_some_rows(fault, dtype):
+    q, k, v = _gate_qkv(dtype)
+    want = _attention(q, k, v, _causal()[2])
+    got = FAULTS[fault](q, k, v).to(TORCH_DT[dtype]).double()
+    assert cases.l2_rel_err(got.numpy(), want.numpy()) > cases.TOL_L2[dtype]
+
+
+def test_l2_rel_err_is_absolute_against_zeros():
+    assert cases.l2_rel_err(np.array([3.0, 4.0]), np.zeros(2)) == 5.0
+    assert cases.l2_rel_err(np.zeros(2), np.zeros(2)) == 0.0
+
+
+def test_max_rel_err_divides_by_at_least_one():
+    assert cases.max_rel_err(np.array([0.5, 0.0]), np.array([0.25, 0.0])) == 0.25
+    assert cases.max_rel_err(np.array([9.0, 0.0]), np.array([8.0, 0.0])) == 1 / 8
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
