@@ -10,19 +10,25 @@ sources in the checkout and imports no JAX. Phases, each printing one JSON
 line with its own seconds, and any failure ends the run with a non-zero
 exit:
 
-1. build   compile ``csrc/paged_attention.cu``, ``csrc/flash_attention.cu``
-           (K2's fp32 route) and ``csrc/flash_attention_tc.cu`` (K2's bf16
-           tensor-core route), one nvcc each, sm_90a, and the Triton RMSNorm
-           kernels (forward and backward), concurrently; report each
-           tensor-core kernel's registers, spills and shared memory (ptxas
-           log) and check with ``cuobjdump -sass``, where the toolkit has
-           it, that the bf16 K2 forward holds HGMMA and its backward kernels
-           HGMMA or HMMA (a kernel with neither fails the phase);
+1. build   compile ``csrc/paged_attention.cu`` (K3/K4's fp32 route),
+           ``csrc/paged_attention_tc.cu`` (K3/K4's bf16 tensor-core route),
+           ``csrc/flash_attention.cu`` (K2's fp32 route) and
+           ``csrc/flash_attention_tc.cu`` (K2's bf16 tensor-core route), one
+           nvcc each, sm_90a, and the Triton RMSNorm kernels (forward and
+           backward), concurrently; report each tensor-core kernel's
+           registers, spills and shared memory (ptxas log) and check with
+           ``cuobjdump -sass``, where the toolkit has it, that the bf16 K2
+           forward holds HGMMA and the other tensor-core kernels HGMMA or
+           HMMA (a kernel with neither fails the phase);
 2. kernels each kernel against its plain PyTorch version on the card, over
            the JAX package's case tables and the serving and training
-           paths' shapes: paged attention and RMSNorm forward f32 within
-           1e-4 (the page loop sums in another order than the gather),
-           bf16 within 2e-2; flash attention forward and backward (dq, dk,
+           paths' shapes: paged attention (both routes, with the split-K
+           cases too) and RMSNorm forward f32 within 1e-4 (the page loop
+           sums in another order than the gather), bf16 within 2e-2, paged
+           attention also within ``cases.TOL_MAX`` of the largest |value|
+           and ``cases.TOL_L2_PAGED`` of the relative L2 error, two paged
+           calls bitwise equal, and each dtype on its own paged route;
+           flash attention forward and backward (dq, dk,
            dv against the plain version's autograd) and the RMSNorm
            backward within 1e-4 (f32) and 2e-2 (bf16) of the largest
            |value| (at least of 1), flash attention also within
@@ -64,7 +70,8 @@ exit:
            the serving and training paths' shapes, beside the bound: ``ms``
            back to back with CUDA events (what an eager caller pays, host
            dispatch included), ``device_ms`` replayed from a CUDA graph (the
-           card's own time).
+           card's own time); for K3 and K4 also ``cold_device_ms`` with the
+           L2 cache flushed before each call, as the serving step finds it.
 
 ``python3 chip_smoke.py --profile`` adds ``torch.profiler`` over the serve
 trace (after phase 4) and over two training steps (after phase 6), for
@@ -91,6 +98,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # NVIDIA H100 SXM data sheet: HBM rate, dense tensor-core bf16, fp32 (no TC)
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # Phase 3 gates on fp32 logits at full width (64 prefill positions plus
 # DECODE_STEPS decode steps), each set from readings on an H100 that
@@ -181,6 +189,19 @@ def graph_ms(fn, iters: int = 100, stream=None) -> float:
     return a.elapsed_time(b) / iters
 
 
+def cold_graph_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn`` with the L2 cache flushed before each
+    call (as a serving step finds it, after every layer's weights went
+    through): a CUDA graph of ``iters`` (flush, call) pairs less one of
+    ``iters`` flushes alone. The flush writes twice the H100's 50 MB L2."""
+    import torch
+
+    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.int32, device=DEV)
+    both = graph_ms(lambda: (flush.zero_(), fn()), iters)
+    alone = graph_ms(flush.zero_, iters)
+    return both - alone
+
+
 def profiler_device_ms(fn, iters: int = 10) -> float:
     """Device time per call as ``torch.profiler`` sums its kernels."""
     import torch
@@ -221,13 +242,18 @@ def autograd_device_ms(forward, leaves, grad_out, iters: int = 10):
 # ---------------------------------------------------------------------------
 
 
-CUDA_SOURCES = ("paged_attention", "flash_attention", "flash_attention_tc")
-# the bf16 K2 kernels and the SASS instructions that show they run on the
-# tensor cores: wgmma (HGMMA) for the forward, wgmma or mma.sync (HMMA) for
-# the backward
-TC_KERNELS = {"flash_fwd_tc_kernel": ("HGMMA",),
-              "flash_bwd_dq_tc_kernel": ("HGMMA", "HMMA"),
-              "flash_bwd_dkdv_tc_kernel": ("HGMMA", "HMMA")}
+CUDA_SOURCES = ("paged_attention", "paged_attention_tc", "flash_attention",
+                "flash_attention_tc")
+# the bf16 kernels, by library, and the SASS instructions that show they run
+# on the tensor cores: wgmma (HGMMA) for the K2 forward, wgmma or mma.sync
+# (HMMA) for the others
+TC_LIBRARIES = {
+    "flash_attention_tc": {"flash_fwd_tc_kernel": ("HGMMA",),
+                           "flash_bwd_dq_tc_kernel": ("HGMMA", "HMMA"),
+                           "flash_bwd_dkdv_tc_kernel": ("HGMMA", "HMMA")},
+    "paged_attention_tc": {"paged_decode_tc_kernel": ("HMMA", "HGMMA"),
+                           "paged_prefill_tc_kernel": ("HMMA", "HGMMA")},
+}
 SERVE_KERNELS = ("paged_attention", "paged_prefill_attention", "rmsnorm")
 TRAIN_KERNELS = ("flash_attention", "flash_attention_backward", "rmsnorm",
                  "rmsnorm_backward")
@@ -260,31 +286,38 @@ def phase_build():
         log = path.with_name(path.name + ".log")
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
-    tc_log = paths["flash_attention_tc"].with_name(paths["flash_attention_tc"].name + ".log")
-    tc_ptxas = _ptxas_by_kernel(tc_log.read_text())
-    sass = _sass_check(paths["flash_attention_tc"])
+    tc_ptxas, sass = {}, {}
+    for lib in TC_LIBRARIES:
+        log = paths[lib].with_name(paths[lib].name + ".log")
+        tc_ptxas.update(_ptxas_by_kernel(log.read_text()))
+        sass[lib] = _sass_check(paths[lib], TC_LIBRARIES[lib])
     from repro_torch.device import features
 
     emit("build", features=features(),
          libraries={n: str(p.relative_to(ROOT)) for n, p in paths.items()},
          tensor_core_kernels=tc_ptxas, sass=sass, ptxas=ptxas)
-    if sass.get("missing"):
-        raise AssertionError(f"build: bf16 K2 kernels without tensor-core instructions: "
-                             f"{sass['missing']}")
+    missing = [k for v in sass.values() for k in v.get("missing", [])]
+    if missing:
+        raise AssertionError(f"build: bf16 kernels without tensor-core instructions: "
+                             f"{missing}")
 
 
 def _kernel_key(mangled: str) -> str | None:
-    """``flash_fwd_tc_kernel<64>`` from a mangled name, None for others."""
-    m = re.search(r"(flash_(?:fwd|bwd)_\w*?(?:tc|sum)_kernel)(?:ILi(\d+)E)?", mangled)
+    """``flash_fwd_tc_kernel<64>`` or ``paged_decode_tc_kernel<64,64>``
+    from a mangled name, None for others."""
+    m = re.search(r"((?:flash_(?:fwd|bwd)_\w*?(?:tc|sum)|paged_(?:decode|prefill)_tc)_kernel)"
+                  r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", mangled)
     if not m:
         return None
-    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    args = ",".join(g for g in m.groups()[1:] if g)
+    return m.group(1) + (f"<{args}>" if args else "")
 
 
 def _ptxas_by_kernel(log: str) -> dict:
     """Registers, spill bytes and static shared memory of each kernel in a
-    ptxas ``-v`` report, and the dynamic shared memory its launcher asks
-    for (the library's own ``flash_tc_smem_bytes``)."""
+    ptxas ``-v`` report, and for K2 the dynamic shared memory its launcher
+    asks for (the library's own ``flash_tc_smem_bytes``; the paged
+    kernels' grows with the pages of a split: ``ops.tc_plan``)."""
     from repro_torch.kernels.flash_attention import ops as FA
 
     out, cur = {}, None
@@ -308,15 +341,15 @@ def _ptxas_by_kernel(log: str) -> dict:
             cur = None
     for key, row in out.items():
         name, _, dp = key.partition("<")
-        if dp and name in TC_KERNELS:
+        if dp and name in FA.TC_KERNELS:
             row["dynamic_smem"] = FA.tc_smem_bytes(int(dp[:-1]))[name]
     return out
 
 
-def _sass_check(lib) -> dict:
-    """Count HGMMA / HMMA in the SASS of each bf16 K2 kernel
-    (``cuobjdump -sass``); ``missing`` lists the kernels with neither of
-    the instructions ``TC_KERNELS`` asks of them."""
+def _sass_check(lib, wanted: dict) -> dict:
+    """Count HGMMA / HMMA in the SASS of each bf16 kernel of a library
+    (``cuobjdump -sass``); ``missing`` lists the kernels of ``wanted``
+    with none of the instructions it asks of them."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.access(tool, os.X_OK):
         return {"cuobjdump": "not available"}
@@ -334,10 +367,10 @@ def _sass_check(lib) -> dict:
             for op in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{op}\.", ln):
                     counts[cur][op] += 1
-    missing = [k for k, c in counts.items() if k.partition("<")[0] in TC_KERNELS
-               and not any(c[op] for op in TC_KERNELS[k.partition("<")[0]])]
+    missing = [k for k, c in counts.items() if k.partition("<")[0] in wanted
+               and not any(c[op] for op in wanted[k.partition("<")[0]])]
     seen = {k.partition("<")[0] for k in counts}
-    missing += [k for k in TC_KERNELS if k not in seen]
+    missing += [k for k in wanted if k not in seen]
     return {"cuobjdump": tool, "counts": counts, "missing": missing}
 
 
@@ -361,46 +394,15 @@ def phase_kernels():
     import torch
 
     from repro_torch.kernels import cases
-    from repro_torch.kernels.paged_attention import ops as PA
-    from repro_torch.kernels.paged_attention import ref as PR
     from repro_torch.kernels.rmsnorm import ops as RMS
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
 
-    fl = ("q", "k_pages", "v_pages")
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    checks = {"paged_attention": [], "paged_prefill_attention": [], "rmsnorm": []}
-    main_err = {}
+    checks = {"rmsnorm": []}
+    main_err = {"l2_rel_err": {}}
+    _check_paged_kernels(checks, main_err)
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for case in cases.PAGED_CASES + [cases.MAIN_PAGED]:
-            B, Hq, Hkv, D, ps, nL, P, lens, win, cap = case
-            t = _tensors(cases.paged_case(B, Hq, Hkv, D, ps, nL, P, lens, seed=11), dtype, fl)
-            args = (t["q"], t["k_pages"], t["v_pages"], t["block_tables"])
-            kw = dict(q_position=t["q_position"], cache_len=t["cache_len"],
-                      window=win, softcap=cap)
-            out = PA.paged_attention(*args, **kw)
-            torch.cuda.synchronize()
-            e = _err(out, PR.paged_attention_reference(*args, **kw))
-            checks["paged_attention"].append([dn, list(case[:8]), e])
-            if e > tol[dtype]:
-                raise AssertionError(f"paged_attention {dn} {case}: err {e} > {tol[dtype]}")
-            if case is cases.MAIN_PAGED and dtype is torch.bfloat16:
-                main_err["paged_attention"] = e
-        for case in cases.PREFILL_CASES + [cases.MAIN_PREFILL]:
-            B, C, Hq, Hkv, D, ps, nL, P, starts, win, cap = case
-            t = _tensors(cases.prefill_case(B, C, Hq, Hkv, D, ps, nL, P, starts, seed=12),
-                         dtype, fl)
-            args = (t["q"], t["k_pages"], t["v_pages"], t["block_tables"])
-            kw = dict(q_positions=t["q_positions"], cache_len=t["cache_len"],
-                      causal=True, window=win, softcap=cap)
-            out = PA.paged_prefill_attention(*args, **kw)
-            torch.cuda.synchronize()
-            e = _err(out, PR.paged_prefill_attention_reference(*args, **kw))
-            checks["paged_prefill_attention"].append([dn, list(case[:9]), e])
-            if e > tol[dtype]:
-                raise AssertionError(f"paged_prefill {dn} {case}: err {e} > {tol[dtype]}")
-            if case is cases.MAIN_PREFILL and dtype is torch.bfloat16:
-                main_err["paged_prefill_attention"] = e
         for rows, d in cases.RMS_CASES + cases.MAIN_RMS:
             for zc in (False, True):
                 c = cases.rms_case(rows, d, seed=13)
@@ -410,7 +412,7 @@ def phase_kernels():
                 torch.cuda.synchronize()
                 e = _err(out, rmsnorm_reference(x, s, 1e-6, zc))
                 checks["rmsnorm"].append([dn, [rows, d, zc], e])
-                if e > tol[dtype]:
+                if not e <= tol[dtype]:  # NaN fails too
                     raise AssertionError(f"rmsnorm {dn} {(rows, d, zc)}: err {e}")
                 if (rows, d) == cases.MAIN_RMS[0] and not zc and dtype is torch.bfloat16:
                     main_err["rmsnorm"] = e
@@ -418,11 +420,113 @@ def phase_kernels():
     emit("kernels", tf32=False, tolerance={"float32": 1e-4, "bfloat16": 2e-2},
          training_tolerance="of the largest |value|, at least of 1",
          flash_l2_tolerance=cases.TOL_L2,
-         max_abs_err={k: max(c[2] for c in v) for k, v in checks.items() if k != "flash_routes"},
-         flash_routes=checks["flash_routes"],
+         paged_l2_tolerance=cases.TOL_L2_PAGED,
+         max_abs_err={k: max(c[2] for c in v) for k, v in checks.items()
+                      if not k.endswith("_routes")},
+         flash_routes=checks["flash_routes"], paged_routes=checks["paged_routes"],
+         paged_bitwise_repeatable=True,
          main_shape_bf16_err=main_err, flash_backward_bitwise_repeatable=deterministic,
          cases=checks)
     return main_err
+
+
+def paged_inputs(kind: str, case, dtype, seed: int):
+    """The wrapper's positional and keyword arguments on the card for a
+    decode (``PAGED_*``) or prefill (``PREFILL_*``) case."""
+    from repro_torch.kernels import cases
+
+    fl = ("q", "k_pages", "v_pages")
+    if kind == "decode":
+        B, Hq, Hkv, D, ps, nL, P, lens, win, cap = case
+        t = _tensors(cases.paged_case(B, Hq, Hkv, D, ps, nL, P, lens, seed=seed), dtype, fl)
+        kw = dict(q_position=t["q_position"], cache_len=t["cache_len"], window=win,
+                  softcap=cap)
+    else:
+        B, C, Hq, Hkv, D, ps, nL, P, starts, win, cap = case
+        t = _tensors(cases.prefill_case(B, C, Hq, Hkv, D, ps, nL, P, starts, seed=seed),
+                     dtype, fl)
+        kw = dict(q_positions=t["q_positions"], cache_len=t["cache_len"], causal=True,
+                  window=win, softcap=cap)
+    return (t["q"], t["k_pages"], t["v_pages"], t["block_tables"]), kw
+
+
+def paged_errors(out, want) -> dict:
+    """The gates' readings of a paged output against its plain version:
+    ``abs`` the largest absolute error, ``max`` ``cases.max_rel_err``,
+    ``l2`` ``cases.l2_rel_err``."""
+    import numpy as np
+
+    from repro_torch.kernels import cases
+
+    got, w = _np(out), _np(want)
+    return {"abs": float(np.abs(got - w).max(initial=0.0)),
+            "max": cases.max_rel_err(got, w), "l2": cases.l2_rel_err(got, w)}
+
+
+def paged_failures(errs: dict, dtype_name: str) -> list:
+    """The readings of ``paged_errors`` past their gates, or not finite: the
+    absolute 1e-4 (f32) / 2e-2 (bf16) that phase 2 held them to first,
+    ``cases.TOL_MAX`` and ``cases.TOL_L2_PAGED``."""
+    from repro_torch.kernels import cases
+
+    tol = {"abs": {"float32": 1e-4, "bfloat16": 2e-2}[dtype_name],
+           "max": cases.TOL_MAX[dtype_name], "l2": cases.TOL_L2_PAGED[dtype_name]}
+    return [f"{k} {e:.3g} > {tol[k]}" for k, e in errs.items() if not e <= tol[k]]
+
+
+PAGED_KINDS = ("decode", "prefill")
+
+
+def paged_case_table(kind: str) -> list:
+    from repro_torch.kernels import cases
+
+    if kind == "decode":
+        return cases.PAGED_CASES + cases.PAGED_SPLIT_CASES + [cases.MAIN_PAGED]
+    return cases.PREFILL_CASES + cases.PREFILL_SPLIT_CASES + [cases.MAIN_PREFILL]
+
+
+def _check_paged_kernels(checks: dict, main_err: dict) -> None:
+    """K3 and K4 against their plain versions on both routes, over the JAX
+    case tables, the split cases and the serving shapes, held to
+    ``paged_failures``' gates; two calls of each must be bitwise equal, and
+    each dtype must launch only its own route."""
+    import torch
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.paged_attention import ops as PA
+    from repro_torch.kernels.paged_attention import ref as PR
+
+    fns = {"decode": (PA.paged_attention, PR.paged_attention_reference, "paged_attention"),
+           "prefill": (PA.paged_prefill_attention, PR.paged_prefill_attention_reference,
+                       "paged_prefill_attention")}
+    checks["paged_routes"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        before = dict(PA.ROUTE_LAUNCHES)
+        n = 0
+        for kind in PAGED_KINDS:
+            fn, ref, name = fns[kind]
+            checks.setdefault(name, [])
+            for case in paged_case_table(kind):
+                args, kw = paged_inputs(kind, case, dtype, seed=11 if kind == "decode" else 12)
+                out, again = fn(*args, **kw), fn(*args, **kw)
+                n += 2
+                torch.cuda.synchronize()
+                errs = paged_errors(out, ref(*args, **kw))
+                checks[name].append([dn, list(case[:9]), errs["abs"], errs["max"], errs["l2"]])
+                bad = paged_failures(errs, dn)
+                if bad:
+                    raise AssertionError(f"{name} {dn} {case}: {', '.join(bad)}")
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{name} {dn} {case}: two calls differ")
+                if case in (cases.MAIN_PAGED, cases.MAIN_PREFILL) and dtype is torch.bfloat16:
+                    main_err[name] = errs["abs"]
+                    main_err["l2_rel_err"][name] = errs["l2"]
+        moved = {r: PA.ROUTE_LAUNCHES[r] - before[r] for r in before}
+        want = {r: (n if r == PA.route(dtype) else 0) for r in before}
+        checks["paged_routes"][dn] = moved
+        if moved != want:
+            raise AssertionError(f"paged attention {dn}: route launches {moved} != {want}")
 
 
 def _np(t):
@@ -476,11 +580,11 @@ def flash_errors(out, grads, want) -> dict:
 
 def flash_failures(errs: dict, dtype_name: str) -> list:
     """The readings of ``flash_errors`` past their gate (cases.TOL_MAX,
-    cases.TOL_L2)."""
+    cases.TOL_L2), or not finite."""
     from repro_torch.kernels import cases
 
     tol = {"max": cases.TOL_MAX[dtype_name], "l2": cases.TOL_L2[dtype_name]}
-    return [f"{k} {e:.3g} > {tol[k[4:]]}" for k, e in errs.items() if e > tol[k[4:]]]
+    return [f"{k} {e:.3g} > {tol[k[4:]]}" for k, e in errs.items() if not e <= tol[k[4:]]]
 
 
 def _check_training_kernels(checks: dict, main_err: dict) -> bool:
@@ -526,8 +630,8 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
             if case[:9] == cases.MAIN_FLASH and dtype is torch.bfloat16:
                 main_err["flash_attention"] = errs["fwd_max"]
                 main_err["flash_attention_backward"] = errs["bwd_max"]
-                main_err["l2_rel_err"] = {"flash_attention": errs["fwd_l2"],
-                                          "flash_attention_backward": errs["bwd_l2"]}
+                main_err["l2_rel_err"].update({"flash_attention": errs["fwd_l2"],
+                                               "flash_attention_backward": errs["bwd_l2"]})
             del grads, out
             torch.cuda.empty_cache()
         # each dtype on its own route: two forwards and two backwards a case
@@ -547,7 +651,7 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
                 e = max(cases.max_rel_err(_np(xl.grad), _np(dx)),
                         cases.max_rel_err(_np(sl.grad), _np(ds)))
                 checks["rmsnorm_backward"].append([dn, [rows, d, zc], e])
-                if e > cases.TOL_MAX[dn]:
+                if not e <= cases.TOL_MAX[dn]:
                     raise AssertionError(f"rmsnorm backward {dn} {(rows, d, zc)}: err {e}")
                 if (rows, d) == cases.MAIN_RMS_TRAIN and not zc and dtype is torch.bfloat16:
                     main_err["rmsnorm_backward"] = e
@@ -1094,9 +1198,8 @@ def phase_timing(main_err, counts):
     t = _tensors(cases.paged_case(B, Hq, Hkv, D, ps, nL, P, lens, seed=41), bf, fl)
     args = (t["q"], t["k_pages"], t["v_pages"], t["block_tables"])
     kw = dict(q_position=t["q_position"], cache_len=t["cache_len"])
-    n_keys = sum(lens)
-    nbytes = (2 * B * Hq * D + 2 * n_keys * Hkv * D) * es + 4 * (B * nL + 2 * B)
-    flops = 4 * Hq * D * n_keys
+    flops, nbytes = PA.launch_costs(t["q"], t["k_pages"], nL, lens, [n - 1 for n in lens],
+                                    causal=False)
     bound, by = _bound_ms(nbytes, flops, "bfloat16")
     S = nL * ps
     kd = PR.gather_pages(t["k_pages"], t["block_tables"]).permute(0, 2, 1, 3)
@@ -1106,13 +1209,16 @@ def phase_timing(main_err, counts):
     qd = t["q"].permute(0, 2, 1, 3).contiguous()
     mask = (torch.arange(S, device=DEV)[None, :] < t["cache_len"][:, None])[:, None, None]
     rows.append(dict(
-        name="paged_attention", route="cuda",
-        source="src/repro_torch/csrc/paged_attention.cu",
+        name="paged_attention", route="cuda", variant=PA.route(bf),
+        source="src/repro_torch/csrc/paged_attention_tc.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:43",
         shape=f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={ps} lens={list(lens)} bf16",
         ms=cuda_ms(lambda: PA.paged_attention(*args, **kw)),
         device_ms=graph_ms(lambda: PA.paged_attention(*args, **kw)),
         library_device_ms=graph_ms(
+            lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
+        cold_device_ms=cold_graph_ms(lambda: PA.paged_attention(*args, **kw)),
+        library_cold_device_ms=cold_graph_ms(
             lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
         plain_ms=cuda_ms(lambda: PR.paged_attention_reference(*args, **kw), iters=50),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
@@ -1124,10 +1230,8 @@ def phase_timing(main_err, counts):
     t = _tensors(cases.prefill_case(B, C, Hq, Hkv, D, ps, nL, P, starts, seed=42), bf, fl)
     args = (t["q"], t["k_pages"], t["v_pages"], t["block_tables"])
     kw = dict(q_positions=t["q_positions"], cache_len=t["cache_len"], causal=True)
-    n_keys = sum(s + C for s in starts)
-    pairs = sum(sum(s + c + 1 for c in range(C)) for s in starts)
-    nbytes = (2 * B * C * Hq * D + 2 * n_keys * Hkv * D) * es + 4 * (B * nL + B * C + B)
-    flops = 4 * Hq * D * pairs
+    flops, nbytes = PA.launch_costs(t["q"], t["k_pages"], nL, [s + C for s in starts], starts,
+                                    causal=True)
     bound, by = _bound_ms(nbytes, flops, "bfloat16")
     S = nL * ps
     kd = PR.gather_pages(t["k_pages"], t["block_tables"]).permute(0, 2, 1, 3)
@@ -1139,13 +1243,16 @@ def phase_timing(main_err, counts):
     mask = ((kpos[None, None, :] <= t["q_positions"][:, :, None])
             & (kpos[None, None, :] < t["cache_len"][:, None, None]))[:, None]
     rows.append(dict(
-        name="paged_prefill_attention", route="cuda",
-        source="src/repro_torch/csrc/paged_attention.cu",
+        name="paged_prefill_attention", route="cuda", variant=PA.route(bf),
+        source="src/repro_torch/csrc/paged_attention_tc.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:99",
         shape=f"B={B} C={C} Hq={Hq} Hkv={Hkv} D={D} page={ps} start={list(starts)} bf16",
         ms=cuda_ms(lambda: PA.paged_prefill_attention(*args, **kw)),
         device_ms=graph_ms(lambda: PA.paged_prefill_attention(*args, **kw)),
         library_device_ms=graph_ms(
+            lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
+        cold_device_ms=cold_graph_ms(lambda: PA.paged_prefill_attention(*args, **kw)),
+        library_cold_device_ms=cold_graph_ms(
             lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
         plain_ms=cuda_ms(lambda: PR.paged_prefill_attention_reference(*args, **kw), iters=50),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
@@ -1206,6 +1313,7 @@ def _rms_train_timing() -> dict:
                 device_ms=graph_ms(lambda: RMS.rmsnorm(x, s)),
                 plain_ms=cuda_ms(lambda: rmsnorm_reference(x, s), iters=50),
                 library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), s, 1e-6)),
+                library_device_ms=graph_ms(lambda: F.rms_norm(x, (d,), s, 1e-6)),
                 library="F.rms_norm", bound_ms=bound, bound_by=by, bytes=nbytes,
                 flops=4 * r * d)
 

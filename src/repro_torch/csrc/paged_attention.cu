@@ -1,6 +1,8 @@
-// Paged attention for Hopper (sm_90a): decode (one query per sequence) and
-// chunked prefill (a chunk of queries per sequence), both read straight
-// through the block table from the shared page pool.
+// Paged attention for Hopper (sm_90a) on the CUDA cores: the fp32 route of
+// decode (one query per sequence) and chunked prefill (a chunk of queries
+// per sequence), both read straight through the block table from the
+// shared page pool. bf16 goes to the tensor-core kernels of
+// paged_attention_tc.cu (split-K over pages, mma.sync, cp.async staging).
 //
 // Replaces:
 //   paged_decode_kernel  <- repro/kernels/paged_attention/kernel.py
@@ -39,9 +41,8 @@
 // is exact.
 //
 // Not yet done (later work): split-K over pages for long caches with few
-// (sequence, head) pairs, tensor-core (wgmma) scores, TMA staging.
+// (sequence, head) pairs (the bf16 route has it).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -69,13 +70,9 @@ struct Args {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -237,27 +234,23 @@ int launch(void (*kernel)(Args), const Args& a, int B, void* stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
-extern "C" int paged_decode_launch(int dtype, const void* q, const void* k, const void* v,
+// float32 only. Returns the cudaError_t of the launch.
+extern "C" int paged_decode_launch(const void* q, const void* k, const void* v,
                                    const int* tbl, const int* lens, const int* qpos,
                                    void* out, int B, int Hq, int Hkv, int D, int page,
                                    int nL, int P, int window, float softcap, float scale,
                                    void* stream) {
   const Args a{q, k, v, tbl, lens, qpos, out, 1, Hq, Hkv, D, page, nL, P,
                0, window, softcap, scale};
-  if (dtype == 0) return launch(paged_decode_kernel<float>, a, B, stream);
-  if (dtype == 1) return launch(paged_decode_kernel<__nv_bfloat16>, a, B, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(paged_decode_kernel<float>, a, B, stream);
 }
 
-extern "C" int paged_prefill_launch(int dtype, const void* q, const void* k, const void* v,
+extern "C" int paged_prefill_launch(const void* q, const void* k, const void* v,
                                     const int* tbl, const int* lens, const int* qstart,
                                     void* out, int B, int C, int Hq, int Hkv, int D,
                                     int page, int nL, int P, int causal, int window,
                                     float softcap, float scale, void* stream) {
   const Args a{q, k, v, tbl, lens, qstart, out, C, Hq, Hkv, D, page, nL, P,
                causal, window, softcap, scale};
-  if (dtype == 0) return launch(paged_prefill_kernel<float>, a, B, stream);
-  if (dtype == 1) return launch(paged_prefill_kernel<__nv_bfloat16>, a, B, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(paged_prefill_kernel<float>, a, B, stream);
 }

@@ -3,9 +3,10 @@
 The case tables are those of the JAX package's ``tests/test_kernels.py``
 (``FLASH_CASES``, ``PAGED_CASES``, ``PREFILL_CASES``, ``RMS_CASES``), plus
 ``FLASH_KVLEN_CASES`` for the position and ``kv_len`` masking of
-``layers.attention.flash_attention``; the functions below make the inputs
-with numpy from a seed, so the JAX functions and the port's kernels and
-plain versions see the same numbers. ``MAIN_*`` are the shapes the serving
+``layers.attention.flash_attention``, and ``PAGED_SPLIT_CASES`` and
+``PREFILL_SPLIT_CASES`` for the split-K edges of the bf16 paged kernels;
+the functions below make the inputs with numpy from a seed, so the JAX
+functions and the port's kernels and plain versions see the same numbers. ``MAIN_*`` are the shapes the serving
 and training paths give the kernels at tinyllama-1.1b's full width.
 """
 
@@ -51,6 +52,31 @@ PREFILL_CASES = [
     (1, 8, 2, 2, 100, 8, 4, 5, (8,), 5, 50.0),          # odd D + win + cap
 ]
 
+# Split-K over pages (the bf16 route's ``ops.tc_plan``): groups of at most
+# 16 query rows split; at the serving widths a decode split holds 4 pages
+# (64 keys), and a 64-token prefill chunk walks its table in one split.
+# Idle slot (cache_len 0), one key, one below a split boundary, a full
+# table; a window that starts inside an earlier split; odd head dims and
+# soft-caps over several splits (D = 30: element-wise staging and
+# combine); the last chunk of a 512-token table; a 2-token chunk (16 rows)
+# that splits, one row ending at a split boundary.
+PAGED_SPLIT_CASES = [
+    # B, Hq, Hkv, D, psize, nL, P, lens, window, softcap
+    (4, 32, 4, 64, 16, 32, 40, (0, 1, 63, 512), None, None),
+    (2, 32, 4, 64, 16, 32, 40, (300, 200), 100, None),
+    (3, 8, 2, 32, 8, 16, 40, (0, 57, 128), 20, 30.0),
+    (2, 4, 2, 100, 8, 12, 30, (95, 9), 11, 50.0),
+    (2, 4, 2, 30, 8, 12, 30, (70, 33), None, None),       # D % 4 != 0
+]
+
+PREFILL_SPLIT_CASES = [
+    # B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap
+    (1, 64, 32, 4, 64, 16, 32, 40, (448,), None, None),   # last chunk, full table
+    (1, 64, 32, 4, 64, 16, 32, 40, (256,), 100, None),    # window from split 1
+    (2, 24, 8, 2, 32, 8, 16, 40, (0, 100), 30, 30.0),     # ragged row tiles, cap
+    (2, 2, 8, 1, 64, 16, 32, 40, (300, 62), 100, None),   # 16 rows: 8 splits
+]
+
 RMS_CASES = [(4, 128), (3, 300), (1, 1024), (17, 96)]
 
 # tinyllama-1.1b serving: Hq=32, Hkv=4, D=64, page 16, max_len 512 (32
@@ -71,6 +97,8 @@ MAIN_RMS_TRAIN = (8192, 2048)
 # fault leaves alone. Both take numpy arrays.
 TOL_MAX = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}
+# paged attention (K3, K4), beside the elementwise TOL_MAX gate
+TOL_L2_PAGED = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 def max_rel_err(got, want) -> float:

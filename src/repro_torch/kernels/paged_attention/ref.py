@@ -4,8 +4,10 @@ Both gather a slot's pages into the dense ``(B, n_logical*page, Hkv, D)``
 view through the block table (``-1`` entries clipped to page 0; the
 ``cache_len`` mask hides them), then attend:
 
-* decode: ``repro.layers.attention.decode_attention`` transcribed verbatim
-  (the JAX ``paged_attention_reference``);
+* decode: ``repro.layers.attention.decode_attention`` transcribed (the JAX
+  ``paged_attention_reference``), except that a row with no visible key
+  (cache_len 0) outputs 0, as the Pallas kernel does, where the softmax
+  over its NEG_INF scores would give the mean of V;
 * prefill: one masked softmax over the whole view with the ``kv_len``,
   causal, window and softcap semantics of the JAX ``flash_attention``:
   ``NEG_INF`` fill, the ``m_safe`` guard, masked probabilities forced to
@@ -64,6 +66,10 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, *, q_position,
         mask = mask & (kpos > qpos - window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    # a row that sees no key (an idle slot, cache_len 0) writes 0, as the
+    # Pallas kernel and the port's kernels do (the softmax alone would give
+    # it the mean of V); every other row is left bit for bit as it was
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
     o = torch.einsum("bghqk,bhkd->bghqd", p, vg.to(acc))
     return o.permute(0, 3, 2, 1, 4).reshape(B, 1, Hq, D).to(q.dtype)
 

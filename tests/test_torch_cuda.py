@@ -12,7 +12,8 @@ attention and forwards f32 1e-4 (the kernels sum in another order than the
 plain versions), bf16 2e-2; the training kernels' outputs and gradients
 f32 1e-4 and bf16 2e-2 of the largest |value| (at least of 1): bf16 keeps
 ~3 significant digits, so one rounding of a value near 16 is 0.06; flash
-attention's also within ``cases.TOL_L2`` of the relative L2 error.
+attention's also within ``cases.TOL_L2`` of the relative L2 error, paged
+attention's within ``cases.TOL_L2_PAGED``.
 """
 
 import numpy as np
@@ -63,42 +64,108 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", cases.PAGED_CASES + [cases.MAIN_PAGED],
-                         ids=[str(c[:7]) for c in cases.PAGED_CASES + [cases.MAIN_PAGED]])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_paged_decode_kernel_matches_plain(cuda, case, dtype):
+PAGED_ALL = cases.PAGED_CASES + cases.PAGED_SPLIT_CASES + [cases.MAIN_PAGED]
+PREFILL_ALL = cases.PREFILL_CASES + cases.PREFILL_SPLIT_CASES + [cases.MAIN_PREFILL]
+
+
+def _paged_args(case, dtype, cuda, seed):
+    """Decode inputs on the card and the wrapper's keyword arguments."""
     B, Hq, Hkv, D, psize, nL, P, lens, window, softcap = case
-    c = cases.paged_case(B, Hq, Hkv, D, psize, nL, P, lens, seed=7)
+    c = cases.paged_case(B, Hq, Hkv, D, psize, nL, P, lens, seed=seed)
     td = TORCH_DT[dtype]
     args = [_th(c[k], td, cuda) for k in ("q", "k_pages", "v_pages")]
     args.append(_th(c["block_tables"], None, cuda))
     kw = dict(q_position=_th(c["q_position"], None, cuda),
               cache_len=_th(c["cache_len"], None, cuda),
               window=window, softcap=softcap)
-    out = PA.paged_attention(*args, **kw)
-    torch.cuda.synchronize()
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    _close(_f32(out), _f32(paged_attention_reference(*args, **kw)), tol)
+    return args, kw
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", cases.PREFILL_CASES + [cases.MAIN_PREFILL],
-                         ids=[str(c[:9]) for c in cases.PREFILL_CASES + [cases.MAIN_PREFILL]])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_paged_prefill_kernel_matches_plain(cuda, case, dtype):
+def _prefill_args(case, dtype, cuda, seed):
+    """Prefill inputs on the card and the wrapper's keyword arguments."""
     B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap = case
-    c = cases.prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=8)
+    c = cases.prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=seed)
     td = TORCH_DT[dtype]
     args = [_th(c[k], td, cuda) for k in ("q", "k_pages", "v_pages")]
     args.append(_th(c["block_tables"], None, cuda))
     kw = dict(q_positions=_th(c["q_positions"], None, cuda),
               cache_len=_th(c["cache_len"], None, cuda),
               causal=True, window=window, softcap=softcap)
+    return args, kw
+
+
+def _paged_close(got, want, dtype):
+    """Paged attention's gates: elementwise within 1e-4 (f32) / 2e-2 (bf16),
+    and the relative L2 error within ``cases.TOL_L2_PAGED``."""
+    _close(got, want, 1e-4 if dtype == "float32" else 2e-2)
+    assert cases.l2_rel_err(got, want) <= cases.TOL_L2_PAGED[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_ALL, ids=[str(c[:8]) for c in PAGED_ALL])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_kernel_matches_plain(cuda, case, dtype):
+    args, kw = _paged_args(case, dtype, cuda, seed=7)
+    out = PA.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    _paged_close(_f32(out), _f32(paged_attention_reference(*args, **kw)), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PREFILL_ALL, ids=[str(c[:9]) for c in PREFILL_ALL])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_prefill_kernel_matches_plain(cuda, case, dtype):
+    args, kw = _prefill_args(case, dtype, cuda, seed=8)
     out = PA.paged_prefill_attention(*args, **kw)
     torch.cuda.synchronize()
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    _close(_f32(out), _f32(paged_prefill_attention_reference(*args, **kw)), tol)
+    _paged_close(_f32(out), _f32(paged_prefill_attention_reference(*args, **kw)), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,case", [("decode", c) for c in PAGED_ALL]
+                         + [("prefill", c) for c in PREFILL_ALL],
+                         ids=[f"decode{c[:8]}" for c in PAGED_ALL]
+                         + [f"prefill{c[:9]}" for c in PREFILL_ALL])
+def test_paged_tensor_core_route_is_bitwise_repeatable(cuda, kind, case):
+    """The splits are combined in split order, whichever block arrives last:
+    two bf16 calls give bitwise-equal outputs."""
+    if kind == "decode":
+        args, kw = _paged_args(case, "bfloat16", cuda, seed=9)
+        outs = [PA.paged_attention(*args, **kw) for _ in range(2)]
+    else:
+        args, kw = _prefill_args(case, "bfloat16", cuda, seed=9)
+        outs = [PA.paged_prefill_attention(*args, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_idle_slot_writes_zeros(cuda, dtype):
+    """A decode slot with cache_len 0 sees no key: its rows are exactly 0,
+    whatever the other slots hold (PAGED_SPLIT_CASES[0]: 0, 1, 63, 512)."""
+    case = cases.PAGED_SPLIT_CASES[0]
+    args, kw = _paged_args(case, dtype, cuda, seed=10)
+    out = PA.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert case[7][0] == 0
+    assert torch.count_nonzero(out[0]) == 0 and torch.count_nonzero(out[1:]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_dtype_launches_its_own_route(cuda, dtype):
+    """bf16 launches the tensor-core kernels, f32 the CUDA-core kernels:
+    one decode and one prefill launch on its route, none on the other."""
+    before = dict(PA.ROUTE_LAUNCHES)
+    args, kw = _paged_args(cases.MAIN_PAGED, dtype, cuda, seed=11)
+    PA.paged_attention(*args, **kw)
+    args, kw = _prefill_args(cases.MAIN_PREFILL, dtype, cuda, seed=11)
+    PA.paged_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    moved = {r: PA.ROUTE_LAUNCHES[r] - before[r] for r in before}
+    want = PA.route(TORCH_DT[dtype])
+    assert moved == {r: (2 if r == want else 0) for r in before}
 
 
 @pytest.mark.cuda

@@ -59,8 +59,11 @@ def _f32(t):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", cases.PAGED_CASES,
-                         ids=[str(c[:7]) for c in cases.PAGED_CASES])
+PAGED_JAX = cases.PAGED_CASES + cases.PAGED_SPLIT_CASES
+PREFILL_JAX = cases.PREFILL_CASES + cases.PREFILL_SPLIT_CASES
+
+
+@pytest.mark.parametrize("case", PAGED_JAX, ids=[str(c[:8]) for c in PAGED_JAX])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_decode_plain_matches_pallas(case, dtype):
     B, Hq, Hkv, D, psize, nL, P, lens, window, softcap = case
@@ -82,8 +85,7 @@ def test_paged_decode_plain_matches_pallas(case, dtype):
     _close(_f32(out_t), out_j, TOL[dtype])
 
 
-@pytest.mark.parametrize("case", cases.PREFILL_CASES,
-                         ids=[str(c[:9]) for c in cases.PREFILL_CASES])
+@pytest.mark.parametrize("case", PREFILL_JAX, ids=[str(c[:9]) for c in PREFILL_JAX])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_prefill_plain_matches_pallas(case, dtype):
     B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap = case
