@@ -5,26 +5,31 @@ and check them.
     python3 chip_smoke.py
 
 Run from the repository root (it puts ``src`` on ``sys.path`` itself). It
-needs one NVIDIA GPU, ``nvcc`` and Triton; it builds every kernel from the
-sources in the checkout and imports no JAX. Phases, each printing one JSON
+needs one NVIDIA GPU and ``nvcc``; it builds every kernel from the sources
+in the checkout and imports no JAX. Phases, each printing one JSON
 line with its own seconds, and any failure ends the run with a non-zero
 exit:
 
 1. build   compile ``csrc/paged_attention.cu`` (K3/K4's fp32 route),
            ``csrc/paged_attention_tc.cu`` (K3/K4's bf16 tensor-core route),
-           ``csrc/flash_attention.cu`` (K2's fp32 route) and
-           ``csrc/flash_attention_tc.cu`` (K2's bf16 tensor-core route), one
-           nvcc each, sm_90a, and the Triton RMSNorm kernels (forward and
-           backward), concurrently; report each tensor-core kernel's
-           registers, spills and shared memory (ptxas log) and check with
+           ``csrc/flash_attention.cu`` (K2's fp32 route),
+           ``csrc/flash_attention_tc.cu`` (K2's bf16 tensor-core route) and
+           ``csrc/rmsnorm.cu`` (K1 forward and backward, both dtypes), one
+           nvcc each, sm_90a, concurrently; report each tensor-core and
+           RMSNorm kernel's registers, spills and shared memory (ptxas log;
+           an RMSNorm kernel that spills fails the phase) and check with
            ``cuobjdump -sass``, where the toolkit has it, that the bf16 K2
            forward holds HGMMA and the other tensor-core kernels HGMMA or
-           HMMA (a kernel with neither fails the phase);
+           HMMA, and that every RMSNorm kernel of the 16-byte path holds
+           16-byte loads (LDG.E.128); a kernel without fails the phase;
 2. kernels each kernel against its plain PyTorch version on the card, over
            the JAX package's case tables and the serving and training
            paths' shapes: paged attention (both routes, with the split-K
            cases too) and RMSNorm forward f32 within 1e-4 (the page loop
-           sums in another order than the gather), bf16 within 2e-2, paged
+           sums in another order than the gather), bf16 within 2e-2 (RMSNorm
+           also at the training shape and every model width, within
+           ``cases.TOL_MAX`` of the largest |value| and ``cases.TOL_L2_RMS``
+           of the relative L2 error), paged
            attention also within ``cases.TOL_MAX`` of the largest |value|
            and ``cases.TOL_L2_PAGED`` of the relative L2 error, two paged
            calls bitwise equal, and each dtype on its own paged route;
@@ -32,9 +37,10 @@ exit:
            dv against the plain version's autograd) and the RMSNorm
            backward within 1e-4 (f32) and 2e-2 (bf16) of the largest
            |value| (at least of 1), flash attention also within
-           ``cases.TOL_L2`` of the relative L2 error (which a fault in
+           ``cases.TOL_L2`` and the RMSNorm backward within
+           ``cases.TOL_L2_RMS`` of the relative L2 error (which a fault in
            some rows moves where the largest |value| lies in others); two
-           flash backward calls must give
+           flash backward calls, and two RMSNorm backward calls, must give
            bitwise-equal gradients; f32 flash must launch only the
            CUDA-core route and bf16 only the tensor-core route. TF32 is off
            for every matmul;
@@ -71,7 +77,9 @@ exit:
            back to back with CUDA events (what an eager caller pays, host
            dispatch included), ``device_ms`` replayed from a CUDA graph (the
            card's own time); for K3 and K4 also ``cold_device_ms`` with the
-           L2 cache flushed before each call, as the serving step finds it.
+           L2 cache flushed before each call, as the serving step finds it;
+           for the K1 backward the row pass's and the combine's device times
+           apart, from the profiler's kernel names.
 
 ``python3 chip_smoke.py --profile`` adds ``torch.profiler`` over the serve
 trace (after phase 4) and over two training steps (after phase 6), for
@@ -243,7 +251,7 @@ def autograd_device_ms(forward, leaves, grad_out, iters: int = 10):
 
 
 CUDA_SOURCES = ("paged_attention", "paged_attention_tc", "flash_attention",
-                "flash_attention_tc")
+                "flash_attention_tc", "rmsnorm")
 # the bf16 kernels, by library, and the SASS instructions that show they run
 # on the tensor cores: wgmma (HGMMA) for the K2 forward, wgmma or mma.sync
 # (HMMA) for the others
@@ -266,20 +274,13 @@ def phase_build():
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.paged_attention import ops as PA
     from repro_torch.kernels.rmsnorm import ops as RMS
-    from repro_torch.kernels.rmsnorm import kernel as RK
 
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(CUDA_SOURCES) + 1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(CUDA_SOURCES)) as pool:
         libs = {n: pool.submit(build.compile_library, n) for n in CUDA_SOURCES}
-        tr = pool.submit(RK.compile_kernel)
         paths = {n: f.result() for n, f in libs.items()}
-        tr.result()
     PA.load()
     FA.load()
-    # the first launches compile the Triton kernels (forward, backward) for
-    # these constants
-    x = torch.ones((1, 2048), dtype=torch.bfloat16, device=DEV, requires_grad=True)
-    s = torch.ones(2048, dtype=torch.bfloat16, device=DEV, requires_grad=True)
-    RMS.rmsnorm(x, s).backward(torch.ones_like(x))
+    RMS.load()
     torch.cuda.synchronize()
     ptxas = {}
     for name, path in paths.items():
@@ -291,20 +292,37 @@ def phase_build():
         log = paths[lib].with_name(paths[lib].name + ".log")
         tc_ptxas.update(_ptxas_by_kernel(log.read_text()))
         sass[lib] = _sass_check(paths[lib], TC_LIBRARIES[lib])
+    log = paths["rmsnorm"].with_name(paths["rmsnorm"].name + ".log")
+    rms_ptxas = _ptxas_by_kernel(log.read_text())
+    sass["rmsnorm"] = _sass_vectors(paths["rmsnorm"])
+    del ptxas["rmsnorm"]  # by kernel in rmsnorm_kernels
     from repro_torch.device import features
 
     emit("build", features=features(),
          libraries={n: str(p.relative_to(ROOT)) for n, p in paths.items()},
-         tensor_core_kernels=tc_ptxas, sass=sass, ptxas=ptxas)
+         tensor_core_kernels=tc_ptxas, rmsnorm_kernels=rms_ptxas, sass=sass, ptxas=ptxas)
     missing = [k for v in sass.values() for k in v.get("missing", [])]
     if missing:
-        raise AssertionError(f"build: bf16 kernels without tensor-core instructions: "
-                             f"{missing}")
+        raise AssertionError(f"build: kernels without their instructions (tensor-core "
+                             f"products, 16-byte loads): {missing}")
+    spills = [k for k, v in rms_ptxas.items() if v.get("spill_stores") or v.get("spill_loads")]
+    if spills or not rms_ptxas:
+        raise AssertionError(f"build: RMSNorm kernels that spill: {spills} "
+                             f"(of {sorted(rms_ptxas)})")
+
+
+_RMS_ARGS = {"13__nv_bfloat16": "bf16", "f": "f32"}
 
 
 def _kernel_key(mangled: str) -> str | None:
-    """``flash_fwd_tc_kernel<64>`` or ``paged_decode_tc_kernel<64,64>``
-    from a mangled name, None for others."""
+    """``flash_fwd_tc_kernel<64>``, ``paged_decode_tc_kernel<64,64>`` or
+    ``rmsnorm_bwd_kernel<bf16,bf16,8,2>`` (x's type, the scale's, elements
+    an access, accesses a thread) from a mangled name, None for others."""
+    m = re.search(r"(rmsnorm_(?:fwd|bwd|dscale)_kernel)I(\w*?)EE", mangled)
+    if m:
+        toks = re.findall(r"13__nv_bfloat16|S\d*_|Li\d+|f", m.group(2))
+        args = [_RMS_ARGS.get(t, "bf16" if t.startswith("S") else t[2:]) for t in toks]
+        return f"{m.group(1)}<{','.join(args)}>"
     m = re.search(r"((?:flash_(?:fwd|bwd)_\w*?(?:tc|sum)|paged_(?:decode|prefill)_tc)_kernel)"
                   r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", mangled)
     if not m:
@@ -346,13 +364,13 @@ def _ptxas_by_kernel(log: str) -> dict:
     return out
 
 
-def _sass_check(lib, wanted: dict) -> dict:
-    """Count HGMMA / HMMA in the SASS of each bf16 kernel of a library
-    (``cuobjdump -sass``); ``missing`` lists the kernels of ``wanted``
-    with none of the instructions it asks of them."""
+def _sass_counts(lib, ops: dict):
+    """(cuobjdump, {kernel key: {op: count}}) of the lines that match each
+    regex of ``ops`` in a library's SASS (``cuobjdump -sass``); counts None
+    where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.access(tool, os.X_OK):
-        return {"cuobjdump": "not available"}
+        return "not available", None
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     counts, cur = {}, None
@@ -361,17 +379,42 @@ def _sass_check(lib, wanted: dict) -> dict:
         if m:
             cur = _kernel_key(m.group(1))
             if cur:
-                counts[cur] = {"HGMMA": 0, "HMMA": 0}
+                counts[cur] = dict.fromkeys(ops, 0)
             continue
         if cur:
-            for op in ("HGMMA", "HMMA"):
-                if re.search(rf"\b{op}\.", ln):
+            for op, rx in ops.items():
+                if re.search(rx, ln):
                     counts[cur][op] += 1
+    return tool, counts
+
+
+def _sass_check(lib, wanted: dict) -> dict:
+    """Count HGMMA / HMMA in the SASS of each bf16 kernel of a library;
+    ``missing`` lists the kernels of ``wanted`` with none of the
+    instructions it asks of them."""
+    tool, counts = _sass_counts(lib, {op: rf"\b{op}\." for op in ("HGMMA", "HMMA")})
+    if counts is None:
+        return {"cuobjdump": tool}
     missing = [k for k, c in counts.items() if k.partition("<")[0] in wanted
                and not any(c[op] for op in wanted[k.partition("<")[0]])]
     seen = {k.partition("<")[0] for k in counts}
     missing += [k for k in wanted if k not in seen]
     return {"cuobjdump": tool, "counts": counts, "missing": missing}
+
+
+def _sass_vectors(lib) -> dict:
+    """Count 16-byte global loads and stores in the SASS of each RMSNorm
+    kernel; ``missing`` lists the forward and backward kernels of the
+    16-byte path (more than one element an access) with no 16-byte load."""
+    tool, counts = _sass_counts(lib, {"LDG.128": r"\bLDG\.E\.(?:\w+\.)*128\b",
+                                      "STG.128": r"\bSTG\.E\.(?:\w+\.)*128\b"})
+    if counts is None:
+        return {"cuobjdump": tool}
+    vector = [k for k in counts if not k.startswith("rmsnorm_dscale")
+              and k.rstrip(">").split(",")[-2] != "1"]
+    return {"cuobjdump": tool, "counts": counts,
+            "missing": [k for k in vector if not counts[k]["LDG.128"]]
+            + ([] if vector else ["rmsnorm_fwd_kernel", "rmsnorm_bwd_kernel"])}
 
 
 # ---------------------------------------------------------------------------
@@ -401,32 +444,40 @@ def phase_kernels():
     checks = {"rmsnorm": []}
     main_err = {"l2_rel_err": {}}
     _check_paged_kernels(checks, main_err)
+    # the absolute gate on the JAX case table and the serving shapes; the
+    # relative gates (cases.TOL_MAX, cases.TOL_L2_RMS) everywhere
+    absolute = cases.RMS_CASES + cases.MAIN_RMS
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for rows, d in cases.RMS_CASES + cases.MAIN_RMS:
+        for rows, d in absolute + [cases.MAIN_RMS_TRAIN] + cases.RMS_WIDTH_CASES:
             for zc in (False, True):
                 c = cases.rms_case(rows, d, seed=13)
                 x = torch.from_numpy(c["x"]).to(DEV, dtype)
                 s = torch.from_numpy(c["scale"]).to(DEV, dtype)
                 out = RMS.rmsnorm(x, s, 1e-6, zc)
                 torch.cuda.synchronize()
-                e = _err(out, rmsnorm_reference(x, s, 1e-6, zc))
-                checks["rmsnorm"].append([dn, [rows, d, zc], e])
-                if not e <= tol[dtype]:  # NaN fails too
-                    raise AssertionError(f"rmsnorm {dn} {(rows, d, zc)}: err {e}")
+                want = rmsnorm_reference(x, s, 1e-6, zc)
+                e, rel, l2 = (_err(out, want), cases.max_rel_err(_np(out), _np(want)),
+                              cases.l2_rel_err(_np(out), _np(want)))
+                checks["rmsnorm"].append([dn, [rows, d, zc], e, rel, l2])
+                if not (rel <= cases.TOL_MAX[dn] and l2 <= cases.TOL_L2_RMS[dn]
+                        and ((rows, d) not in absolute or e <= tol[dtype])):  # NaN fails
+                    raise AssertionError(f"rmsnorm {dn} {(rows, d, zc)}: err {e}, "
+                                         f"of the largest {rel}, relative L2 {l2}")
                 if (rows, d) == cases.MAIN_RMS[0] and not zc and dtype is torch.bfloat16:
                     main_err["rmsnorm"] = e
+                    main_err["l2_rel_err"]["rmsnorm"] = l2
     deterministic = _check_training_kernels(checks, main_err)
     emit("kernels", tf32=False, tolerance={"float32": 1e-4, "bfloat16": 2e-2},
          training_tolerance="of the largest |value|, at least of 1",
          flash_l2_tolerance=cases.TOL_L2,
-         paged_l2_tolerance=cases.TOL_L2_PAGED,
+         paged_l2_tolerance=cases.TOL_L2_PAGED, rmsnorm_l2_tolerance=cases.TOL_L2_RMS,
          max_abs_err={k: max(c[2] for c in v) for k, v in checks.items()
                       if not k.endswith("_routes")},
          flash_routes=checks["flash_routes"], paged_routes=checks["paged_routes"],
          paged_bitwise_repeatable=True,
          main_shape_bf16_err=main_err, flash_backward_bitwise_repeatable=deterministic,
-         cases=checks)
+         rmsnorm_backward_bitwise_repeatable=True, cases=checks)
     return main_err
 
 
@@ -590,9 +641,10 @@ def flash_failures(errs: dict, dtype_name: str) -> list:
 def _check_training_kernels(checks: dict, main_err: dict) -> bool:
     """Flash attention forward and backward and the RMSNorm backward against
     their plain versions (the backward: the plain version's autograd), over
-    the JAX case tables, the position / kv_len cases and the training
-    shapes. Errors are relative to the largest |value| (at least 1); flash
-    attention is also held to the relative L2 error."""
+    the JAX case tables, the position / kv_len cases, the training shapes
+    and (RMSNorm) the model widths. Errors are relative to the largest
+    |value| (at least 1); both are also held to the relative L2 error, and
+    two backward calls must give bitwise-equal gradients."""
     import torch
 
     from repro_torch.kernels import cases
@@ -640,21 +692,29 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
         checks["flash_routes"][dn] = moved
         if moved != want:
             raise AssertionError(f"flash attention {dn}: route launches {moved} != {want}")
-        for rows, d in cases.RMS_CASES + cases.MAIN_RMS + [cases.MAIN_RMS_TRAIN]:
+        for rows, d in (cases.RMS_CASES + cases.MAIN_RMS + [cases.MAIN_RMS_TRAIN]
+                        + cases.RMS_WIDTH_CASES):
             for zc in (False, True):
                 c = cases.rms_case(rows, d, seed=15)
                 x, sc, dy = (torch.from_numpy(c[n]).to(DEV, dtype) for n in ("x", "scale", "dy"))
                 xl, sl = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
                 RMS.rmsnorm(xl, sl, 1e-6, zc).backward(dy)
+                again = RMS.launch_backward(x, sc, dy, 1e-6, zc)
                 torch.cuda.synchronize()
+                if not (torch.equal(xl.grad, again[0]) and torch.equal(sl.grad, again[1])):
+                    raise AssertionError(f"rmsnorm backward {dn} {(rows, d, zc)}: two calls "
+                                         f"gave different gradients")
                 dx, ds = rmsnorm_backward_reference(x, sc, dy, 1e-6, zc)
-                e = max(cases.max_rel_err(_np(xl.grad), _np(dx)),
-                        cases.max_rel_err(_np(sl.grad), _np(ds)))
-                checks["rmsnorm_backward"].append([dn, [rows, d, zc], e])
-                if not e <= cases.TOL_MAX[dn]:
-                    raise AssertionError(f"rmsnorm backward {dn} {(rows, d, zc)}: err {e}")
+                got, want = (_np(xl.grad), _np(sl.grad)), (_np(dx), _np(ds))
+                e = max(cases.max_rel_err(g, w) for g, w in zip(got, want))
+                l2 = max(cases.l2_rel_err(g, w) for g, w in zip(got, want))
+                checks["rmsnorm_backward"].append([dn, [rows, d, zc], e, l2])
+                if not (e <= cases.TOL_MAX[dn] and l2 <= cases.TOL_L2_RMS[dn]):
+                    raise AssertionError(f"rmsnorm backward {dn} {(rows, d, zc)}: err {e}, "
+                                         f"relative L2 {l2}")
                 if (rows, d) == cases.MAIN_RMS_TRAIN and not zc and dtype is torch.bfloat16:
                     main_err["rmsnorm_backward"] = e
+                    main_err["l2_rel_err"]["rmsnorm_backward"] = l2
     if not deterministic:
         raise AssertionError("flash attention backward: two calls gave different gradients")
     return deterministic
@@ -1112,9 +1172,11 @@ def _kernel_group(key: str) -> str:
         return "flash attention backward (K2)"
     if "paged_decode" in k or "paged_prefill" in k:
         return "paged attention (K3/K4)"
-    if "rmsnorm_bwd" in k or "column_sums" in k:
-        return "rmsnorm backward (K1)"
-    if "rmsnorm" in k:
+    if "rmsnorm_bwd" in k:
+        return "rmsnorm backward row pass (K1)"
+    if "rmsnorm_dscale" in k:
+        return "rmsnorm backward combine (K1)"
+    if "rmsnorm_fwd" in k:
         return "rmsnorm (K1)"
     if any(t in k for t in ("gemm", "gemv", "cutlass", "sm90_", "nvjet", "cublas")):
         return "matmul"
@@ -1259,7 +1321,9 @@ def phase_timing(main_err, counts):
         library="F.scaled_dot_product_attention on the pre-gathered dense view",
         bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops))
 
-    # K1: RMSNorm at the decode shape (4 rows), and the prefill-chunk shape
+    # K1: RMSNorm at the decode shape (4 rows), and the prefill-chunk shape;
+    # no operand requires grad, so the wrapper launches the forward directly
+    # as under the serving path's inference mode
     extra = {}
     for r, d in cases.MAIN_RMS:
         c = cases.rms_case(r, d, seed=43)
@@ -1279,10 +1343,9 @@ def phase_timing(main_err, counts):
             library_ms=lib, library="F.rms_norm" if lib is not None else None,
             bound_ms=bound, bound_by=by, bytes=nbytes, flops=4 * r * d)
     r0 = cases.MAIN_RMS[0][0]
-    rows.append(dict(name="rmsnorm", route="triton",
-                     source="src/repro_torch/kernels/rmsnorm/kernel.py",
+    rows.append(dict(name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
                      replaces="src/repro/kernels/rmsnorm/kernel.py:22",
-                     **extra[r0], prefill_shape=extra[cases.MAIN_RMS[1][0]],
+                     **extra[r0], chunk_shape=extra[cases.MAIN_RMS[1][0]],
                      train_shape=_rms_train_timing()))
     rows += _training_timing()
     for row in rows:
@@ -1292,6 +1355,29 @@ def phase_timing(main_err, counts):
         if row["name"] in main_err["l2_rel_err"]:
             row["l2_rel_err"] = main_err["l2_rel_err"][row["name"]]
     return rows
+
+
+def _kernel_split_ms(fn, parts: dict, iters: int = 20) -> dict:
+    """Device time per launch of each part of ``fn`` (the kernels whose name
+    holds its substring), from ``torch.profiler``: the part's summed time
+    over its launches, so a launch the profiler missed moves nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    out = {}
+    for k, sub in parts.items():
+        hit = [e for e in events if sub in e.key]
+        n = sum(e.count for e in hit)
+        out[k] = sum(e.self_device_time_total for e in hit) / 1e3 / n if n else None
+        out[k + "_launches_seen"] = n
+    return out
 
 
 def _rms_train_timing() -> dict:
@@ -1336,7 +1422,7 @@ def _training_timing() -> list:
         flash_attention_backward_reference,
         flash_attention_reference,
     )
-    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm import ops as RMS
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_reference
 
     bf = torch.bfloat16
@@ -1394,16 +1480,22 @@ def _training_timing() -> list:
     x, sc, dy = (torch.from_numpy(rc[n]).to(DEV, bf) for n in ("x", "scale", "dy"))
     xl, sl = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
     y_lib = F.rms_norm(xl, (d,), sl, 1e-6)
-    kb = lambda: RK.rmsnorm_backward_triton(x, sc, dy, 1e-6, False)  # noqa: E731
+    kb = lambda: RMS.launch_backward(x, sc, dy, 1e-6, False)  # noqa: E731
     nbytes = 3 * r * d * 2 + 2 * d * 2  # x, dy read, dx written; scale, dscale
     bound, by = _bound_ms(nbytes, 8 * r * d, "bfloat16")
     lib_dev, via = autograd_device_ms(lambda: F.rms_norm(xl, (d,), sl, 1e-6), (xl, sl), dy,
                                       iters=20)
-    rows.append(dict(name="rmsnorm_backward", route="triton",
-                     source="src/repro_torch/kernels/rmsnorm/kernel.py",
+    split = _kernel_split_ms(kb, {"row_pass": "rmsnorm_bwd", "combine": "rmsnorm_dscale"})
+    rows.append(dict(name="rmsnorm_backward", route="cuda",
+                     source="src/repro_torch/csrc/rmsnorm.cu",
                      replaces="src/repro/kernels/rmsnorm/kernel.py:22",
                      note="the backward of K1: no Pallas counterpart",
                      shape=f"rows={r} d={d} bf16", ms=cuda_ms(kb), device_ms=graph_ms(kb),
+                     row_pass_device_ms=split["row_pass"], combine_device_ms=split["combine"],
+                     profiled_launches=[split["row_pass_launches_seen"],
+                                        split["combine_launches_seen"]],
+                     plan=RMS.plan(r, d, 2, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count, True)._asdict(),
                      plain_ms=cuda_ms(lambda: rmsnorm_backward_reference(x, sc, dy), iters=20),
                      library_ms=cuda_ms(lambda: torch.autograd.grad(
                          y_lib, (xl, sl), dy, retain_graph=True)),
@@ -1455,7 +1547,8 @@ def main() -> int:
         {**{k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "device_ms", "library_device_ms")},
-         **{k: row[k] for k in ("variant", "tflops") if k in row}}
+         **{k: row[k] for k in ("variant", "tflops", "row_pass_device_ms", "combine_device_ms")
+            if k in row}}
         for row in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

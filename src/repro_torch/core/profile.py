@@ -9,8 +9,8 @@ counts one real execution of the step instead (``StepProfile.count``):
 * a ``TorchDispatchMode`` sums, per operator, the bytes of its tensor
   inputs and outputs (views move nothing and are skipped): the HBM
   traffic of an eager program that keeps no intermediate on chip;
-* a kernel launched through ``ctypes`` or Triton inside an
-  ``autograd.Function`` is invisible to both, so each kernel wrapper
+* a kernel launched through ``ctypes`` is invisible to both, so each
+  kernel wrapper
   reports its own FLOPs and bytes from its shapes through
   ``repro_torch.kernels.COST_SINKS`` (attention counts only the causal
   work its loop bound computes).

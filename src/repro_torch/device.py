@@ -1,14 +1,13 @@
 """Device selection and feature probes (the counterpart of ``repro.compat``).
 
-Nothing here imports ``triton`` or touches the card at import time: the
-probes answer on demand, and ``resolve_device`` is the one place an entry
-point turns its ``device`` argument into a ``torch.device``. Asking for
+Nothing here touches the card at import time: the probes answer on
+demand, and ``resolve_device`` is the one place an entry point turns its
+``device`` argument into a ``torch.device``. Asking for
 CUDA on a machine without it raises; there is no quiet drop to the CPU.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import os
 import shutil
 
@@ -48,10 +47,5 @@ def nvcc_path() -> str | None:
     return cand if os.access(cand, os.X_OK) else None
 
 
-def has_triton() -> bool:
-    return importlib.util.find_spec("triton") is not None
-
-
 def features() -> dict:
-    return {"cuda": has_cuda(), "nvcc": nvcc_path() is not None,
-            "triton": has_triton()}
+    return {"cuda": has_cuda(), "nvcc": nvcc_path() is not None}

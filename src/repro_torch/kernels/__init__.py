@@ -7,7 +7,7 @@ kernel launches per wrapper, incremented at the launch and nowhere else,
 so a run can show that its main path went through the kernels (a
 backward counts once per call, however many kernels it launches).
 
-A kernel launched through ``ctypes`` or Triton is invisible to PyTorch's
+A kernel launched through ``ctypes`` is invisible to PyTorch's
 operator-level counters, so each wrapper also reports the FLOPs and bytes
 of its launch, worked out from its shapes, to every callable in
 ``COST_SINKS`` (``core.profile`` installs one while it counts a step).

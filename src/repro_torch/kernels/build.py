@@ -4,8 +4,8 @@ Each ``.cu`` file compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded through ``ctypes``. Libraries go
 to ``build/repro_torch/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an edit
-rebuilds and an unchanged tree reuses. Triton's cache is pointed at the
-same directory. A failed build raises with the compiler's output.
+rebuilds and an unchanged tree reuses. A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -30,14 +30,6 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-
-
-def triton_cache_dir() -> str:
-    """Point Triton's on-disk cache into the build directory (once)."""
-    path = BUILD_DIR / "triton"
-    path.mkdir(parents=True, exist_ok=True)
-    os.environ.setdefault("TRITON_CACHE_DIR", str(path))
-    return os.environ["TRITON_CACHE_DIR"]
 
 
 def library_path(name: str) -> pathlib.Path:

@@ -3,7 +3,8 @@
 The case tables are those of the JAX package's ``tests/test_kernels.py``
 (``FLASH_CASES``, ``PAGED_CASES``, ``PREFILL_CASES``, ``RMS_CASES``), plus
 ``FLASH_KVLEN_CASES`` for the position and ``kv_len`` masking of
-``layers.attention.flash_attention``, and ``PAGED_SPLIT_CASES`` and
+``layers.attention.flash_attention``, ``RMS_WIDTH_CASES`` for the model
+widths of the RMSNorm kernels, and ``PAGED_SPLIT_CASES`` and
 ``PREFILL_SPLIT_CASES`` for the split-K edges of the bf16 paged kernels;
 the functions below make the inputs with numpy from a seed, so the JAX
 functions and the port's kernels and plain versions see the same numbers. ``MAIN_*`` are the shapes the serving
@@ -78,6 +79,9 @@ PREFILL_SPLIT_CASES = [
 ]
 
 RMS_CASES = [(4, 128), (3, 300), (1, 1024), (17, 96)]
+# every model width of ``configs/archs.py`` (rows, d): the RMSNorm kernels'
+# row layouts from one warp a row to sixteen
+RMS_WIDTH_CASES = [(5, d) for d in (1024, 1280, 2048, 2304, 2560, 4096, 6144, 8192)]
 
 # tinyllama-1.1b serving: Hq=32, Hkv=4, D=64, page 16, max_len 512 (32
 # logical pages), batch 4 decode slots, 64-token prefill chunks, d=2048
@@ -99,6 +103,10 @@ TOL_MAX = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}
 # paged attention (K3, K4), beside the elementwise TOL_MAX gate
 TOL_L2_PAGED = {"float32": 1e-5, "bfloat16": 1e-2}
+# RMSNorm (K1) forward and backward, beside the elementwise gates: about 5x
+# the largest readings of the CUDA kernels over every case of chip_smoke.py
+# phase 2 on an H100 (f32 2.1e-7, bf16 3.1e-5; PERF.md)
+TOL_L2_RMS = {"float32": 1e-6, "bfloat16": 2e-4}
 
 
 def max_rel_err(got, want) -> float:

@@ -1,4 +1,4 @@
-"""Plain PyTorch RMSNorm: the oracle for the Triton kernels and the CPU path.
+"""Plain PyTorch RMSNorm: the oracle for the CUDA kernels and the CPU path.
 
 Transcribes ``repro.layers.norms.rmsnorm``: upcast to fp32 (float64 stays
 float64), mean of x^2 over the last axis, ``x * (var + eps) ** -0.5 *

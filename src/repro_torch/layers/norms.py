@@ -15,6 +15,7 @@ def rmsnorm_params(d: int, name: str = "scale") -> dict:
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
             zero_centered: bool = False) -> torch.Tensor:
     """RMSNorm; ``zero_centered`` uses (1+scale) gemma-style. Differentiable:
-    on CUDA the forward and backward launch the Triton kernels; on the CPU
-    the plain version runs and autograd differentiates it."""
+    on CUDA the forward and backward launch the kernels of
+    ``csrc/rmsnorm.cu``; on the CPU the plain version runs and autograd
+    differentiates it."""
     return _rmsnorm_op(x, scale, eps, zero_centered)

@@ -13,7 +13,8 @@ plain versions), bf16 2e-2; the training kernels' outputs and gradients
 f32 1e-4 and bf16 2e-2 of the largest |value| (at least of 1): bf16 keeps
 ~3 significant digits, so one rounding of a value near 16 is 0.06; flash
 attention's also within ``cases.TOL_L2`` of the relative L2 error, paged
-attention's within ``cases.TOL_L2_PAGED``.
+attention's within ``cases.TOL_L2_PAGED``, RMSNorm's (the tests added with
+its CUDA kernels) within ``cases.TOL_L2_RMS``.
 """
 
 import numpy as np
@@ -320,6 +321,111 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d, dtype, zero_center
     _rel_close(_f32(xl.grad), _f32(dx), dtype)
     _rel_close(_f32(sl.grad), _f32(ds), dtype)
 
+
+
+def _rms_gates(got, want, dtype):
+    """K1's gates: within 1e-4 (f32) / 2e-2 (bf16) of the largest |value|
+    (at least 1), and the relative L2 error within ``cases.TOL_L2_RMS``."""
+    _rel_close(got, want, dtype)
+    assert cases.l2_rel_err(got, want) <= cases.TOL_L2_RMS[dtype]
+
+
+def _rms_both(x, s, dy, zero_centered=False):
+    """The kernels' output and (dx, dscale), and the plain version's."""
+    xl, sl = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    out = RMS.rmsnorm(xl, sl, 1e-6, zero_centered)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    want = [rmsnorm_reference(x, s, 1e-6, zero_centered),
+            *rmsnorm_backward_reference(x, s, dy, 1e-6, zero_centered)]
+    return [out, xl.grad, sl.grad], want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", cases.RMS_WIDTH_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernels_at_every_model_width(cuda, rows, d, dtype):
+    """Forward and backward at each width of the configs (one warp a row to
+    sixteen), zero-centred, with the scale in x's dtype."""
+    c = cases.rms_case(rows, d, seed=19)
+    x, s, dy = (_th(c[n], TORCH_DT[dtype], cuda) for n in ("x", "scale", "dy"))
+    got, want = _rms_both(x, s, dy, zero_centered=True)
+    for g, w in zip(got, want):
+        _rms_gates(_f32(g), _f32(w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [2048, 8192, 300])
+def test_rmsnorm_kernels_on_unaligned_tensors(cuda, dtype, d):
+    """x and dy contiguous but one element past a 16-byte boundary: the
+    scalar path, held to the same gates."""
+    rows = 6
+    c = cases.rms_case(rows, d, seed=20)
+    td = TORCH_DT[dtype]
+    x, dy = (torch.empty(rows * d + 1, dtype=td, device=cuda)[1:].view(rows, d)
+             for _ in range(2))
+    x.copy_(_th(c["x"], td, cuda))
+    dy.copy_(_th(c["dy"], td, cuda))
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    s = _th(c["scale"], td, cuda)
+    got, want = _rms_both(x, s, dy)
+    for g, w in zip(got, want):
+        _rms_gates(_f32(g), _f32(w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [cases.MAIN_RMS_TRAIN, (17, 96), (3, 300)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_backward_is_bitwise_repeatable(cuda, rows, d, dtype):
+    c = cases.rms_case(rows, d, seed=21)
+    x, s, dy = (_th(c[n], TORCH_DT[dtype], cuda) for n in ("x", "scale", "dy"))
+    first = RMS.launch_backward(x, s, dy)
+    again = RMS.launch_backward(x, s, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_rmsnorm_without_grad_launches_the_forward_alone(cuda):
+    """Under ``torch.inference_mode()`` (the serving path) and under
+    ``torch.no_grad()`` with leaves that require grad, one call is one
+    forward launch and builds no autograd graph."""
+    from repro_torch.kernels import LAUNCHES
+
+    c = cases.rms_case(4, 2048, seed=22)
+    x = _th(c["x"], torch.bfloat16, cuda).requires_grad_(True)
+    s = _th(c["scale"], torch.bfloat16, cuda).requires_grad_(True)
+    for ctx in (torch.inference_mode, torch.no_grad):
+        before = dict(LAUNCHES)
+        with ctx():
+            out = RMS.rmsnorm(x, s)
+        torch.cuda.synchronize()
+        assert out.grad_fn is None and not out.requires_grad
+        assert LAUNCHES["rmsnorm"] == before["rmsnorm"] + 1
+        assert {k: v for k, v in LAUNCHES.items() if k != "rmsnorm"} == \
+            {k: v for k, v in before.items() if k != "rmsnorm"}
+        _close(_f32(out), _f32(rmsnorm_reference(x.detach(), s.detach())), 2e-2)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_raises_on_other_dtypes_and_mixed_devices(cuda):
+    from repro_torch.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    x = torch.zeros(4, 128, device=cuda)
+    with pytest.raises(TypeError):
+        RMS.rmsnorm(x.half(), torch.zeros(128, device=cuda, dtype=torch.float16))
+    with pytest.raises(TypeError):
+        RMS.rmsnorm(x.double(), torch.zeros(128, device=cuda))
+    with pytest.raises(ValueError, match="CUDA device"):
+        RMS.rmsnorm(x, torch.zeros(128))
+    with pytest.raises(ValueError, match="CUDA device"):
+        RMS.rmsnorm(x.requires_grad_(True), torch.zeros(128))
+    with pytest.raises(ValueError, match="outside"):
+        RMS.rmsnorm(torch.zeros(2, RMS.MAX_D + 8, device=cuda), torch.zeros(RMS.MAX_D + 8,
+                                                                             device=cuda))
+    assert dict(LAUNCHES) == before
 
 @pytest.mark.cuda
 def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):

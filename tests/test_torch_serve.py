@@ -305,3 +305,15 @@ def test_port_and_chip_smoke_import_no_jax():
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if _FORBIDDEN.search(p.read_text())]
     assert not offenders, f"JAX or the JAX package imported by: {offenders}"
+
+
+def test_port_and_chip_smoke_name_no_triton():
+    """Every kernel of the port is CUDA C++ bound through ``ctypes``: no
+    source of the package (Python or CUDA) and not ``chip_smoke.py`` names
+    Triton, let alone imports it."""
+    pkg = ROOT / "src" / "repro_torch"
+    files = sorted(pkg.rglob("*.py")) + sorted(pkg.rglob("*.cu")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(p.relative_to(ROOT)) for p in files
+                 if re.search(r"triton", p.read_text(), re.IGNORECASE)]
+    assert not offenders, f"Triton named in: {offenders}"
