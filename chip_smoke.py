@@ -69,10 +69,27 @@ exit:
            (B=4, S=2048, accum 1, remat full, 10 steps, monitor backend):
            every loss finite, launch counters zeroed before and read after
            and exact (derived in ``phase_train``), the run record written to
-           ``results/talp_train/`` with POP factors that pass
+           ``results/talp/<arch>/train_monitor/`` with POP factors that pass
            ``validate_pop``; median step time, tokens/s, MFU, peak memory
            and the record's dispatch efficiency;
-7. timing  each kernel, its plain version and one PyTorch library call at
+7. report  the same configuration REPORT_STEPS steps under the tracer
+           (record in ``results/talp/<arch>/train_tracer/``) and under the
+           null collector, launch counters exact for each; the tracer's
+           record against the monitor's (the paper's cross-tool check: the
+           same regions, each run's step count, train_step's counted FLOPs,
+           bytes and model FLOPs per step within AGREE_TOL, factors that
+           pass ``validate_pop``, hardware ``h100_sxm``); then the ``talp``
+           CLI (``python -m repro_torch.core.pages``) as subprocesses:
+           ``metadata``, ``ci-report`` into ``results/talp_site/index.html``,
+           ``validate`` (0 violations) and ``badge``, each exiting 0, the
+           page naming both experiments with a train_step table whose
+           parallel efficiency is the monitor record's, and a badge with a
+           number. For information only: the median step time under null,
+           monitor and tracer, the trace's bytes against the record's,
+           ``post_process``'s seconds and peak ``tracemalloc`` bytes against
+           ``scan`` + ``build_table`` on the monitor's record, and the
+           ``ci-report`` seconds;
+8. timing  each kernel, its plain version and one PyTorch library call at
            the serving and training paths' shapes, beside the bound: ``ms``
            back to back with CUDA events (what an eager caller pays, host
            dispatch included), ``device_ms`` replayed from a CUDA graph (the
@@ -100,6 +117,7 @@ import shutil
 import subprocess
 import sys
 import time
+import tracemalloc
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -130,6 +148,15 @@ DECODE_STEPS = 8
 # the kernels' error from fp32 rounding.
 TRAIN_TOL = 1e-4
 TRAIN_STEPS = 10
+TRAIN_B, TRAIN_S, TRAIN_A = 4, 2048, 1
+# Phase 7 runs the training configuration REPORT_STEPS steps more under the
+# tracer and under the null collector, and holds the tracer's record to the
+# monitor's: per step, train_step's counted FLOPs, bytes and model FLOPs
+# within AGREE_TOL relative (both count step 0 with StepProfile.count).
+REPORT_STEPS = 5
+AGREE_TOL = 1e-6
+TALP_DIR = os.path.join(ROOT, "results", "talp")  # the CI folder: <arch>/<experiment>/
+SITE_DIR = os.path.join(ROOT, "results", "talp_site")
 ARCH = "tinyllama-1.1b"
 DEV = "cuda"
 RESULT: dict = {}
@@ -1095,29 +1122,39 @@ def _train_expected_launches(cfg, steps: int, accum: int) -> dict:
     return {k: v * steps * accum for k, v in per.items()}
 
 
+def _train_loop(backend: str, steps: int):
+    """The full-width training configuration of phases 6 and 7 (bf16 params
+    and compute, remat full, B=4, S=2048, accum 1) in a ``TrainLoop`` whose
+    session runs ``backend``; returns (cfg, data, loop)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.train import TrainConfig
+
+    cfg = _config()
+    data = SyntheticLM(DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_S, vocab=cfg.vocab,
+                                  accum_steps=TRAIN_A, pad_fraction=0.05))
+    loop = TrainLoop(cfg, TrainConfig(total_steps=steps), data,
+                     LoopConfig(steps=steps, lb_sample_every=1, monitor_app_name=ARCH,
+                                monitor_backend=backend), device=DEV)
+    if loop.session.backend != backend:
+        raise AssertionError(f"train: session backend {loop.session.backend!r}; unset "
+                             f"TALP_ENABLE or set TALP_BACKEND={backend}")
+    return cfg, data, loop
+
+
 def phase_train(profile: bool):
     import numpy as np
     import torch
 
     from repro_torch.core.factors import validate_pop
     from repro_torch.core.records import RunRecord
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.flops import train_step_model_flops
-    from repro_torch.train.loop import LoopConfig, TrainLoop
-    from repro_torch.train.train import TrainConfig
 
-    cfg = _config()  # bf16 params and compute, remat full
-    B, S, A = 4, 2048, 1
-    data = SyntheticLM(DataConfig(global_batch=B, seq_len=S, vocab=cfg.vocab,
-                                  accum_steps=A, pad_fraction=0.05))
+    B, S, A = TRAIN_B, TRAIN_S, TRAIN_A
+    shutil.rmtree(TALP_DIR, ignore_errors=True)  # the CI folder phase 7 renders
     torch.cuda.reset_peak_memory_stats()
-    loop = TrainLoop(cfg, TrainConfig(total_steps=TRAIN_STEPS), data,
-                     LoopConfig(steps=TRAIN_STEPS, lb_sample_every=1, monitor_app_name=ARCH,
-                                monitor_backend="monitor"), device=DEV)
-    if loop.session.backend != "monitor":
-        raise AssertionError(f"train: session backend {loop.session.backend!r}; unset "
-                             f"TALP_ENABLE or set TALP_BACKEND=monitor")
+    cfg, data, loop = _train_loop("monitor", TRAIN_STEPS)
     reset_launch_counts()
     loop.run()
     torch.cuda.synchronize()
@@ -1125,7 +1162,7 @@ def phase_train(profile: bool):
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in counts}
     want.update(_train_expected_launches(cfg, TRAIN_STEPS, A))
-    record = loop.finalize_run(os.path.join(ROOT, "results", "talp_train"))
+    record = loop.finalize_run(os.path.join(TALP_DIR, ARCH, "train_monitor"))
     path = loop.session.last_record_path
     loaded = RunRecord.load(path)
     pop_errors = {n: validate_pop(r.pop) for n, r in loaded.regions.items()}
@@ -1230,7 +1267,173 @@ def phase_profile_train(cfg, state, data):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: timing beside the bound
+# phase 7: the report side: tracer and null collectors, the talp CLI
+# ---------------------------------------------------------------------------
+
+
+def _traced(fn):
+    """``fn()`` under ``tracemalloc``: (result, seconds, peak Python bytes)."""
+    tracemalloc.start()
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    return out, seconds, peak
+
+
+def _talp_cli(*args) -> dict:
+    """``python -m repro_torch.core.pages *args`` from the repository root."""
+    env = {**os.environ, "PYTHONPATH": "src"}
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "repro_torch.core.pages", *args], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=600)
+    return {"rc": p.returncode, "seconds": time.perf_counter() - t0,
+            "stdout": p.stdout[-4000:], "stderr": p.stderr[-4000:]}
+
+
+def _html_parallel_efficiency(page: str, experiment: str, region: str) -> str | None:
+    """The Parallel efficiency cell of ``experiment``'s ``region`` table in
+    the report's index.html, as printed (2 decimals)."""
+    for section in page.split("<h2>Experiment: ")[1:]:
+        if not section.startswith(experiment + "</h2>"):
+            continue
+        table = section.partition(f"region <code>{region}</code></h3>")[2].partition("</table>")[0]
+        m = re.search(r"Parallel efficiency</td><td class='[a-z]*'>([^<]+)</td>", table)
+        return m.group(1) if m else None
+    return None
+
+
+def phase_report():
+    """Phase 6's configuration again, REPORT_STEPS steps under the tracer
+    (record in ``results/talp/<arch>/train_tracer/``) and under the null
+    collector (no record), each with exact launch counts; the tracer's
+    record held to the monitor's; the ``talp`` CLI over ``results/talp``
+    into ``results/talp_site``; and the collectors' costs (paper Tables
+    1/2), for information only."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.factors import validate_pop
+    from repro_torch.core.folder import scan
+    from repro_torch.core.records import RunRecord
+    from repro_torch.core.scaling import build_table
+    from repro_torch.core.tracer import post_process, trace_storage_bytes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    failures = []
+    mon_path = os.path.join(ROOT, RESULT["train"]["record"])
+    trace_dir = os.path.join(ROOT, "results", "talp_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    runs = {}
+    for backend in ("tracer", "null"):
+        cfg, _, loop = _train_loop(backend, REPORT_STEPS)
+        if backend == "tracer":
+            loop.session.collector.trace_dir = trace_dir
+        reset_launch_counts()
+        loop.run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {k: 0 for k in counts}
+        want.update(_train_expected_launches(cfg, REPORT_STEPS, TRAIN_A))
+        loop.finalize_run(os.path.join(TALP_DIR, ARCH, f"train_{backend}"))
+        secs = [h["seconds"] for h in loop.metrics_history]
+        losses = [h["loss"] for h in loop.metrics_history]
+        runs[backend] = {"median_step_seconds": float(np.median(secs[1:])),
+                         "step_seconds": secs, "losses": losses, "launches": counts,
+                         "record": loop.session.last_record_path}
+        if not all(np.isfinite(losses)):
+            failures.append(f"{backend}: non-finite loss in {losses}")
+        if counts != want or min(counts[k] for k in TRAIN_KERNELS) <= 0:
+            failures.append(f"{backend}: launches {counts} != expected {want}")
+        del loop
+        torch.cuda.empty_cache()
+
+    # (b) the cross-tool check: the tracer's record against the monitor's
+    mon = RunRecord.load(mon_path)
+    tra = RunRecord.load(runs["tracer"]["record"])
+    a, b = mon.regions["train_step"], tra.regions["train_step"]
+    agreement = {}
+    for key in ("useful_flops", "hlo_bytes", "model_flops"):
+        va = getattr(a.counters, key) / max(a.measurements.num_steps, 1)
+        vb = getattr(b.counters, key) / max(b.measurements.num_steps, 1)
+        agreement[key] = [va, vb, abs(va - vb) / max(abs(va), abs(vb), 1e-30)]
+        if not agreement[key][2] <= AGREE_TOL or va <= 0:
+            failures.append(f"train_step {key} per step: monitor {va} vs tracer {vb}")
+    if sorted(mon.regions) != sorted(tra.regions):
+        failures.append(f"regions: monitor {sorted(mon.regions)} vs tracer {sorted(tra.regions)}")
+    if (a.measurements.num_steps, b.measurements.num_steps) != (TRAIN_STEPS, REPORT_STEPS):
+        failures.append(f"num_steps: monitor {a.measurements.num_steps}, "
+                        f"tracer {b.measurements.num_steps}")
+    pop_errors = {f"{which}/{n}": e for which, run in (("monitor", mon), ("tracer", tra))
+                  for n, r in run.regions.items() if (e := validate_pop(r.pop))}
+    if pop_errors:
+        failures.append(f"POP identities: {pop_errors}")
+    if tra.hardware != "h100_sxm":
+        failures.append(f"tracer record hardware {tra.hardware!r}")
+
+    # (d) the collectors' costs: post-processing the trace against reading
+    # the monitor's record, and the bytes each keeps
+    _, pp_s, pp_peak = _traced(lambda: build_table([post_process(trace_dir)], region="train_step"))
+    _, mon_s, mon_peak = _traced(lambda: build_table(
+        scan(os.path.dirname(mon_path))[0].runs, region="train_step"))
+
+    # (c) the talp CLI over the CI folder
+    shutil.rmtree(SITE_DIR, ignore_errors=True)
+    cli = {
+        "metadata": _talp_cli("metadata", "-i", "results/talp"),
+        "ci-report": _talp_cli("ci-report", "-i", "results/talp", "-o", "results/talp_site",
+                               "--regions", "train_step", "--print-tables"),
+        "validate": _talp_cli("validate", "-i", "results/talp"),
+        "badge": _talp_cli("badge", "-i", "results/talp", "-o", "results/talp_site/badge.svg",
+                           "--region", "train_step"),
+    }
+    failures += [f"talp {k}: exit {v['rc']}: {v['stderr'][-400:]}" for k, v in cli.items()
+                 if v["rc"] != 0]
+    m = re.search(r"(\d+) runs checked, (\d+) violations", cli["validate"]["stdout"])
+    if not m or m.groups() != ("2", "0"):
+        failures.append(f"talp validate: {cli['validate']['stdout'][-400:]!r}")
+    index = os.path.join(SITE_DIR, "index.html")
+    page = open(index).read() if os.path.exists(index) else ""
+    for exp in ("train_monitor", "train_tracer"):
+        if f"<h2>Experiment: {ARCH} / {exp}</h2>" not in page:
+            failures.append(f"index.html names no experiment {ARCH} / {exp}")
+    pe_html = _html_parallel_efficiency(page, f"{ARCH} / train_monitor", "train_step")
+    pe_record = f"{a.pop['parallel_efficiency']:.2f}"
+    if pe_html != pe_record:
+        failures.append(f"index.html train_step parallel efficiency {pe_html} != record's "
+                        f"{pe_record}")
+    badge_path = os.path.join(SITE_DIR, "badge.svg")
+    badge = open(badge_path).read() if os.path.exists(badge_path) else ""
+    badge_value = re.search(r">(\d+\.\d\d)</text>", badge)
+    if not badge_value:
+        failures.append(f"badge holds no number: {badge[-200:]!r}")
+
+    emit("report", arch=ARCH, steps=REPORT_STEPS,
+         median_step_seconds={"null": runs["null"]["median_step_seconds"],
+                              "monitor": RESULT["train"]["median_step_seconds"],
+                              "tracer": runs["tracer"]["median_step_seconds"]},
+         step_seconds={k: v["step_seconds"] for k, v in runs.items()},
+         launches={k: v["launches"] for k, v in runs.items()},
+         trace_bytes=trace_storage_bytes(trace_dir), monitor_record_bytes=os.path.getsize(mon_path),
+         tracer_record_bytes=os.path.getsize(runs["tracer"]["record"]),
+         post_process_seconds=pp_s, post_process_peak_bytes=pp_peak,
+         monitor_scan_table_seconds=mon_s, monitor_scan_table_peak_bytes=mon_peak,
+         ci_report_seconds=cli["ci-report"]["seconds"],
+         cli={k: {"rc": v["rc"], "seconds": v["seconds"], "stdout": v["stdout"][-600:]}
+              for k, v in cli.items()},
+         agreement=agreement, parallel_efficiency={"html": pe_html, "record": pe_record},
+         badge=badge_value.group(1) if badge_value else None,
+         records=[os.path.relpath(p, ROOT) for p in (mon_path, runs["tracer"]["record"])],
+         site=os.path.relpath(index, ROOT))
+    if failures:
+        raise AssertionError("report: " + "; ".join(failures))
+
+
+# ---------------------------------------------------------------------------
+# phase 8: timing beside the bound
 # ---------------------------------------------------------------------------
 
 
@@ -1528,6 +1731,7 @@ def main() -> int:
     phase_train_parity(params)
     del params
     train_counts = phase_train(profile)
+    phase_report()
     rows = phase_timing(main_err, {"serve": serve_counts, "train": train_counts})
     emit("timing", rows=len(rows))
     card = subprocess.run(

@@ -15,6 +15,11 @@ TPU-named fields hold:
   vmem_bytes       shared memory per SM (the fast on-chip scratch)
 
 Numbers are NVIDIA's H100 SXM data sheet and Hopper white paper.
+
+``TPU_V5E`` and ``TPU_V5P`` are the JAX package's two targets, copied as
+data so that the port's report side renders the JAX package's records
+(and records without a ``hardware`` field, which default to ``tpu_v5e``)
+under the spec they were written for. Nothing in the port runs on them.
 """
 
 from __future__ import annotations
@@ -47,7 +52,32 @@ H100_SXM = ChipSpec(
     vmem_bytes=228 * 1024,
 )
 
-TARGETS = {s.name: s for s in (H100_SXM,)}
+# the JAX package's targets (``repro.core.hardware``), as data only
+TPU_V5E = ChipSpec(
+    name="tpu_v5e",
+    peak_flops_bf16=197e12,
+    hbm_bandwidth=819e9,
+    hbm_bytes=16 * 1024**3,
+    ici_bandwidth=50e9,
+    ici_links=4,
+    dcn_bandwidth=6.25e9,
+    clock_ghz=0.94,
+    vmem_bytes=128 * 1024**2,
+)
+
+TPU_V5P = ChipSpec(
+    name="tpu_v5p",
+    peak_flops_bf16=459e12,
+    hbm_bandwidth=2765e9,
+    hbm_bytes=95 * 1024**3,
+    ici_bandwidth=100e9,
+    ici_links=6,
+    dcn_bandwidth=6.25e9,
+    clock_ghz=1.75,
+    vmem_bytes=128 * 1024**2,
+)
+
+TARGETS = {s.name: s for s in (H100_SXM, TPU_V5E, TPU_V5P)}
 DEFAULT_TARGET = H100_SXM
 
 

@@ -76,6 +76,9 @@ class StepProfile:
     collective_bytes_dcn: float = 0.0
     model_flops: float = 0.0            # analytic useful FLOPs (6ND-style)
     model_bytes: float = 0.0
+    # collective kind -> instances per step (empty on one card); the
+    # tracer emits one event per instance
+    collective_counts: dict[str, int] = dataclasses.field(default_factory=dict)
     per_computation: dict[str, ComputationCounters] = dataclasses.field(
         default_factory=dict
     )
@@ -132,6 +135,7 @@ class StepProfile:
         }
         return dataclasses.replace(
             self,
+            collective_counts=dict(self.collective_counts),
             per_computation={
                 name: cc.scaled(steps) for name, cc in self.per_computation.items()
             },
@@ -150,3 +154,21 @@ class StepProfile:
             collective_bytes_dcn=self.collective_bytes_dcn,
             model_flops=self.model_flops,
         )
+
+    # ---- serialization (the tracer's ``trace_meta.json``; the JAX key names) ----
+
+    def to_json(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: dict[str, Any]) -> "StepProfile":
+        """Read a profile written by either package: keys the port has no
+        field for (the JAX package's ``xla_cost``, ``memory``, ...) are
+        dropped."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in known}
+        kw["per_computation"] = {
+            name: ComputationCounters.from_json(name, cd)
+            for name, cd in (kw.get("per_computation") or {}).items()
+        }
+        return cls(**kw)

@@ -5,15 +5,17 @@ One facade through which the training loop and the launchers touch
 instrumentation, with the collector chosen by config or by environment:
 
     TALP_ENABLE=1 TALP_BACKEND=monitor python -m repro_torch.launch.train ...
+    TALP_ENABLE=1 TALP_BACKEND=tracer  python -m repro_torch.launch.train ...
     TALP_OUT=talp/mycase/history      # redirect finalize() artifacts
 
 Backends (the ``Collector`` protocol):
 
   monitor   RegionMonitor: O(regions) on-the-fly POP collection
+  tracer    EventTracer + post_process (``core.tracer``): the full-event
+            Score-P/Extrae baseline; same RunRecord out, orders of
+            magnitude more state
   null      no instrumentation; every hook is a no-op and ``wrap_step``
             returns the function unchanged
-  tracer    the full-event baseline of the JAX package (``core.tracer``)
-            is not ported yet (ROADMAP.md Queue 1, item 7): asking for it raises
 
 Surface:
 
@@ -32,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import tempfile
 import time
 from typing import Any, Callable, Protocol, runtime_checkable
 
@@ -74,12 +77,13 @@ class SessionConfig:
     """Session-level knobs; backend-specific config is derived from these."""
 
     app_name: str = "app"
-    backend: str = "null"  # "monitor" | "null" ("tracer" is not ported)
+    backend: str = "null"  # "monitor" | "tracer" | "null"
     hardware: str = "h100_sxm"
     sync_regions: bool = True
     lb_sample_every: int = 10
     overlap_fraction: float = 0.0
     top_computations: int = DEFAULT_TOP_COMPUTATIONS
+    trace_dir: str = ""  # tracer backend event-stream directory
     out_dir: str = ""  # default finalize() destination (CI folder layout)
     clock: Callable[[], float] = time.perf_counter
     # honor TALP_ENABLE / TALP_BACKEND (off for overhead baselines so the
@@ -141,6 +145,95 @@ class NullCollector:
         return None
 
 
+class TracerCollector:
+    """The Score-P/Extrae baseline: full event streams + post-processing
+    (core.tracer). Same RunRecord out: the cross-tool agreement contract."""
+
+    name = "tracer"
+
+    # monitor-only observation kwargs the tracer's event schema has no
+    # representation for (post_process only understands array-valued aux)
+    _DROP_AUX = ("pod_size",)
+
+    def __init__(self, config: SessionConfig, resources: ResourceConfig) -> None:
+        self._config = config
+        self._resources = resources
+        self._recorder = None
+        self._ever_started = False
+        self._pre_start_static: dict[str, Any] = {}
+        self.trace_dir = config.trace_dir
+
+    def start(self) -> None:
+        from repro_torch.core.tracer import EventTracer
+
+        if self._recorder is not None:
+            raise RuntimeError("tracer session already started")
+        self._ever_started = True
+        if not self.trace_dir:
+            self.trace_dir = tempfile.mkdtemp(prefix="talp_trace_")
+        self._recorder = EventTracer(
+            self.trace_dir,
+            self._resources,
+            app_name=self._config.app_name,
+            clock=self._config.clock,
+            hardware=self._config.hardware,
+        )
+        for region, profile in self._pre_start_static.items():
+            self._recorder.attach_static(region, profile)
+        self._pre_start_static.clear()
+
+    def stop(self) -> None:
+        if self._recorder is not None:
+            self._recorder.close()
+            self._recorder = None
+
+    def region_enter(self, name: str) -> None:
+        if self._recorder is None:
+            self.start()  # parity with the monitor's region auto-start
+        self._recorder.region_enter(name)
+
+    def region_exit(self, name: str, sync: Any = None) -> None:
+        if self._recorder is not None:
+            self._recorder.region_exit(name)
+
+    def observe_step(self, outputs: Any = None, **aux: Any) -> None:
+        if self._recorder is None:
+            return  # outside a started session: silent, like the monitor
+        kept = {
+            k: v for k, v in aux.items()
+            if v is not None and k not in self._DROP_AUX
+        }
+        self._recorder.record_step(outputs, **kept)
+
+    def mark_device(self) -> None:
+        pass  # device-time marks are reconstructed from the event timeline
+
+    def attach_static(self, region: str, profile: Any) -> None:
+        if self._recorder is None:  # profiles attached before start()
+            self._pre_start_static[region] = profile
+        else:
+            self._recorder.attach_static(region, profile)
+
+    def finalize(self) -> RunRecord:
+        from repro_torch.core import factors as _factors
+        from repro_torch.core.tracer import post_process
+
+        if not self._ever_started:
+            self.start()  # finalize without start: emit an empty valid trace
+        self.stop()
+        run = post_process(self.trace_dir)
+        # post_process knows nothing of session-level knobs; re-derive the
+        # factors under the session's hardware/overlap model so both
+        # backends answer through one contract
+        run.hardware = self._config.hardware
+        for reg in run.regions.values():
+            reg.pop = _factors.compute_pop(
+                reg, run.resources, self._config.hardware,
+                overlap_fraction=self._config.overlap_fraction,
+            )
+        return run
+
+
 def make_collector(backend: str, config: SessionConfig,
                    resources: ResourceConfig) -> Collector:
     if backend == "monitor":
@@ -159,10 +252,7 @@ def make_collector(backend: str, config: SessionConfig,
             resources,
         )
     if backend == "tracer":
-        raise NotImplementedError(
-            "the tracer backend (full event streams + post-processing) is not "
-            "ported yet: ROADMAP.md Queue 1, item 7. Use backend='monitor'."
-        )
+        return TracerCollector(config, resources)
     if backend == "null":
         return NullCollector()
     raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
