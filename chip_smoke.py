@@ -58,6 +58,25 @@ exit:
            before and read after: paged decode 22 per decode step, paged
            prefill 22 per chunk, RMSNorm 45 per forward. Then the same
            trace again, flushing every tick, for time to first token;
+4b. serve-load  phase 4's model under load (batch 16, max_len 1024, page
+           16, chunk 64, overlap): (a) a 250-token system prompt and 16
+           requests, the prefix cache on: 15 hits with copy-on-write, every
+           trie page's bytes unchanged from its insert to the end, pages in
+           use equal to the trie's after ``drain`` and 0 after ``clear``;
+           (b) ``serve.traffic.replay`` of a 64-request bursty trace with
+           cancellations and three priority classes against a LOAD_PAGES
+           pool under the monitor: preemptions (more than (c)'s), resumes
+           equal to them, cancellations, none failed, every request
+           accounted for, no page left in use, the pool filled; the record
+           in ``results/talp/<arch>/serve_monitor/`` passes ``validate_pop``
+           with regions decode, prefill, preempt and traffic, visited once
+           per decode step, prefill chunk and preemption; (c) the same
+           trace with the dense-equivalent pool, no prefix cache and the
+           null collector: the greedy tokens of every request completed in
+           both runs equal, except at a near tie (the card's top-2 logit gap
+           there below LOGIT_TOL). Launch counts exact in each run; goodput,
+           TTFT percentiles, queue depth and the record's region times for
+           information;
 5. train-parity  tinyllama-1.1b at full width in fp32, phase 3's weights:
            the loss and gradients of one batch (B=1, S=256, remat full) on
            the card (kernels), on the CPU (plain versions) and on the card
@@ -81,8 +100,9 @@ exit:
            pass ``validate_pop``, hardware ``h100_sxm``); then the ``talp``
            CLI (``python -m repro_torch.core.pages``) as subprocesses:
            ``metadata``, ``ci-report`` into ``results/talp_site/index.html``,
-           ``validate`` (0 violations) and ``badge``, each exiting 0, the
-           page naming both experiments with a train_step table whose
+           ``validate`` (3 runs, 0 violations) and ``badge``, each exiting
+           0, the page naming the three experiments (phase 4b's serve record
+           too) with a train_step table whose
            parallel efficiency is the monitor record's, and a badge with a
            number. For information only: the median step time under null,
            monitor and tracer, the trace's bytes against the record's,
@@ -99,7 +119,8 @@ exit:
            apart, from the profiler's kernel names.
 
 ``python3 chip_smoke.py --profile`` adds ``torch.profiler`` over the serve
-trace (after phase 4) and over two training steps (after phase 6), for
+trace (after phase 4), over 40 mid-burst ticks of phase 4b's tight-pool
+trace (after phase 4b) and over two training steps (after phase 6), for
 the device's busy share and the kernel-time breakdown.
 
 It then prints the ``kernels`` line, the card's name and power limit
@@ -155,6 +176,17 @@ TRAIN_B, TRAIN_S, TRAIN_A = 4, 2048, 1
 # within AGREE_TOL relative (both count step 0 with StepProfile.count).
 REPORT_STEPS = 5
 AGREE_TOL = 1e-6
+# Phase 4b: the loaded server. Batch 16 at max_len 1024 (a 1024-page
+# dense-equivalent pool), the traffic harness's bursty trace, and a pool of
+# LOAD_PAGES pages: at 384 (37.5%) the trace never fills it (peak 349 pages,
+# every preemption a priority one), so it is cut to 256, which the trace
+# fills (PERF.md).
+LOAD_BATCH, LOAD_MAX_LEN, LOAD_PAGES = 16, 1024, 256
+PROFILE_LOAD_FROM, PROFILE_LOAD_TICKS = 200, 40
+LOAD_TRAFFIC = dict(n_requests=64, seed=0, arrival="burst", rate=0.25, burst_mult=6,
+                    prompt_short=(32, 128), prompt_long=(384, 768), long_frac=0.25,
+                    max_new_short=(16, 64), max_new_long=(128, 256), long_out_frac=0.25,
+                    priorities=(0, 1, 2), cancel_frac=0.1, vocab_hi=32000)
 TALP_DIR = os.path.join(ROOT, "results", "talp")  # the CI folder: <arch>/<experiment>/
 SITE_DIR = os.path.join(ROOT, "results", "talp_site")
 ARCH = "tinyllama-1.1b"
@@ -1015,6 +1047,301 @@ def phase_serve(params_f32):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: serving under load at full width
+# ---------------------------------------------------------------------------
+
+
+def _load_scheduler(model, session=None, **kw):
+    from repro_torch.serve.serve import BatchScheduler, ServeConfig
+
+    return BatchScheduler(model, ServeConfig(
+        max_len=LOAD_MAX_LEN, batch=LOAD_BATCH, prefill_chunk=64, overlap=True,
+        page_size=16, **kw), session=session)
+
+
+def _serve_launches(cfg, st) -> dict:
+    """The exact launches of a serving run: per forward 2L+1 RMSNorm, per
+    decode step L paged decode, per prefill chunk L paged prefill."""
+    from repro_torch.kernels import launch_counts
+
+    L = cfg.n_layers
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update({"paged_attention": L * st["decode_steps"],
+                 "paged_prefill_attention": L * st["prefill_chunks"],
+                 "rmsnorm": (2 * L + 1) * (st["decode_steps"] + st["prefill_chunks"])})
+    return want
+
+
+def _page_bytes(sched, page: int) -> list:
+    return [pool[:, page].clone() for slot in sched.caches.values()
+            for pool in slot["attn"].values()]
+
+
+def _prefix_run(model, cfg, failures: list) -> dict:
+    """(a) A 250-token system prompt and 16 requests with private tails:
+    request 0 runs until its prompt is prefilled (its pages enter the
+    trie), then the other 15 attach against it. Every trie page's bytes
+    are snapshotted at its insert and compared at the end."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(41)
+    system = rng.integers(4, cfg.vocab, size=250).tolist()
+    prompts = [system + rng.integers(4, cfg.vocab, size=int(n)).tolist()
+               for n in rng.integers(8, 65, size=16)]
+    sched = _load_scheduler(model, prefix_cache=True)
+    snaps, insert = {}, sched._prefix.insert
+
+    def recording(prompt, pages):
+        insert(prompt, pages)
+        for p in pages[:len(prompt) // sched.scfg.page_size]:
+            if p not in snaps:
+                snaps[p] = _page_bytes(sched, p)
+
+    sched._prefix.insert = recording
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    h0 = sched.submit(prompts[0], request_id=0, max_new=64)
+    while h0.status in ("queued", "prefilling"):
+        sched.step()
+    for rid, p in enumerate(prompts[1:], start=1):
+        sched.submit(p, request_id=rid, max_new=64)
+    sched.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, want = launch_counts(), _serve_launches(cfg, sched.stats)
+    kv = sched.kv_cache_stats()
+    pc = kv["prefix_cache"]
+    trie_pages = sorted(n.page for n in _trie_nodes(sched._prefix))
+    changed = [p for p in trie_pages
+               if not all(torch.equal(a, b) for a, b in zip(_page_bytes(sched, p), snaps[p]))]
+    in_use, pinned = kv["pages_in_use"], sched._prefix.size
+    sched._prefix.clear()
+    after_clear = sched.kv_cache_stats()["pages_in_use"]
+    gens = [r["generated"] for r in sched.completed]
+    out = {"requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+           "completed": len(sched.completed), "prefix_cache": pc,
+           "pages_in_use_after_drain": in_use, "trie_pages": pinned,
+           "pages_in_use_after_clear": after_clear, "snapshotted_pages": len(snaps),
+           "trie_pages_changed": changed, "ticks": sched.stats["ticks"],
+           "decode_steps": sched.stats["decode_steps"],
+           "prefill_chunks": sched.stats["prefill_chunks"],
+           "launches": counts, "wall_s": wall}
+    if pc["hits"] != 15 or pc["cow_copies"] < 1 or pc["prefill_tokens_skipped"] <= 0:
+        failures.append(f"prefix: hits {pc['hits']}, cow {pc['cow_copies']}, "
+                        f"skipped {pc['prefill_tokens_skipped']}")
+    if in_use != pinned or after_clear != 0:
+        failures.append(f"prefix: {in_use} pages in use after drain, trie {pinned}, "
+                        f"{after_clear} after clear")
+    if changed or set(trie_pages) - set(snaps):
+        failures.append(f"prefix: trie pages written after insert: {changed}")
+    if len(gens) != 16 or any(len(g) != 64 for g in gens):
+        failures.append(f"prefix: {len(gens)} completed, lengths {[len(g) for g in gens]}")
+    if counts != want:
+        failures.append(f"prefix: launches {counts} != expected {want}")
+    return out
+
+
+def _trie_nodes(trie) -> list:
+    out, stack = [], list(trie.root.children.values())
+    while stack:
+        n = stack.pop()
+        out.append(n)
+        stack.extend(n.children.values())
+    return out
+
+
+def _first_divergence(a: list, b: list) -> int | None:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _top2_gap(model, prompt: list, tokens: list, i: int) -> float:
+    """Top-2 logit gap where ``tokens[i]`` is chosen: the history up to it
+    through ``prefill_chunk`` on the card (64-token chunks, fresh cache)."""
+    import torch
+
+    hist = prompt + tokens[:i]
+    nL = -(-len(hist) // 16)
+    caches = model.init_cache(1, nL * 16, page_size=16, num_pages=nL)
+    tb = torch.arange(nL, dtype=torch.int32, device=DEV)[None]
+    for start in range(0, len(hist), 64):
+        chunk = hist[start:start + 64]
+        logits = model.prefill_chunk(torch.tensor([chunk], dtype=torch.int32, device=DEV),
+                                     caches, start, len(chunk), tb)
+    top2 = logits[0].float().topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def phase_serve_load(model):
+    """Serving under load, bf16, phase 4's seeded weights, batch 16,
+    max_len 1024, page 16, chunk 64, overlap: (a) the prefix run; (b) the
+    traffic harness's bursty trace against a tight pool under the monitor,
+    its record in ``results/talp/<arch>/serve_monitor/``; (c) the same
+    trace with an ample pool, no prefix cache and the null collector, whose
+    greedy tokens must equal (b)'s except at shown near ties."""
+    import torch
+
+    from repro_torch.core.factors import validate_pop
+    from repro_torch.core.records import ResourceConfig, RunRecord
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.traffic import TrafficConfig, generate_workload, replay
+    from repro_torch.session import PerfSession, SessionConfig
+
+    cfg = model.cfg
+    failures: list = []
+    prefix = _prefix_run(model, cfg, failures)
+    torch.cuda.empty_cache()
+
+    work = generate_workload(TrafficConfig(**LOAD_TRAFFIC))
+    runs = {}
+    for name in ("tight", "ample"):
+        monitored = name == "tight"
+        # every computation in the record (not the default 16 heaviest), so
+        # the kernels' counted costs can be checked there
+        session = PerfSession(
+            SessionConfig(app_name=f"serve-{ARCH}", backend="monitor" if monitored else "null",
+                          lb_sample_every=1, respect_env=False, top_computations=64),
+            ResourceConfig(num_hosts=1, devices_per_host=1))
+        sched = _load_scheduler(model, session=session,
+                                num_pages=LOAD_PAGES if monitored else None)
+        reset_launch_counts()
+        with session:
+            m = replay(sched, work)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = _serve_launches(cfg, sched.stats)
+        if counts != want:
+            failures.append(f"{name}: launches {counts} != expected {want}")
+        if monitored:
+            session.finalize(os.path.join(TALP_DIR, ARCH, "serve_monitor"))
+        runs[name] = {"metrics": m, "stats": dict(sched.stats), "launches": counts,
+                      "record": session.last_record_path}
+        del sched
+        torch.cuda.empty_cache()
+
+    tight, ample = runs["tight"]["metrics"], runs["ample"]["metrics"]
+    st = runs["tight"]["stats"]
+    if (tight["preemptions"] < 1 or tight["resumes"] != tight["preemptions"]
+            or tight["cancellations"] < 1 or tight["failed"] != 0):
+        failures.append(f"tight: preemptions {tight['preemptions']}, resumes "
+                        f"{tight['resumes']}, cancellations {tight['cancellations']}, "
+                        f"failed {tight['failed']}")
+    if tight["completed"] + tight["cancelled"] != len(work) or tight["kv"]["pages_in_use"]:
+        failures.append(f"tight: {tight['completed']} completed + {tight['cancelled']} "
+                        f"cancelled of {len(work)}, {tight['kv']['pages_in_use']} pages in use")
+    # the pool filled, and filling it preempted more than priority alone
+    if (tight["kv"]["peak_used_pages"] != LOAD_PAGES
+            or tight["preemptions"] <= ample["preemptions"]):
+        failures.append(f"tight: peak {tight['kv']['peak_used_pages']} of {LOAD_PAGES} pages, "
+                        f"{tight['preemptions']} preemptions vs {ample['preemptions']} ample")
+    record = RunRecord.load(runs["tight"]["record"])
+    visits = {n: r.measurements.num_visits for n, r in record.regions.items()}
+    pop_errors = {n: e for n, r in record.regions.items() if (e := validate_pop(r.pop))}
+    if not {"decode", "prefill", "preempt", "traffic"} <= set(visits) or pop_errors:
+        failures.append(f"record: regions {sorted(visits)}, POP errors {pop_errors}")
+    elif (visits["decode"], visits["prefill"], visits["preempt"]) != (
+            st["decode_steps"], st["prefill_chunks"], st["preemptions"]):
+        failures.append(f"record visits {visits} vs decode {st['decode_steps']}, "
+                        f"prefill {st['prefill_chunks']}, preempt {st['preemptions']}")
+    # the first decode and chunk were counted with the kernels' own costs
+    kernel_costs = {}
+    for region, names in (("decode", ("paged_attention", "rmsnorm")),
+                          ("prefill", ("paged_prefill_attention", "rmsnorm"))):
+        comps = record.regions[region].computations if region in record.regions else {}
+        kernel_costs.update({f"{region}/{n}": comps[n].flops for n in names if n in comps})
+    if len(kernel_costs) != 4 or min(kernel_costs.values()) <= 0:
+        failures.append(f"record: kernel costs {kernel_costs}")
+
+    # (c) greedy tokens of every request completed in both runs
+    prompts = {str(r.request_id): list(r.prompt) for r in work}
+    ties, compared = [], 0
+    for rid, toks in tight["generated"].items():
+        if rid not in ample["generated"]:
+            continue
+        compared += 1
+        i = _first_divergence(toks, ample["generated"][rid])
+        if i is None:
+            continue
+        gap = _top2_gap(model, prompts[rid], toks, i)
+        ties.append({"request": rid, "position": i, "top2_gap": gap})
+        if not gap < LOGIT_TOL:
+            failures.append(f"identity: request {rid} differs at token {i}, top-2 gap "
+                            f"{gap} >= {LOGIT_TOL}")
+    if compared == 0:
+        failures.append("identity: no request completed in both runs")
+
+    def info(m: dict) -> dict:
+        return {k: m[k] for k in ("completed", "cancelled", "failed", "ticks", "wall_s",
+                                  "good_tokens", "goodput_tokens_per_sec", "ttft_p50_s",
+                                  "ttft_p95_s", "ttft_p99_s", "ttft_max_s",
+                                  "queue_depth_peak", "queue_depth_mean", "preemptions",
+                                  "resumes", "cancellations")}
+
+    regions_s = {n: {"elapsed_s": r.measurements.elapsed_s,
+                     "device_time_s": r.measurements.device_time_s, "visits": visits[n]}
+                 for n, r in record.regions.items()}
+    emit("serve_load", arch=ARCH, dtype="bfloat16", batch=LOAD_BATCH, max_len=LOAD_MAX_LEN,
+         prefix=prefix, traffic=LOAD_TRAFFIC, pool_pages=LOAD_PAGES,
+         tight={**info(tight), "kv": tight["kv"], "sched_stats": st,
+                "launches": runs["tight"]["launches"]},
+         ample={**info(ample), "peak_used_pages": ample["kv"]["peak_used_pages"],
+                "sched_stats": runs["ample"]["stats"], "launches": runs["ample"]["launches"]},
+         record=os.path.relpath(runs["tight"]["record"], ROOT), visits=visits,
+         kernel_flops=kernel_costs,
+         regions=regions_s, identity={"compared": compared, "near_ties": ties})
+    if failures:
+        raise AssertionError("serve_load: " + "; ".join(failures))
+    return runs["tight"]["launches"]
+
+
+def phase_profile_load(model):
+    """``--profile``: phase 4b's tight-pool trace again under the monitor,
+    with ``torch.profiler`` recording PROFILE_LOAD_TICKS ticks from tick
+    PROFILE_LOAD_FROM (mid-burst): the card's busy share of those ticks'
+    wall time, and where its time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.core.records import ResourceConfig
+    from repro_torch.serve.traffic import TrafficConfig, generate_workload, replay
+    from repro_torch.session import PerfSession, SessionConfig
+
+    session = PerfSession(SessionConfig(app_name=f"serve-{ARCH}", backend="monitor",
+                                        lb_sample_every=1, respect_env=False),
+                          ResourceConfig(num_hosts=1, devices_per_host=1))
+    sched = _load_scheduler(model, session=session, num_pages=LOAD_PAGES)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=PROFILE_LOAD_FROM - 2, warmup=2,
+                                     active=PROFILE_LOAD_TICKS, repeat=1))
+    ends, inner = [], sched.step
+    forwards = []
+
+    def stepping():
+        busy = inner()
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        forwards.append(sched.stats["decode_steps"] + sched.stats["prefill_chunks"])
+        prof.step()
+        return busy
+
+    sched.step = stepping
+    with session, prof:
+        replay(sched, generate_workload(TrafficConfig(**LOAD_TRAFFIC)))
+    a, b = PROFILE_LOAD_FROM - 1, PROFILE_LOAD_FROM + PROFILE_LOAD_TICKS - 1
+    wall = ends[b] - ends[a]
+    events = _device_events(prof)
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    emit("serve_load_profile", ticks=[a + 2, b + 1], forwards=forwards[b] - forwards[a],
+         wall_s=wall, device_busy_ms=busy_us / 1e3, device_busy_share=busy_us / 1e6 / wall,
+         groups_ms_count=_groups(events),
+         top_kernels=[[e.key[:90], round(e.self_device_time_total / 1e3, 3), e.count]
+                      for e in top])
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the training step at full width, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -1152,7 +1479,6 @@ def phase_train(profile: bool):
     from repro_torch.models.flops import train_step_model_flops
 
     B, S, A = TRAIN_B, TRAIN_S, TRAIN_A
-    shutil.rmtree(TALP_DIR, ignore_errors=True)  # the CI folder phase 7 renders
     torch.cuda.reset_peak_memory_stats()
     cfg, data, loop = _train_loop("monitor", TRAIN_STEPS)
     reset_launch_counts()
@@ -1224,11 +1550,13 @@ def _kernel_group(key: str) -> str:
 
 def _device_events(prof):
     """Device-side events only: a CPU op's self device time repeats the
-    time of the kernels it launched, which are listed on their own."""
+    time of the kernels it launched, which are listed on their own, and so
+    does a scheduled profiler's ``ProfilerStep#`` annotation."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
 
 
 def _groups(events) -> dict:
@@ -1393,11 +1721,11 @@ def phase_report():
     failures += [f"talp {k}: exit {v['rc']}: {v['stderr'][-400:]}" for k, v in cli.items()
                  if v["rc"] != 0]
     m = re.search(r"(\d+) runs checked, (\d+) violations", cli["validate"]["stdout"])
-    if not m or m.groups() != ("2", "0"):
+    if not m or m.groups() != ("3", "0"):  # train monitor and tracer, serve monitor
         failures.append(f"talp validate: {cli['validate']['stdout'][-400:]!r}")
     index = os.path.join(SITE_DIR, "index.html")
     page = open(index).read() if os.path.exists(index) else ""
-    for exp in ("train_monitor", "train_tracer"):
+    for exp in ("train_monitor", "train_tracer", "serve_monitor"):
         if f"<h2>Experiment: {ARCH} / {exp}</h2>" not in page:
             failures.append(f"index.html names no experiment {ARCH} / {exp}")
     pe_html = _html_parallel_efficiency(page, f"{ARCH} / train_monitor", "train_step")
@@ -1720,19 +2048,24 @@ def main() -> int:
     profile = "--profile" in sys.argv[1:]
     t_start = time.perf_counter()
     _T_PHASE[0] = t_start
+    shutil.rmtree(TALP_DIR, ignore_errors=True)  # the CI folder phase 7 renders
     phase_build()
     main_err = phase_kernels()
     params = phase_parity()
     model, serve_counts = phase_serve(params)
     if profile:
         phase_profile(model)
+    load_counts = phase_serve_load(model)
+    if profile:
+        phase_profile_load(model)
     del model
     torch.cuda.empty_cache()
     phase_train_parity(params)
     del params
     train_counts = phase_train(profile)
     phase_report()
-    rows = phase_timing(main_err, {"serve": serve_counts, "train": train_counts})
+    rows = phase_timing(main_err, {"serve": serve_counts, "serve_load": load_counts,
+                                   "train": train_counts})
     emit("timing", rows=len(rows))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -5,7 +5,9 @@ The case tables are those of the JAX package's ``tests/test_kernels.py``
 ``FLASH_KVLEN_CASES`` for the position and ``kv_len`` masking of
 ``layers.attention.flash_attention``, ``RMS_WIDTH_CASES`` for the model
 widths of the RMSNorm kernels, and ``PAGED_SPLIT_CASES`` and
-``PREFILL_SPLIT_CASES`` for the split-K edges of the bf16 paged kernels;
+``PREFILL_SPLIT_CASES`` for the split-K edges of the bf16 paged kernels
+and for block tables that share pages across rows, as the prefix cache
+makes them;
 the functions below make the inputs with numpy from a seed, so the JAX
 functions and the port's kernels and plain versions see the same numbers. ``MAIN_*`` are the shapes the serving
 and training paths give the kernels at tinyllama-1.1b's full width.
@@ -68,6 +70,12 @@ PAGED_SPLIT_CASES = [
     (3, 8, 2, 32, 8, 16, 40, (0, 57, 128), 20, 30.0),
     (2, 4, 2, 100, 8, 12, 30, (95, 9), 11, 50.0),
     (2, 4, 2, 30, 8, 12, 30, (70, 33), None, None),       # D % 4 != 0
+    # the loaded server's decode (batch 16, max_len 1024: 3 splits of 24
+    # pages) under prefix sharing: a 250-token system prompt's 15 full pages
+    # named by all 16 rows (288 logical pages on 63 of a 70-page pool)
+    (16, 32, 4, 64, 16, 64, 70,
+     (258, 280, 314, 251, 266, 300, 253, 290, 262, 310, 275, 257, 299, 268, 284, 305),
+     None, None),
 ]
 
 PREFILL_SPLIT_CASES = [
@@ -75,6 +83,9 @@ PREFILL_SPLIT_CASES = [
     (1, 64, 32, 4, 64, 16, 32, 40, (448,), None, None),   # last chunk, full table
     (1, 64, 32, 4, 64, 16, 32, 40, (256,), 100, None),    # window from split 1
     (2, 24, 8, 2, 32, 8, 16, 40, (0, 100), 30, 30.0),     # ragged row tiles, cap
+    # after a copy-on-write hit: chunks that start mid-page over tables whose
+    # first 15 entries are another row's pages
+    (2, 64, 32, 4, 64, 16, 64, 26, (250, 265), None, None),
     (2, 2, 8, 1, 64, 16, 32, 40, (300, 62), 100, None),   # 16 rows: 8 splits
 ]
 
@@ -123,14 +134,22 @@ def l2_rel_err(got, want) -> float:
 
 
 def _table(rng, B, nL, P, psize, lens):
-    """Scrambled block table backing ``lens[b]`` tokens per row, -1 past."""
+    """Scrambled block table backing ``lens[b]`` tokens per row, -1 past.
+    Rows own disjoint pages while the pool ``P`` holds them all. A smaller
+    pool makes the rows share, as prefix sharing does: every row after the
+    first maps its first ``s`` logical pages onto row 0's, ``s`` the fewest
+    that fit."""
     perm = rng.permutation(P)
+    need = [-(-ln // psize) for ln in lens]
+    shared = next(s for s in range(need[0] + 1)
+                  if need[0] + sum(max(n - s, 0) for n in need[1:]) <= P)
     tbl = np.full((B, nL), -1, np.int32)
     used = 0
-    for b, ln in enumerate(lens):
-        n = -(-ln // psize)
-        tbl[b, :n] = perm[used:used + n]
-        used += n
+    for b, n in enumerate(need):
+        k = min(shared, n) if b else 0
+        tbl[b, :k] = tbl[0, :k]
+        tbl[b, k:n] = perm[used:used + n - k]
+        used += n - k
     return tbl
 
 

@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, record_cost
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_reference,
     paged_prefill_attention_reference,
@@ -269,6 +269,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, *, q_position, cache_len,
         _raise_on(rc, "paged_decode_kernel")
     LAUNCHES["paged_attention"] += 1
     ROUTE_LAUNCHES[rt] += 1
+    # the lengths come to the host only while a step is being counted
+    record_cost("paged_attention", lambda: launch_costs(
+        q, k_pages, nL, lens.tolist(), qpos.tolist(), causal=False, window=window))
     return out
 
 
@@ -307,4 +310,6 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, *, q_positions,
         _raise_on(rc, "paged_prefill_kernel")
     LAUNCHES["paged_prefill_attention"] += 1
     ROUTE_LAUNCHES[rt] += 1
+    record_cost("paged_prefill_attention", lambda: launch_costs(
+        q, k_pages, nL, lens.tolist(), start.tolist(), causal=causal, window=window))
     return out

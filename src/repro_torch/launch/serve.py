@@ -1,13 +1,27 @@
 """Serving launcher for the PyTorch port: continuous batching over the
-paged KV cache, chunked prefill overlapped with decode, greedy tokens.
+paged KV cache, chunked prefill overlapped with decode, greedy tokens,
+under a monitored session (``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --device cpu --requests 8 --max-new 8
 
+``--prefix-cache`` shares prompt pages across requests (the fixed trace
+then gives every prompt one system prompt); ``--arrival poisson|burst``
+replaces the fixed trace with the seeded open-loop traffic harness (mixed
+lengths, priority classes, ``--cancel-frac`` mid-stream cancellations)
+and reports goodput, TTFT percentiles and queue depth;
+``--preempt-policy`` picks the victim order when the page pool runs dry:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+        --smoke --device cpu --arrival burst --rate 0.8 --requests 16 \\
+        --num-pages 8 --page-size 8 --cancel-frac 0.2 --talp-out /tmp/talp_serve
+
 Without ``--device`` it runs on the card (``cuda``) and raises if there
-is none. Weights are the port's seeded initializer's, seed 0. It
-prints the completed count, ticks, decode steps, prefill chunks, the
-paged-KV line and each kernel's launch count.
+is none. Weights are the port's seeded initializer's, seed 0. It prints
+the completed count, ticks, decode steps, prefill chunks, the traffic,
+paged-KV, prefix-cache and pressure lines, each kernel's launch count,
+and where the TALP run record (regions ``decode``, ``prefill``,
+``preempt``, ``traffic``) was written.
 """
 
 from __future__ import annotations
@@ -36,47 +50,133 @@ def main(argv=None) -> int:
                     help="tokens per KV page (must divide --max-len)")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="KV pool size in pages (default: dense-equivalent)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request prefix sharing: map previously "
+                         "prefilled prompt pages into new requests' block "
+                         "tables (copy-on-write at the divergence point)")
+    ap.add_argument("--prefix-trie-capacity", type=int, default=None,
+                    help="max pages the prefix trie may pin (LRU-trimmed); "
+                         "default: unbounded (pool pressure still evicts)")
+    ap.add_argument("--arrival", choices=("poisson", "burst"), default=None,
+                    help="open-loop traffic instead of the fixed trace: "
+                         "Poisson or Markov-modulated bursty arrivals")
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="mean arrivals per scheduler tick (calm state)")
+    ap.add_argument("--cancel-frac", type=float, default=0.0,
+                    help="fraction of traffic requests that cancel "
+                         "mid-stream at a scheduled tick")
+    ap.add_argument("--preempt-policy", default="priority",
+                    choices=("priority", "pages", "progress", "never"),
+                    help="victim selection when the page pool runs dry: "
+                         "lowest-priority-first (default), most-pages, "
+                         "least-progress, or never (exhaustion raises)")
+    ap.add_argument("--talp-out", default="",
+                    help="directory for the TALP run record (CI artifact)")
     args = ap.parse_args(argv)
 
     import numpy as np
 
     from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.records import ResourceConfig
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve.serve import BatchScheduler, ServeConfig
+    from repro_torch.session import PerfSession, SessionConfig
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
     model = Transformer.from_init(cfg, seed=0, device=args.device)
-    sched = BatchScheduler(model, ServeConfig(
-        max_len=args.max_len, batch=args.batch,
-        prefill_chunk=args.prefill_chunk, overlap=not args.no_overlap,
-        eos_id=args.eos_id, page_size=args.page_size, num_pages=args.num_pages,
-    ))
+    session = PerfSession(
+        SessionConfig(app_name=f"serve-{args.arch}", backend="monitor",
+                      lb_sample_every=1),
+        ResourceConfig(num_hosts=1, devices_per_host=1),
+    )
     rng = np.random.default_rng(0)
-    for rid in range(args.requests):
-        prompt = rng.integers(4, cfg.vocab, size=rng.integers(3, 10)).tolist()
-        sched.submit(prompt, request_id=rid, max_new=args.max_new)
     reset_launch_counts()
-    steps = 0
-    while len(sched.completed) < args.requests and steps < 10 * args.max_len:
-        sched.step()
-        steps += 1
-    sched.drain()
+    with session:
+        sched = BatchScheduler(model, ServeConfig(
+            max_len=args.max_len, batch=args.batch,
+            prefill_chunk=args.prefill_chunk, overlap=not args.no_overlap,
+            eos_id=args.eos_id, page_size=args.page_size, num_pages=args.num_pages,
+            prefix_cache=args.prefix_cache,
+            prefix_trie_capacity=args.prefix_trie_capacity,
+            preempt_policy=args.preempt_policy,
+        ), session=session)
+        if args.arrival:
+            # open-loop traffic: arrivals, lengths, priorities and cancels
+            # are a pure function of the seeded TrafficConfig
+            from repro_torch.serve.traffic import (TrafficConfig,
+                                                   generate_workload, replay)
+
+            workload = generate_workload(TrafficConfig(
+                n_requests=args.requests, arrival=args.arrival,
+                rate=args.rate, cancel_frac=args.cancel_frac,
+                vocab_hi=cfg.vocab,
+            ))
+            metrics = replay(sched, workload)
+            steps = metrics["ticks"]
+        else:
+            metrics = None
+            # with prefix sharing on, give requests something to share: a
+            # common system prompt over several pages, divergent tails
+            system = (
+                rng.integers(4, cfg.vocab,
+                             size=min(4 * args.page_size, args.max_len // 2)).tolist()
+                if args.prefix_cache else []
+            )
+            for rid in range(args.requests):
+                prompt = system + rng.integers(4, cfg.vocab,
+                                               size=rng.integers(3, 10)).tolist()
+                sched.submit(prompt, request_id=rid, max_new=args.max_new)
+            steps = 0
+            while len(sched.completed) < args.requests and steps < 10 * args.max_len:
+                sched.step()
+                steps += 1
+            sched.drain()
     print(f"[serve] device {model.device}; completed {len(sched.completed)}/"
           f"{args.requests} requests in {steps} ticks "
           f"({sched.stats['decode_steps']} decode steps, "
           f"{sched.stats['prefill_chunks']} prefill chunks)")
+    if metrics is not None:
+        print(f"[serve] traffic ({args.arrival}): "
+              f"goodput {metrics['goodput_tokens_per_sec']} tok/s "
+              f"({metrics['good_tokens']} tokens), "
+              f"{metrics['cancelled']} cancelled, {metrics['failed']} failed; "
+              f"TTFT p50/p95/p99 {metrics['ttft_p50_s']}/"
+              f"{metrics['ttft_p95_s']}/{metrics['ttft_p99_s']} s; "
+              f"queue depth peak {metrics['queue_depth_peak']} "
+              f"(mean {metrics['queue_depth_mean']})")
     kv = sched.kv_cache_stats()
     print(f"[serve] paged KV: {kv['kv_bytes']} pool bytes, "
           f"{kv['num_pages']} pages x {kv['page_size']} tokens, "
           f"peak {kv['peak_used_pages']} pages in use "
           f"(utilization {kv['pool_utilization']})")
+    if "prefix_cache" in kv:
+        pc = kv["prefix_cache"]
+        print(f"[serve] prefix cache: hit rate {pc['hit_rate']} "
+              f"({pc['hits']}/{pc['hits'] + pc['misses']} attaches), "
+              f"{pc['prefill_tokens_skipped']} prefill tokens skipped, "
+              f"{pc['pages_saved_by_sharing']} pages saved by sharing, "
+              f"{pc['cow_copies']} copy-on-write pages, "
+              f"{pc['trie_pages']} pages cached "
+              f"({pc['evicted_pages']} evicted)")
+    pr = kv["pressure"]
+    print(f"[serve] pressure: {pr['preemptions']} preemptions "
+          f"({pr['pages_freed_by_preempt']} pages freed), "
+          f"{pr['resumes']} resumes, "
+          f"{pr['evictions_for_preempt']} trie evictions for preempt, "
+          f"{pr['cancellations']} cancellations, "
+          f"peak queue depth {pr['peak_queue_depth']}")
     counts = launch_counts()
     route = "kernel launches" if model.device.type == "cuda" else \
         "kernel launches (0 on the CPU: plain versions ran)"
     print(f"[serve] {route}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    session.finalize(args.talp_out or None)
+    if session.last_record_path:
+        print(f"[serve] TALP record: {session.last_record_path}")
+    elif args.talp_out:
+        print("[serve] monitoring disabled by environment; no run record")
     return 0
 
 

@@ -1,28 +1,49 @@
 """Continuous-batching serving over the paged KV cache
 (``repro.serve.serve``: ``ServeConfig``, ``PageAllocator``,
-``BatchScheduler``).
+``PrefixCache``, ``RequestHandle``, ``BatchScheduler``).
 
-What this slice keeps of the JAX scheduler, with its semantics:
+What the port keeps of the JAX scheduler, with its semantics:
 
 * every slot carries its own position; one decode dispatch per tick runs
   all decoding slots, then at most one ``prefill_chunk``-token chunk of
   the oldest in-flight prefill (``overlap=True``), or every pending prefill
   to completion before the decode (``overlap=False``, the stop-the-world
   baseline). Tokens are identical either way;
-* pages are allocated one at a time just before a chunk or a decode step
-  writes them and released when the request retires; exhausting the pool
-  unwinds the failing request (its pages freed, neighbours untouched) and
-  raises ``RuntimeError``, as the JAX scheduler does under
-  ``preempt_policy="never"``;
+* admission: ``submit`` returns a ``RequestHandle`` at once; a priority
+  queue (highest first, FIFO within a class) feeds free slots, and a
+  strictly-higher-priority waiter behind a full batch preempts the
+  lowest-priority occupant. ``cancel``, ``stream`` and ``stream_async``
+  work mid-stream;
+* pages are refcounted and allocated one at a time just before a chunk or
+  a decode step writes them. When the pool runs dry the scheduler evicts
+  prefix-trie pages nobody reads, then preempts a victim chosen by
+  ``preempt_policy`` (never an older request of the same or a higher
+  priority), then parks the requester; a preempted request
+  recompute-resumes: its prompt re-prefills on the same chunk grid and its
+  generated tokens replay through ordinary decode dispatches at their
+  original positions, inputs forced and outputs discarded, so its stream
+  is identical to an ample-pool run. Under ``"never"`` exhaustion unwinds
+  the failing request (its pages freed, neighbours untouched) and raises;
+* the prefix cache (``prefix_cache=True``): completed prefills insert
+  their prompts' full pages into a radix trie; an attach maps the longest
+  cached prefix read-only (refcount bump, that part of the prefill
+  skipped) and copies a partly matched page into a fresh one on the device
+  (copy-on-write). Shared pages are never written: every write lands at or
+  past the fast-forwarded start;
 * next-token seeds are applied in one scatter per tick, and readback is
   deferred and batched: one ``.cpu()`` of the stacked pending tokens per
   flush, when a request reaches its budget, every ``eos_check_every``
-  ticks when ``eos_id`` is set, or on ``flush()``/``drain()``;
+  ticks when ``eos_id`` is set, before a preemption, or on
+  ``flush()``/``drain()``;
+* monitoring through ``repro_torch.session``: every decode dispatch is a
+  visit of the session's ``decode`` region, every prefill chunk one of
+  ``prefill``, every preemption one of ``preempt``;
 * greedy sampling: an argmax over the padded vocabulary, unmasked.
 
-Not ported yet (see ROADMAP.md): prefix cache, preemption and resume,
-sampled decoding, speculative decoding, fault injection and recovery,
-traffic replay, the dense layout and the monitored session.
+The KV pools are written in place (``layers.attention.paged_write``), not
+returned anew as in the JAX package. Everything runs on one stream, so a
+page released on the host and handed to another request is written by
+the new owner only after every earlier dispatch that named it.
 """
 
 from __future__ import annotations
@@ -32,6 +53,10 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.session import PerfSession, SessionConfig
+
+PREEMPT_POLICIES = ("priority", "pages", "progress", "never")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +75,17 @@ class ServeConfig:
     page_size: int = 16
     # pool size in pages; None = dense-equivalent batch*max_len/page_size
     num_pages: int | None = None
+    # cross-request prefix cache: a radix trie over prompt-token pages maps
+    # cached prefixes read-only into a new request's block table and
+    # copy-on-writes the first partly shared page; the trie pins at most
+    # prefix_trie_capacity pages (LRU-trimmed on insert; None = unbounded,
+    # pool pressure still evicts pages no request reads)
+    prefix_cache: bool = False
+    prefix_trie_capacity: int | None = None
+    # victim order when the pool runs dry: "priority" (lowest class, then
+    # most pages, then least progress), "pages" (most pages), "progress"
+    # (least generated), or "never" (exhaustion unwinds and raises)
+    preempt_policy: str = "priority"
 
     def __post_init__(self):
         if self.max_len % self.page_size:
@@ -61,21 +97,39 @@ class ServeConfig:
                self.page_size) < 1:
             raise ValueError("batch, prefill_chunk, eos_check_every and "
                              "page_size must be >= 1")
+        if self.preempt_policy not in PREEMPT_POLICIES:
+            raise ValueError(
+                f"preempt_policy must be one of priority|pages|progress|never,"
+                f" got {self.preempt_policy!r}"
+            )
 
 
 class PageAllocator:
-    """Free-list allocator over the shared KV page pool. ``alloc`` raises
-    before handing out any page when the pool cannot serve the request, so
-    a full pool never remaps a neighbour's pages."""
+    """Refcounted free-list allocator over the shared KV page pool.
+    ``alloc`` hands pages out at refcount 1 and raises before handing out
+    any page when the pool cannot serve the request, so a full pool never
+    remaps a neighbour's pages; ``share`` adds a reference (a second block
+    table row, or the prefix trie's pin), and ``release`` returns a page to
+    the free list only when its count drops to zero."""
 
     def __init__(self, num_pages: int):
         self.num_pages = num_pages
         self._free = list(range(num_pages - 1, -1, -1))  # pop() -> page 0 first
+        self.refs: dict[int, int] = {}  # allocated page -> reference count
         self.peak_used = 0
 
     @property
     def used(self) -> int:
         return self.num_pages - len(self._free)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages currently held by more than one reference."""
+        return sum(1 for c in self.refs.values() if c > 1)
 
     def alloc(self, n: int, *, owner=None) -> list[int]:
         if n > len(self._free):
@@ -86,11 +140,258 @@ class PageAllocator:
                 f"requests sooner"
             )
         pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self.refs[p] = 1
         self.peak_used = max(self.peak_used, self.used)
         return pages
 
+    def share(self, pages: list[int]) -> None:
+        """Add one reference to each (already allocated) page."""
+        for p in pages:
+            self.refs[p] += 1
+
     def release(self, pages: list[int]) -> None:
-        self._free.extend(pages)
+        for p in pages:
+            c = self.refs[p] = self.refs[p] - 1
+            if c == 0:
+                del self.refs[p]
+                self._free.append(p)
+
+
+class _TrieNode:
+    __slots__ = ("tokens", "page", "children", "parent", "last_used")
+
+    def __init__(self, tokens, page, parent):
+        self.tokens = tokens      # the page_size-token tuple keying this node
+        self.page = page          # physical pool page holding their K/V
+        self.children: dict[tuple, _TrieNode] = {}
+        self.parent = parent
+        self.last_used = 0
+
+
+class PrefixCache:
+    """Radix trie over prompt-token pages for cross-request KV sharing.
+
+    A node is keyed by the exact ``page_size``-token tuple it covers (exact
+    compare: two different prefixes never alias), and a root-to-node path
+    spells a prompt prefix in whole pages mapped to resident pool pages.
+    The trie holds its own reference on every inserted page, so cached
+    pages outlive the request that inserted them; they are reclaimed by
+    LRU eviction under pool pressure (``evict_for``: only leaves no
+    request reads) or by the LRU trim when ``capacity`` pages would be
+    exceeded on insert."""
+
+    def __init__(self, page_size: int, allocator: PageAllocator,
+                 capacity: int | None = None):
+        self.page_size = page_size
+        self.allocator = allocator
+        self.capacity = capacity
+        self.root = _TrieNode((), -1, None)
+        self.size = 0       # nodes == pages currently pinned
+        self._clock = 0     # monotonic LRU clock
+        self.stats = {
+            "hits": 0, "misses": 0, "hit_tokens": 0,
+            "prefill_tokens_skipped": 0, "pages_shared": 0, "cow_copies": 0,
+            "inserted_pages": 0, "evicted_pages": 0,
+        }
+
+    def _touch(self, node: _TrieNode) -> None:
+        self._clock += 1
+        node.last_used = self._clock
+
+    def match(self, prompt):
+        """Longest cached prefix of ``prompt``: the chain of fully matched
+        page nodes, plus the best partly matching child of the last one
+        (the copy-on-write donor) with its matching row count."""
+        psize = self.page_size
+        node, chain, i = self.root, [], 0
+        while len(prompt) - i >= psize:
+            child = node.children.get(tuple(int(t) for t in prompt[i:i + psize]))
+            if child is None:
+                break
+            chain.append(child)
+            node, i = child, i + psize
+        tail = tuple(int(t) for t in prompt[i:i + psize])
+        donor, donor_rows = None, 0
+        for key, child in node.children.items():
+            n = 0
+            for a, b in zip(key, tail):
+                if a != b:
+                    break
+                n += 1
+            if n > donor_rows:
+                donor, donor_rows = child, n
+        return chain, donor, donor_rows
+
+    def insert(self, prompt, pages) -> None:
+        """Record a prefilled prompt's full pages (called when a request's
+        prefill completes). Existing nodes are LRU-touched; new nodes pin
+        their page with a trie-owned reference. The page straddling the
+        prompt's end is never inserted: decode writes its tail."""
+        psize = self.page_size
+        node = self.root
+        for j in range(len(prompt) // psize):
+            key = tuple(int(t) for t in prompt[j * psize:(j + 1) * psize])
+            child = node.children.get(key)
+            if child is None:
+                if self.capacity is not None and self.size >= self.capacity:
+                    # at capacity: trim the LRU leaf off some other path;
+                    # if the whole trie is this insertion, stop growing
+                    if not self._evict_lru(exclude=self._path_ids(node)):
+                        return
+                child = _TrieNode(key, pages[j], node)
+                node.children[key] = child
+                self.allocator.share([pages[j]])
+                self.size += 1
+                self.stats["inserted_pages"] += 1
+            self._touch(child)
+            node = child
+
+    # -- eviction ----------------------------------------------------------
+
+    def _path_ids(self, node: _TrieNode) -> set:
+        out = set()
+        while node is not None:
+            out.add(id(node))
+            node = node.parent
+        return out
+
+    def _leaves(self) -> list[_TrieNode]:
+        out, stack = [], list(self.root.children.values())
+        while stack:
+            n = stack.pop()
+            if n.children:
+                stack.extend(n.children.values())
+            else:
+                out.append(n)
+        return out
+
+    def _evict(self, node: _TrieNode) -> None:
+        del node.parent.children[node.tokens]
+        self.allocator.release([node.page])
+        self.size -= 1
+        self.stats["evicted_pages"] += 1
+
+    def _evict_lru(self, *, exclude=frozenset(),
+                   only_unreferenced: bool = False) -> bool:
+        """Evict the least-recently-used leaf; True if one was evicted."""
+        cand = [
+            n for n in self._leaves()
+            if id(n) not in exclude
+            and (not only_unreferenced
+                 or self.allocator.refs.get(n.page, 0) == 1)
+        ]
+        if not cand:
+            return False
+        self._evict(min(cand, key=lambda n: n.last_used))
+        return True
+
+    def evict_subtree(self, node: _TrieNode) -> int:
+        """Evict ``node`` and every descendant, children first; returns the
+        number of nodes evicted."""
+        stack, order = [node], []
+        while stack:
+            n = stack.pop()
+            order.append(n)
+            stack.extend(n.children.values())
+        for n in reversed(order):
+            self._evict(n)
+        return len(order)
+
+    def evict_for(self, n_pages: int) -> int:
+        """Pool pressure: free >= ``n_pages`` by evicting LRU leaves whose
+        page has no reader besides the trie. Inner nodes become evictable
+        as their children go. Returns the pages actually freed (may fall
+        short)."""
+        freed = 0
+        while freed < n_pages:
+            before = self.allocator.free_pages
+            if not self._evict_lru(only_unreferenced=True):
+                break
+            freed += self.allocator.free_pages - before
+        return freed
+
+    def reclaimable(self) -> int:
+        """Pages the trie could free under pressure: every node whose page
+        has no reader besides the trie."""
+        count = 0
+        stack = list(self.root.children.values())
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            if self.allocator.refs.get(n.page, 0) == 1:
+                count += 1
+        return count
+
+    def clear(self) -> None:
+        """Drop every cached page (teardown, tests)."""
+        while self._evict_lru():
+            pass
+
+
+class _PoolPressure(Exception):
+    """An allocation could not be satisfied even after trie eviction and
+    victim preemption. ``fatal=False``: park the requester (pressure drops
+    as older or higher-priority work retires); ``fatal=True``: waiting
+    cannot help (policy "never", or nobody else holds anything), so the
+    caller unwinds the request and raises RuntimeError."""
+
+    def __init__(self, fatal: bool, msg: str):
+        super().__init__(msg)
+        self.fatal = fatal
+        self.msg = msg
+
+
+# terminal request statuses: the stream is closed, no more tokens can come
+_TERMINAL = ("done", "cancelled", "failed")
+# kv_cache_stats()["recovery"]: the JAX package's fault-recovery counters,
+# all 0 here (fault injection and recovery are not ported)
+_RECOVERY_KEYS = ("retries", "backoff_total_ticks", "quarantined", "shed",
+                  "checksum_failures", "watchdog_trips")
+
+
+class RequestHandle:
+    """Caller-facing view of a submitted request: its lifecycle
+    (``queued -> prefilling -> decoding -> done``, with ``preempted``
+    parking and the ``cancelled``/``failed`` exits), the tokens flushed so
+    far, and ``cancel``/``stream``/``result``."""
+
+    __slots__ = ("_sched", "_req")
+
+    def __init__(self, sched: "BatchScheduler", req: dict):
+        self._sched = sched
+        self._req = req
+
+    @property
+    def request_id(self):
+        return self._req["id"]
+
+    @property
+    def status(self) -> str:
+        return self._req["_status"]
+
+    @property
+    def tokens(self) -> list[int]:
+        """Tokens generated (and flushed to the host) so far."""
+        return list(self._req["generated"])
+
+    @property
+    def done(self) -> bool:
+        return self._req["_status"] in _TERMINAL
+
+    def cancel(self) -> bool:
+        return self._sched.cancel(self._req["id"])
+
+    def stream(self, *, timeout: int | None = None):
+        """Synchronous token stream that drives the scheduler; ``timeout``
+        bounds the ticks spent waiting for the next token (TimeoutError)."""
+        return self._sched.stream(self._req["id"], timeout=timeout)
+
+    def result(self, *, timeout: int | None = None) -> list[int]:
+        """Drive the scheduler until this request finishes; its tokens."""
+        for _ in self.stream(timeout=timeout):
+            pass
+        return self.tokens
 
 
 def _sample_tokens(logits: torch.Tensor) -> torch.Tensor:
@@ -110,22 +411,45 @@ def _upload(arr: np.ndarray, device) -> torch.Tensor:
 
 class BatchScheduler:
     """Slot-based continuous batching with chunked prefill overlapped with
-    decode, over the model's paged KV pool. Tokens are greedy and identical
-    with overlap on or off.
+    decode, over the model's paged KV pool, with priority admission,
+    preemption and recompute-resume, and the prefix cache. Tokens are
+    greedy and identical with overlap on or off, sharing on or off, and
+    under any pool pressure.
 
     Request records are dicts: ``id``, ``prompt``, ``max_new``,
-    ``generated`` (host tokens), ``status`` (queued | prefilling | decoding
-    | done | failed), and ``t_submit``/``t_first_token`` (host clock: submit,
-    and the flush that first put a token on the host)."""
+    ``priority``, ``generated`` (host tokens), ``_status`` (queued |
+    prefilling | decoding | preempted | done | cancelled | failed), and
+    ``t_submit``/``t_first_token`` (host clock: submit, and the flush that
+    first put a token on the host).
 
-    def __init__(self, model, scfg: ServeConfig):
+    ``session``: a ``PerfSession`` whose ``decode``, ``prefill`` and
+    ``preempt`` regions this scheduler visits; None builds a null session
+    (``TALP_ENABLE`` can still turn it on). The caller owns ``finalize``."""
+
+    def __init__(self, model, scfg: ServeConfig, session=None):
         self.model, self.cfg, self.scfg = model, model.cfg, scfg
         self.device = model.device
+        self.session = session if session is not None else PerfSession(
+            SessionConfig(app_name="serve", backend="null")
+        )
+        # observe the sampled tokens only: the pools are written in place
+        # and never leave the card
+        self.decode = self.session.wrap_step(
+            self._decode_step, region="decode", derive=True,
+            observe=lambda out: {"outputs": out})
+        self.prefill = self.session.wrap_step(
+            self._prefill_step, region="prefill", derive=True,
+            observe=lambda out: {"outputs": out})
         self._max_pages = scfg.max_len // scfg.page_size
         n_pages = scfg.num_pages
         if n_pages is None:
             n_pages = scfg.batch * self._max_pages
         self._alloc = PageAllocator(n_pages)
+        self._prefix = (
+            PrefixCache(scfg.page_size, self._alloc,
+                        capacity=scfg.prefix_trie_capacity)
+            if scfg.prefix_cache else None
+        )
         self._tables = np.full((scfg.batch, self._max_pages), -1, np.int32)
         self._slot_pages: list[list[int]] = [[] for _ in range(scfg.batch)]
         self._tables_dirty = True
@@ -134,14 +458,21 @@ class BatchScheduler:
                                        page_size=scfg.page_size, num_pages=n_pages)
         self.tokens = torch.zeros((scfg.batch, 1), dtype=torch.int32,
                                   device=self.device)
-        self.queue: list[dict] = []
-        self.active: list[dict | None] = [None] * scfg.batch
-        self.pos = np.zeros(scfg.batch, np.int32)
+        self.queue: list[dict] = []    # admission queue: priority, FIFO within
+        self.active: list[dict | None] = [None] * scfg.batch   # decoding slots
+        self.pos = np.zeros(scfg.batch, np.int32)              # per-slot position
         self.completed: list[dict] = []
-        self.failed: list[dict] = []
+        self.cancelled: list[dict] = []
+        self.failed: list[dict] = []      # fatal pool pressure (unwound clean)
+        self._parked: list[dict] = []     # preempted, awaiting recompute-resume
+        self._by_id: dict = {}            # request_id -> req (handles, cancel)
+        self._seq = 0                     # admission order: FIFO within a class
+        # recompute-resume: slot -> generated tokens still to re-feed through
+        # decode at their original positions (outputs discarded)
+        self._replay: dict[int, list[int]] = {}
         self._prefills: list[dict] = []
         self._prefilling: list[dict | None] = [None] * scfg.batch
-        # next-token seeds {slot: device scalar}, one scatter per tick
+        # next-token seeds {slot: device scalar or int}, one scatter per tick
         self._seeds: dict[int, torch.Tensor | int] = {}
         # pending readbacks: (device tokens (n,1), row -> request map)
         self._pending: list[tuple[torch.Tensor, list[dict | None]]] = []
@@ -150,13 +481,31 @@ class BatchScheduler:
             # ticks with a prefill in flight beside >= 1 decoding slot, and
             # ticks whose decode dispatch waited on prefill work
             "overlap_ticks": 0, "decode_after_prefill_ticks": 0,
+            # pressure accounting (kv_cache_stats()["pressure"])
+            "preemptions": 0, "resumes": 0, "cancellations": 0,
+            "pages_freed_by_preempt": 0, "evictions_for_preempt": 0,
+            "peak_queue_depth": 0,
         }
+
+    # -- the two dispatched steps (wrapped by the session) -------------------
+
+    def _decode_step(self, tokens, pos, active, tables) -> torch.Tensor:
+        logits = self.model.decode_step(tokens, pos, self.caches, active=active,
+                                        block_tables=tables)
+        return _sample_tokens(logits)[:, None]
+
+    def _prefill_step(self, chunk, start, length, tables) -> torch.Tensor:
+        return _sample_tokens(self.model.prefill_chunk(
+            chunk, self.caches, start, length, tables))
 
     # -- admission ---------------------------------------------------------
 
-    def submit(self, prompt_tokens, request_id, max_new: int = 32) -> dict:
-        """Queue a request (FIFO). Raises ValueError for a request that can
-        never fit: the last decode writes position prompt+max_new-2."""
+    def submit(self, prompt_tokens, request_id, max_new: int = 32,
+               priority: int = 0) -> RequestHandle:
+        """Queue a request; returns its ``RequestHandle`` at once. Higher
+        ``priority`` is admitted first (FIFO within a class) and may preempt
+        strictly lower-priority work. Raises ValueError for a request that
+        can never fit: the last decode writes position prompt+max_new-2."""
         prompt = [int(t) for t in prompt_tokens]
         if max_new < 1:
             raise ValueError(f"request {request_id!r}: max_new must be >= 1")
@@ -170,68 +519,412 @@ class BatchScheduler:
         pages = -(-need // self.scfg.page_size)
         if pages > self._alloc.num_pages:
             raise ValueError(
-                f"request {request_id!r} needs {pages} page(s) but the pool "
-                f"only holds {self._alloc.num_pages}; raise ServeConfig.num_pages"
+                f"request {request_id!r} needs {pages} page(s) (prompt "
+                f"{len(prompt)}, max_new {max_new}, page_size "
+                f"{self.scfg.page_size}) but the pool only holds "
+                f"{self._alloc.num_pages}; raise ServeConfig.num_pages "
+                f"(--num-pages)"
             )
         req = {"id": request_id, "prompt": prompt, "max_new": max_new,
-               "generated": [], "pending": 0, "status": "queued",
+               "generated": [], "_pending": 0, "priority": int(priority),
+               "_seq": self._seq, "_status": "queued", "_cancelled": False,
+               "_not_before": 0,
                "t_submit": time.perf_counter(), "t_first_token": None}
+        self._seq += 1
         self.queue.append(req)
-        return req
+        self._by_id[request_id] = req
+        self.stats["peak_queue_depth"] = max(
+            self.stats["peak_queue_depth"], len(self.queue) + len(self._parked))
+        return RequestHandle(self, req)
+
+    def cancel(self, request_id) -> bool:
+        """Cancel mid-stream: take the request out of whichever pool holds
+        it (queue, parked, in-flight prefill or a decoding slot), release
+        its pages and close its stream. Trie pins and co-resident slots are
+        untouched; rows dispatched but not flushed are dropped at the next
+        flush. True if the request was still live."""
+        req = self._by_id.get(request_id)
+        if req is None or req["_status"] in _TERMINAL:
+            return False
+        req["_cancelled"] = True
+        if req in self.queue:
+            self.queue.remove(req)
+        elif req in self._parked:
+            self._parked.remove(req)
+        else:
+            slot = self._slot_of(req)
+            if slot is not None:
+                self._detach(slot)
+        req["_status"] = "cancelled"
+        self.cancelled.append(req)
+        self.stats["cancellations"] += 1
+        return True
+
+    def flush(self) -> None:
+        """Materialize pending tokens now (streaming callers)."""
+        self._flush()
+
+    def stream(self, request_id, *, timeout: int | None = None):
+        """Generator of ``request_id``'s tokens that drives the scheduler
+        (step, flush) until new tokens land; ends when the request reaches
+        a terminal status. ``timeout`` bounds the ticks without progress
+        (TimeoutError); without it a stall raises RuntimeError after
+        100,000 ticks."""
+        req = self._by_id.get(request_id)
+        if req is None:
+            raise KeyError(f"unknown request {request_id!r}")
+        limit = timeout if timeout is not None else 100_000
+        sent, idle = 0, 0
+        while True:
+            while sent < len(req["generated"]):
+                idle = 0
+                yield req["generated"][sent]
+                sent += 1
+            if req["_status"] in _TERMINAL:
+                return
+            if idle >= limit:
+                if timeout is not None:
+                    raise TimeoutError(
+                        f"request {request_id!r} made no progress in {idle} "
+                        f"scheduler ticks (status {req['_status']!r})"
+                    )
+                raise RuntimeError(
+                    f"request {request_id!r} stalled in stream() "
+                    f"(status {req['_status']!r})"
+                )
+            self.step()
+            self._flush()
+            idle += 1
+
+    async def stream_async(self, request_id):
+        """Async ``stream``: yields to the event loop between ticks, so
+        several consumers interleave over one scheduler."""
+        import asyncio
+
+        req = self._by_id.get(request_id)
+        if req is None:
+            raise KeyError(f"unknown request {request_id!r}")
+        sent = 0
+        while True:
+            while sent < len(req["generated"]):
+                yield req["generated"][sent]
+                sent += 1
+            if req["_status"] in _TERMINAL:
+                return
+            self.step()
+            self._flush()
+            await asyncio.sleep(0)
+
+    # -- attach ------------------------------------------------------------
 
     def _free(self, slot: int) -> bool:
         return self.active[slot] is None and self._prefilling[slot] is None
 
     def _attach(self) -> None:
+        if self.scfg.preempt_policy != "never":
+            self._preempt_for_priority()
+        if not (self.queue or self._parked):
+            return
+        order = lambda r: (-r["priority"], r["_seq"])
+        self.queue.sort(key=order)    # stable: FIFO within a priority class
+        self._parked.sort(key=order)
         for slot in range(self.scfg.batch):
-            if not self.queue:
-                return
             if not self._free(slot):
                 continue
-            req = self.queue.pop(0)
-            self.pos[slot] = 0
-            self._seeds.pop(slot, None)  # a retired request's stale seed
-            if not req["prompt"]:
-                # nothing to prefill: decode from an empty cache off seed 0
-                self._seeds[slot] = 0
-                self.active[slot] = req
-                req["status"] = "decoding"
-                continue
-            task = {"req": req, "slot": slot, "done": 0,
-                    "prompt": np.asarray(req["prompt"], np.int32)}
-            req["status"] = "prefilling"
-            self._prefilling[slot] = task
-            self._prefills.append(task)
+            req = self._next_admittable()
+            if req is None:
+                break
+            if not self._attach_one(slot, req):
+                break  # attach-time pool pressure: try again next tick
 
-    # -- paged-pool bookkeeping ---------------------------------------------
+    def _next_admittable(self) -> dict | None:
+        """Best waiter across the queue and the parked set on (priority
+        desc, arrival asc); a parked request keeps its seq, and must pass
+        ``_ready`` and the resume gate (``_resume_fits``) so a resume cannot
+        thrash straight back out."""
+        order = lambda r: (-r["priority"], r["_seq"])
+        parked = next(
+            (r for r in self._parked if self._ready(r) and self._resume_fits(r)),
+            None,
+        )
+        queued = self.queue[0] if self.queue else None
+        if parked is not None and (queued is None or order(parked) <= order(queued)):
+            self._parked.remove(parked)
+            return parked
+        if queued is not None:
+            return self.queue.pop(0)
+        return None
 
-    def _ensure_pages(self, slot: int, last_pos: int, req: dict) -> None:
-        """Back position ``last_pos`` of ``slot`` with a page, one page at a
-        time. On exhaustion, unwind the request (all its pages freed, its
-        table row cleared), mark it failed and raise RuntimeError."""
-        need = last_pos // self.scfg.page_size + 1
-        while len(self._slot_pages[slot]) < need:
+    def _ready(self, req: dict) -> bool:
+        """A parked request stays parked until its ``_not_before`` tick (0
+        here; fault recovery's retry backoff will set it)."""
+        return req["_not_before"] <= self.stats["ticks"]
+
+    def _resume_fits(self, req) -> bool:
+        need = len(req["prompt"]) + max(len(req["generated"]), 1)
+        need = -(-need // self.scfg.page_size)
+        avail = self._alloc.free_pages
+        if self._prefix is not None:
+            avail += self._prefix.reclaimable()
+        return avail >= need
+
+    def _attach_one(self, slot: int, req: dict) -> bool:
+        """Attach ``req`` to the free ``slot``; False on attach-time pool
+        pressure (the request goes back where it came from, unwound). A
+        request with generated history is a recompute-resume: the prompt
+        re-prefills on the normal chunk grid and the history is scheduled
+        for decode replay."""
+        resume = req["_status"] == "preempted"
+        self.pos[slot] = 0
+        if not req["prompt"]:
+            # nothing to prefill: decode from an empty cache off seed 0; on
+            # resume replay the whole history (the seed regenerates
+            # generated[0], which is discarded)
+            self._seeds[slot] = 0
+            if req["generated"]:
+                self._replay[slot] = list(req["generated"])
+            self.active[slot] = req
+            req["_status"] = "decoding"
+            if resume:
+                self.stats["resumes"] += 1
+            return True
+        self._seeds.pop(slot, None)  # a retired request's stale seed
+        task = {"req": req, "slot": slot, "done": 0,
+                "prompt": np.asarray(req["prompt"], np.int32)}
+        if self._prefix is not None:
             try:
-                page = self._alloc.alloc(1, owner=req["id"])[0]
-            except RuntimeError as e:
-                self._fail(slot, req)
-                raise RuntimeError(
-                    f"{e} [kv_cache_stats: {self.kv_cache_stats()}]"
-                ) from None
-            self._tables[slot, len(self._slot_pages[slot])] = page
-            self._slot_pages[slot].append(page)
-            self._tables_dirty = True
+                task["done"] = self._attach_prefix(slot, req)
+            except _PoolPressure as e:
+                self._release_slot_pages(slot)
+                if e.fatal:
+                    req["_status"] = "failed"
+                    self.failed.append(req)
+                    raise RuntimeError(
+                        f"{e.msg} [kv_cache_stats: {self.kv_cache_stats()}]"
+                    ) from None
+                if resume:
+                    self._parked.append(req)
+                else:
+                    req["_status"] = "queued"
+                    self.queue.append(req)
+                return False
+        req["_status"] = "prefilling"
+        if resume:
+            self.stats["resumes"] += 1
+        self._prefilling[slot] = task
+        self._prefills.append(task)
+        return True
 
-    def _fail(self, slot: int, req: dict) -> None:
+    def _attach_prefix(self, slot: int, req) -> int:
+        """Map the trie's longest cached prefix of the prompt into
+        ``slot``'s block table: fully matched pages read-only (refcount
+        bump, their prefill skipped), a partly matched page copied on the
+        device into a fresh page whose tail the prefill then writes. At
+        least one prompt token is left to prefill: the last chunk's logits
+        give the first generated token. Returns the prefill fast-forward
+        ``use``; every later write lands at or past it, so no shared page
+        is ever written."""
+        prompt = req["prompt"]
+        psize = self.scfg.page_size
+        chain, donor, donor_rows = self._prefix.match(prompt)
+        st = self._prefix.stats
+        use = min(len(chain) * psize + donor_rows, len(prompt) - 1)
+        if use <= 0:
+            st["misses"] += 1
+            return 0
+        n_full, cow_rows = divmod(use, psize)
+        # the leave-one-token clamp can demote the last fully matched page
+        # to the copy-on-write donor (prompt ends on its boundary)
+        cow_donor = None
+        if cow_rows:
+            cow_donor = chain[n_full] if n_full < len(chain) else donor
+        for node in chain[:n_full]:
+            self._alloc.share([node.page])
+            self._tables[slot, len(self._slot_pages[slot])] = node.page
+            self._slot_pages[slot].append(node.page)
+            self._prefix._touch(node)
+        if cow_donor is not None:
+            new = self._alloc_pages(1, req)[0]
+            self._tables[slot, len(self._slot_pages[slot])] = new
+            self._slot_pages[slot].append(new)
+            self._prefix._touch(cow_donor)
+            self._cow_copy(cow_donor.page, new)
+            st["cow_copies"] += 1
+        self._tables_dirty = True
+        st["hits"] += 1
+        st["hit_tokens"] += use
+        st["prefill_tokens_skipped"] += use
+        st["pages_shared"] += n_full
+        return use
+
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Copy physical page ``src`` to ``dst`` in every attention slot's K
+        and V pool, all repeats, in place on the device (no host sync)."""
+        for slot in self.caches.values():
+            for pool in slot["attn"].values():
+                pool[:, dst].copy_(pool[:, src])
+
+    # -- preemption --------------------------------------------------------
+
+    def _occupant(self, slot: int) -> dict | None:
+        task = self._prefilling[slot]
+        return self.active[slot] or (task["req"] if task else None)
+
+    def _slot_of(self, req: dict) -> int | None:
+        for slot in range(self.scfg.batch):
+            if self._occupant(slot) is req:
+                return slot
+        return None
+
+    def _detach(self, slot: int) -> None:
+        """Take whatever occupies ``slot`` off the batch: its in-flight
+        prefill, its pages, its seed and replay. The request itself is left
+        for the caller to place (parked, cancelled, failed)."""
         task = self._prefilling[slot]
         if task is not None:
             self._prefills.remove(task)
             self._prefilling[slot] = None
         self.active[slot] = None
-        self._seeds.pop(slot, None)
         self._release_slot_pages(slot)
-        req["status"] = "failed"
-        self.failed.append(req)
+        self._seeds.pop(slot, None)
+        self._replay.pop(slot, None)
+
+    def _preempt_for_priority(self) -> None:
+        """A strictly-higher-priority waiter behind a fully busy batch
+        evicts the lowest-priority occupant (youngest on a tie), one per
+        tick."""
+        waiters = [r["priority"] for r in self.queue]
+        waiters += [r["priority"] for r in self._parked
+                    if self._ready(r) and self._resume_fits(r)]
+        if not waiters or any(self._free(s) for s in range(self.scfg.batch)):
+            return
+        top = max(waiters)
+        occ = [
+            (r["priority"], -r["_seq"], slot)
+            for slot in range(self.scfg.batch)
+            if (r := self._occupant(slot)) is not None and r["priority"] < top
+        ]
+        if occ:
+            self._preempt(min(occ)[2])
+
+    def _pick_victim(self, requester: dict) -> int | None:
+        """Pool-pressure victim for ``requester`` by ``preempt_policy``:
+        only strictly lower-priority, or equal-priority strictly younger,
+        occupants holding pages are eligible, so preemption never
+        ping-pongs."""
+        rp, rs = requester["priority"], requester["_seq"]
+        cand = []
+        for slot in range(self.scfg.batch):
+            occ = self._occupant(slot)
+            if occ is None or occ is requester or not self._slot_pages[slot]:
+                continue
+            if occ["priority"] < rp or (occ["priority"] == rp and occ["_seq"] > rs):
+                cand.append((slot, occ))
+        if not cand:
+            return None
+        policy = self.scfg.preempt_policy
+        if policy == "pages":        # free the most memory per eviction
+            key = lambda c: -len(self._slot_pages[c[0]])
+        elif policy == "progress":   # least work lost to recompute
+            key = lambda c: len(c[1]["generated"]) + c[1]["_pending"]
+        else:                        # "priority": cheapest class first, then
+            key = lambda c: (        # most pages, then least progress
+                c[1]["priority"],
+                -len(self._slot_pages[c[0]]),
+                len(c[1]["generated"]) + c[1]["_pending"],
+            )
+        return min(cand, key=key)[0]
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot``'s request for recompute-resume: flush first (replay
+        re-feeds its history, which must be on the host), release its pages
+        and park it. The trie keeps its own pins."""
+        self._flush()
+        req = self._occupant(slot)
+        if req is None:
+            return  # the flush retired it
+        with self.session.region("preempt"):
+            freed = len(self._slot_pages[slot])
+            self._detach(slot)
+            req["_status"] = "preempted"
+            self._parked.append(req)
+            self.stats["preemptions"] += 1
+            self.stats["pages_freed_by_preempt"] += freed
+
+    def _handle_pressure(self, slot: int, e: _PoolPressure) -> None:
+        """Non-fatal: park the requester itself. Fatal: unwind everything
+        the request holds (nothing leaks) and raise RuntimeError."""
+        if not e.fatal:
+            self._preempt(slot)
+            return
+        req = self._occupant(slot)
+        self._detach(slot)
+        if req is not None:
+            req["_status"] = "failed"
+            self.failed.append(req)
+        raise RuntimeError(
+            f"{e.msg} [kv_cache_stats: {self.kv_cache_stats()}]"
+        ) from None
+
+    # -- paged-pool bookkeeping ----------------------------------------------
+
+    def _alloc_pages(self, n: int, req: dict) -> list[int]:
+        """Allocate for ``req``, escalating under pool pressure: evict LRU
+        trie pages no request reads, then preempt a victim and repeat. Still
+        short: raise ``_PoolPressure`` (fatal under "never" or when nobody
+        else holds anything reclaimable)."""
+        while True:
+            if self._prefix is not None and n > self._alloc.free_pages:
+                freed = self._prefix.evict_for(n - self._alloc.free_pages)
+                self.stats["evictions_for_preempt"] += freed
+            if n <= self._alloc.free_pages:
+                return self._alloc.alloc(n, owner=req["id"])
+            victim = (self._pick_victim(req)
+                      if self.scfg.preempt_policy != "never" else None)
+            if victim is not None:
+                self._preempt(victim)
+                continue
+            others_hold = any(
+                self._slot_pages[s]
+                for s in range(self.scfg.batch)
+                if (occ := self._occupant(s)) is not None and occ is not req
+            )
+            reclaim = self._prefix.reclaimable() if self._prefix is not None else 0
+            fatal = (self.scfg.preempt_policy == "never"
+                     or (not others_hold and reclaim == 0))
+            raise _PoolPressure(
+                fatal,
+                f"paged KV pool exhausted: request {req['id']!r} needs {n} "
+                f"more page(s) but only {self._alloc.free_pages} of "
+                f"{self._alloc.num_pages} are free and no victim is "
+                f"eligible (preempt_policy={self.scfg.preempt_policy!r}); "
+                f"raise ServeConfig.num_pages (--num-pages) or retire "
+                f"requests sooner",
+            )
+
+    def _ensure_pages(self, slot: int, last_pos: int, req: dict) -> None:
+        """Back position ``last_pos`` of ``slot`` with a page, one page at a
+        time (each with the full escalation). Under pressure the pages
+        already taken are unwound before ``_PoolPressure`` propagates."""
+        need = last_pos // self.scfg.page_size + 1
+        have = len(self._slot_pages[slot])
+        if need <= have:
+            return
+        added: list[int] = []
+        try:
+            for j in range(have, need):
+                page = self._alloc_pages(1, req)[0]
+                self._tables[slot, j] = page
+                self._slot_pages[slot].append(page)
+                added.append(page)
+                self._tables_dirty = True
+        except _PoolPressure:
+            for page in reversed(added):
+                self._slot_pages[slot].pop()
+                self._tables[slot, len(self._slot_pages[slot])] = -1
+                self._alloc.release([page])
+                self._tables_dirty = True
+            raise
 
     def _release_slot_pages(self, slot: int) -> None:
         if not self._slot_pages[slot]:
@@ -244,7 +937,7 @@ class BatchScheduler:
     def _tables_device(self) -> torch.Tensor:
         """Device mirror of the block tables, uploaded only after a change.
         ``-1`` entries go up intact: readers stop at cache_len and writers
-        drop them."""
+        send them to the spare page."""
         if self._tables_dirty:
             self._tables_dev = _upload(self._tables, self.device)
             self._tables_dirty = False
@@ -252,51 +945,91 @@ class BatchScheduler:
 
     def kv_cache_stats(self) -> dict:
         """Pool bytes as allocated (including each layer's spare page),
-        pages, and the live-page peak."""
+        pages, the live-page peak, sharing, the prefix cache, pressure, and
+        the recovery counters (all 0: fault recovery is not ported)."""
         kv_bytes = sum(
             t.numel() * t.element_size()
             for slot in self.caches.values() for t in slot["attn"].values()
         )
-        per_page = kv_bytes / (self._alloc.num_pages + 1)
-        return {
+        alloc = self._alloc
+        per_page = kv_bytes / (alloc.num_pages + 1)
+        out = {
             "layout": "paged", "kv_bytes": int(kv_bytes),
             "page_size": self.scfg.page_size,
-            "num_pages": self._alloc.num_pages,
-            "pages_in_use": self._alloc.used,
-            "peak_used_pages": self._alloc.peak_used,
-            "peak_live_kv_bytes": int(self._alloc.peak_used * per_page),
-            "pool_utilization": round(
-                self._alloc.peak_used / max(self._alloc.num_pages, 1), 4),
+            "num_pages": alloc.num_pages,
+            "pages_in_use": alloc.used,
+            "peak_used_pages": alloc.peak_used,
+            "peak_live_kv_bytes": int(alloc.peak_used * per_page),
+            "pool_utilization": round(alloc.peak_used / max(alloc.num_pages, 1), 4),
+            "refcounted_pages": len(alloc.refs),
+            "shared_pages": alloc.shared_pages,
         }
+        if self._prefix is not None:
+            st = self._prefix.stats
+            lookups = st["hits"] + st["misses"]
+            out["prefix_cache"] = {
+                "trie_pages": self._prefix.size,
+                "hits": st["hits"],
+                "misses": st["misses"],
+                "hit_rate": round(st["hits"] / lookups, 4) if lookups else 0.0,
+                "hit_tokens": st["hit_tokens"],
+                "prefill_tokens_skipped": st["prefill_tokens_skipped"],
+                "pages_saved_by_sharing": st["pages_shared"],
+                "cow_copies": st["cow_copies"],
+                "inserted_pages": st["inserted_pages"],
+                "evicted_pages": st["evicted_pages"],
+            }
+        out["pressure"] = {
+            k: self.stats[k]
+            for k in ("preemptions", "resumes", "cancellations",
+                      "pages_freed_by_preempt", "evictions_for_preempt",
+                      "peak_queue_depth")
+        }
+        out["pressure"]["queued"] = len(self.queue)
+        out["pressure"]["parked"] = len(self._parked)
+        out["recovery"] = dict.fromkeys(_RECOVERY_KEYS, 0)
+        return out
 
     # -- dispatch ------------------------------------------------------------
 
     def _dispatch_prefill_chunk(self) -> None:
-        """One chunk of the oldest in-flight prefill (no host sync)."""
+        """One chunk of the oldest in-flight prefill (no host sync, unless
+        pool pressure preempts)."""
         task = self._prefills[0]
         C = self.scfg.prefill_chunk
         prompt, start, slot, req = task["prompt"], task["done"], task["slot"], task["req"]
         L = min(C, len(prompt) - start)
         chunk = np.zeros((1, C), np.int32)
         chunk[0, :L] = prompt[start:start + L]
-        self._ensure_pages(slot, start + L - 1, req)
+        try:
+            self._ensure_pages(slot, start + L - 1, req)
+        except _PoolPressure as e:
+            self._handle_pressure(slot, e)
+            return
         tables = self._tables_device()
-        logits = self.model.prefill_chunk(
-            _upload(chunk, self.device), self.caches, start, L,
-            tables[slot:slot + 1],
-        )
-        next_tok = _sample_tokens(logits)  # (1,)
+        next_tok = self.prefill(_upload(chunk, self.device), start, L,
+                                tables[slot:slot + 1])  # (1,)
         task["done"] = start + L
         self.stats["prefill_chunks"] += 1
-        if task["done"] >= len(prompt):
-            # the prompt's last chunk: next_tok is the first generated token;
-            # it joins the deferred readback and seeds the slot's decode input
-            self._prefills.remove(task)
-            self._prefilling[slot] = None
-            self.active[slot] = req
-            req["status"] = "decoding"
-            self.pos[slot] = len(prompt)
-            req["pending"] += 1
+        if task["done"] < len(prompt):
+            return
+        # the prompt's last chunk: next_tok is the first generated token
+        if self._prefix is not None:
+            self._prefix.insert(req["prompt"], self._slot_pages[slot])
+        self._prefills.remove(task)
+        self._prefilling[slot] = None
+        self.active[slot] = req
+        req["_status"] = "decoding"
+        self.pos[slot] = len(prompt)
+        if req["generated"]:
+            # recompute-resume: the same chunk grid rebuilt the prompt's KV;
+            # the re-sampled first token is generated[0], already on the
+            # host. Discard it and replay the rest of the history
+            self._seeds[slot] = req["generated"][0]
+            if len(req["generated"]) > 1:
+                self._replay[slot] = list(req["generated"][1:])
+        else:
+            req["_pending"] += 1
             self._pending.append((next_tok.reshape(1, 1), [req]))
             self._seeds[slot] = next_tok[0]
 
@@ -316,26 +1049,38 @@ class BatchScheduler:
             (slots, torch.zeros_like(slots)), toks
         )
 
-    def _decode(self, decoding: list[dict | None]) -> None:
+    def _decode(self, decoding: list[dict | None], chunks_at_tick_start: int) -> None:
         active = np.asarray([r is not None for r in decoding])
-        logits = self.model.decode_step(
-            self.tokens, _upload(self.pos, self.device), self.caches,
-            active=_upload(active, self.device),
-            block_tables=self._tables_device(),
-        )
-        self.tokens = _sample_tokens(logits)[:, None]
+        self.tokens = self.decode(
+            self.tokens, _upload(self.pos, self.device),
+            _upload(active, self.device), self._tables_device())
         self.stats["decode_steps"] += 1
+        if self.stats["prefill_chunks"] > chunks_at_tick_start:
+            self.stats["decode_after_prefill_ticks"] += 1
         self.pos[active] += 1
-        self._pending.append((self.tokens, decoding))
-        for req in decoding:
+        # a replaying slot's output is a token already in its history:
+        # discard it (None row, no _pending) instead of counting it twice
+        reqmap = [None if (r is not None and s in self._replay) else r
+                  for s, r in enumerate(decoding)]
+        self._pending.append((self.tokens, reqmap))
+        for req in reqmap:
             if req is not None:
-                req["pending"] += 1
+                req["_pending"] += 1
+        # the popped history token overrides the sampled output as the next
+        # input; once the list empties, the next output is new and kept
+        for slot in list(self._replay):
+            if decoding[slot] is not None:
+                hist = self._replay[slot]
+                self._seeds[slot] = hist.pop(0)
+                if not hist:
+                    del self._replay[slot]
 
     # -- readback ---------------------------------------------------------------
 
     def _flush(self) -> None:
         """Bring every pending token to the host in one transfer; retire
-        requests at their budget or at EOS (tokens past EOS are dropped)."""
+        requests at their budget or at EOS (tokens past EOS are dropped).
+        Rows of cancelled requests are dropped."""
         if not self._pending:
             return
         pending, self._pending = self._pending, []
@@ -343,13 +1088,16 @@ class BatchScheduler:
         self.stats["readbacks"] += 1
         now = time.perf_counter()
         i = 0
-        for toks, reqmap in pending:
+        for _, reqmap in pending:
             for row, req in enumerate(reqmap):
-                if req is not None:
-                    req["pending"] -= 1
-                    req["generated"].append(int(host[i + row]))
-                    if req["t_first_token"] is None:
-                        req["t_first_token"] = now
+                if req is None:
+                    continue
+                req["_pending"] -= 1
+                if req["_cancelled"]:
+                    continue
+                req["generated"].append(int(host[i + row]))
+                if req["t_first_token"] is None:
+                    req["t_first_token"] = now
             i += len(reqmap)
         eos = self.scfg.eos_id
         for slot, req in enumerate(self.active):
@@ -362,20 +1110,17 @@ class BatchScheduler:
                 done = True
             if done:
                 del gen[req["max_new"]:]
-                req["status"] = "done"
+                req["_status"] = "done"
                 self.completed.append(req)
                 self.active[slot] = None
                 self._release_slot_pages(slot)
-
-    def flush(self) -> None:
-        """Materialize pending tokens now (streaming callers)."""
-        self._flush()
+                self._replay.pop(slot, None)
 
     # -- the tick -------------------------------------------------------------
 
     def step(self) -> int:
-        """One tick: attach, decode dispatch for every decoding slot, then at
-        most one prefill chunk. Returns the number of busy slots."""
+        """One tick: attach, decode dispatch for every decoding slot, then
+        at most one prefill chunk. Returns the number of busy slots."""
         self.stats["ticks"] += 1
         self._attach()
         chunks_at_tick_start = self.stats["prefill_chunks"]
@@ -384,22 +1129,24 @@ class BatchScheduler:
                 self._dispatch_prefill_chunk()
         self._apply_seeds()
         # this step writes each decoding slot's K/V at pos[slot]: back any
-        # page boundary being crossed before the dispatch
+        # page boundary being crossed before snapshotting the active set.
+        # Pressure here may preempt a victim or park this slot's request
         for slot in range(self.scfg.batch):
             req = self.active[slot]
             if req is not None:
-                self._ensure_pages(slot, int(self.pos[slot]), req)
+                try:
+                    self._ensure_pages(slot, int(self.pos[slot]), req)
+                except _PoolPressure as e:
+                    self._handle_pressure(slot, e)
         decoding = list(self.active)
         if any(r is not None for r in decoding):
             if self._prefills:
                 self.stats["overlap_ticks"] += 1
-            if self.stats["prefill_chunks"] > chunks_at_tick_start:
-                self.stats["decode_after_prefill_ticks"] += 1
-            self._decode(decoding)
+            self._decode(decoding, chunks_at_tick_start)
         if self.scfg.overlap and self._prefills:
             self._dispatch_prefill_chunk()
         flush_due = any(
-            req is not None and len(req["generated"]) + req["pending"] >= req["max_new"]
+            req is not None and len(req["generated"]) + req["_pending"] >= req["max_new"]
             for req in self.active
         )
         if (self.scfg.eos_id is not None and self._pending
@@ -410,22 +1157,32 @@ class BatchScheduler:
         return sum(1 for slot in range(self.scfg.batch) if not self._free(slot))
 
     def drain(self) -> None:
-        """Step until every queued, prefilling and decoding request is done,
-        then flush. Raises if that takes more ticks than the work can need."""
-        live = (self.queue + [r for r in self.active if r is not None]
+        """Step until every queued, parked, prefilling and decoding request
+        is done, then flush. Raises, with the stats, if that takes more
+        ticks than the work can need."""
+        live = (self.queue + self._parked
+                + [r for r in self.active if r is not None]
                 + [t["req"] for t in self._prefills])
-        budget = 64 + len(live) * sum(
-            r["max_new"] + len(r["prompt"]) // self.scfg.prefill_chunk + 2
+        # prefill chunks + decode budget per request, with headroom for
+        # preemption and replay rounds (bounded: the oldest highest-priority
+        # request always makes progress)
+        rounds = len(live) + 2
+        budget = 64 + rounds * sum(
+            r["max_new"] + len(r["prompt"]) // self.scfg.prefill_chunk
+            + len(r["prompt"]) + 1
             for r in live
         )
         ticks = 0
-        while self.queue or self._prefills or any(r is not None for r in self.active):
+        while (self.queue or self._parked or self._prefills
+               or any(r is not None for r in self.active)):
             self.step()
             ticks += 1
             if ticks > budget:
                 raise RuntimeError(
                     f"drain() reached no quiescence after {ticks} ticks: "
-                    f"queued={len(self.queue)} prefilling={len(self._prefills)} "
+                    f"queued={len(self.queue)} parked={len(self._parked)} "
+                    f"active={sum(r is not None for r in self.active)} "
+                    f"prefilling={len(self._prefills)} "
                     f"[kv_cache_stats: {self.kv_cache_stats()}]"
                 )
         self._flush()

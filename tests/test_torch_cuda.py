@@ -170,6 +170,41 @@ def test_paged_dtype_launches_its_own_route(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_paged_launches_report_their_cost_to_a_listening_sink(cuda, kind):
+    """While ``core.profile`` counts a step, each paged launch reports
+    ``launch_costs`` of its inputs (the serving record's K3/K4 FLOPs and
+    bytes); with no sink listening it reports nothing."""
+    from repro_torch import kernels as K
+
+    got = []
+    if kind == "decode":
+        args, kw = _paged_args(cases.MAIN_PAGED, "bfloat16", cuda, seed=12)
+        call = lambda: PA.paged_attention(*args, **kw)
+        want = PA.launch_costs(args[0], args[1], args[3].shape[1],
+                               kw["cache_len"].tolist(), kw["q_position"].tolist(),
+                               causal=False)
+    else:
+        args, kw = _prefill_args(cases.MAIN_PREFILL, "bfloat16", cuda, seed=12)
+        call = lambda: PA.paged_prefill_attention(*args, **kw)
+        want = PA.launch_costs(args[0], args[1], args[3].shape[1],
+                               kw["cache_len"].tolist(), kw["q_positions"][:, 0].tolist(),
+                               causal=True)
+    call()
+
+    def sink(name, flops, nbytes):
+        got.append((name, flops, nbytes))
+
+    K.COST_SINKS.append(sink)
+    try:
+        call()
+    finally:
+        K.COST_SINKS.remove(sink)
+    name = "paged_attention" if kind == "decode" else "paged_prefill_attention"
+    assert got == [(name, float(want[0]), float(want[1]))] and want[0] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,d", cases.RMS_CASES + cases.MAIN_RMS)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("zero_centered", [False, True])

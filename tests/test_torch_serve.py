@@ -235,8 +235,10 @@ def test_pool_exhaustion_raises_and_leaves_neighbours_intact():
     _, _, model = _weights()
     prompts = _prompts(2, seed=5)
     prompts = [prompts[0][:3] + [7] * 5, prompts[1][:3] + [9] * 5]  # 8 tokens each
+    # "never": exhaustion unwinds and raises (the default preempts instead)
     sched = BatchScheduler(model, ServeConfig(
-        max_len=MAX_LEN, batch=2, prefill_chunk=CHUNK, page_size=PAGE, num_pages=5))
+        max_len=MAX_LEN, batch=2, prefill_chunk=CHUNK, page_size=PAGE, num_pages=5,
+        preempt_policy="never"))
     sched.submit(prompts[0], request_id="a", max_new=4)    # 11 positions, 3 pages
     sched.submit(prompts[1], request_id="b", max_new=12)   # 19 positions, 5 pages
     snap = None
