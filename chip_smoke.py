@@ -77,6 +77,27 @@ exit:
            there below LOGIT_TOL). Launch counts exact in each run; goodput,
            TTFT percentiles, queue depth and the record's region times for
            information;
+4c. serve-spec  phase 4b's server with sampling and speculation: (a)
+           SPEC_REQUESTS requests of 77-238 prompt tokens, 64 new each,
+           sampled (SAMPLE: temperature 0.8, top-k 50, seed 0) in submit
+           order, in reverse order with overlap off, and with one request
+           submitted behind a full batch into a short blocker's slot: every
+           stream equal across the three runs, except from a near tie on
+           (logits / T + the Gumbel draw) onward, every id below the vocab;
+           (b) the copy regime (every layer's weights zeroed, phase 4's
+           embedding and head), prompts of a 4-token motif whose last token
+           sits on a short cycle of the successor map, SPEC_NEW new tokens:
+           spec (SPEC_K) on and off, greedy and sampled at SPEC_COPY_TEMP:
+           tokens equal except at a near tie, drafts accepted, tokens per
+           dispatch above 1, fewer decode dispatches than spec off, launches
+           exact (no K3 under speculation, K4 = 22 per chunk and per
+           verify), no page left in use; (c) (b)'s greedy traffic against
+           SPEC_TIGHT_PAGES pages: preemptions resumed, the pool filled,
+           tokens equal to (b)'s; (d) (b)'s greedy spec run under the
+           monitor (``results/talp/<arch>/serve_spec/``): POP valid,
+           ``decode`` visited once per verify, K4's FLOPs in its profile.
+           For information: goodput, tokens per verify, acceptance, and the
+           sampler's time, kernels and share of a tick;
 5. train-parity  tinyllama-1.1b at full width in fp32, phase 3's weights:
            the loss and gradients of one batch (B=1, S=256, remat full) on
            the card (kernels), on the CPU (plain versions) and on the card
@@ -100,9 +121,9 @@ exit:
            pass ``validate_pop``, hardware ``h100_sxm``); then the ``talp``
            CLI (``python -m repro_torch.core.pages``) as subprocesses:
            ``metadata``, ``ci-report`` into ``results/talp_site/index.html``,
-           ``validate`` (3 runs, 0 violations) and ``badge``, each exiting
-           0, the page naming the three experiments (phase 4b's serve record
-           too) with a train_step table whose
+           ``validate`` (4 runs, 0 violations) and ``badge``, each exiting
+           0, the page naming the four experiments (phase 4b's and 4c's
+           serve records too) with a train_step table whose
            parallel efficiency is the monitor record's, and a badge with a
            number. For information only: the median step time under null,
            monitor and tracer, the trace's bytes against the record's,
@@ -114,7 +135,8 @@ exit:
            back to back with CUDA events (what an eager caller pays, host
            dispatch included), ``device_ms`` replayed from a CUDA graph (the
            card's own time); for K3 and K4 also ``cold_device_ms`` with the
-           L2 cache flushed before each call, as the serving step finds it;
+           L2 cache flushed before each call, as the serving step finds it,
+           and K4 at the speculative verify's shape too (``verify_shape``);
            for the K1 backward the row pass's and the combine's device times
            apart, from the profiler's kernel names.
 
@@ -187,6 +209,21 @@ LOAD_TRAFFIC = dict(n_requests=64, seed=0, arrival="burst", rate=0.25, burst_mul
                     prompt_short=(32, 128), prompt_long=(384, 768), long_frac=0.25,
                     max_new_short=(16, 64), max_new_long=(128, 256), long_out_frac=0.25,
                     priorities=(0, 1, 2), cancel_frac=0.1, vocab_hi=32000)
+# Phase 4c: sampled decoding and speculation on phase 4b's server. (a)
+# SPEC_REQUESTS sampled requests (SAMPLE); (b) the copy regime (every
+# layer's weights zeroed, so a token's successor is a function of it alone)
+# with prompts of a 4-token motif repeated SPEC_MOTIF_REPS times, whose last
+# token lies on a short cycle of that map, SPEC_NEW new tokens each, spec
+# on (SPEC_K) and off, greedy and sampled at SPEC_COPY_TEMP; (c) (b)'s
+# greedy traffic against SPEC_TIGHT_PAGES pages, half of what it needs.
+# SPEC_COPY_TEMP is low enough that a sampled stream mostly keeps to its
+# cycle (drafts accepted) and high enough that it leaves it at times (drafts
+# rejected): the cycles' top-2 logit gaps are 0.05-0.6, and at 0.1 a
+# simulated sampled stream on the seeded weights kept only 31% of its drafts
+# (PERF.md).
+SAMPLE = dict(greedy=False, temperature=0.8, top_k=50, sample_seed=0)
+SPEC_REQUESTS, SPEC_K, SPEC_NEW, SPEC_MOTIF_REPS = 16, 4, 256, 16
+SPEC_COPY_TEMP, SPEC_TIGHT_PAGES = 0.02, 160
 TALP_DIR = os.path.join(ROOT, "results", "talp")  # the CI folder: <arch>/<experiment>/
 SITE_DIR = os.path.join(ROOT, "results", "talp_site")
 ARCH = "tinyllama-1.1b"
@@ -552,9 +589,9 @@ def paged_inputs(kind: str, case, dtype, seed: int):
         kw = dict(q_position=t["q_position"], cache_len=t["cache_len"], window=win,
                   softcap=cap)
     else:
-        B, C, Hq, Hkv, D, ps, nL, P, starts, win, cap = case
-        t = _tensors(cases.prefill_case(B, C, Hq, Hkv, D, ps, nL, P, starts, seed=seed),
-                     dtype, fl)
+        B, C, Hq, Hkv, D, ps, nL, P, starts, win, cap, lengths = cases.prefill_row(case)
+        t = _tensors(cases.prefill_case(B, C, Hq, Hkv, D, ps, nL, P, starts, seed=seed,
+                                        lengths=lengths), dtype, fl)
         kw = dict(q_positions=t["q_positions"], cache_len=t["cache_len"], causal=True,
                   window=win, softcap=cap)
     return (t["q"], t["k_pages"], t["v_pages"], t["block_tables"]), kw
@@ -1054,20 +1091,22 @@ def phase_serve(params_f32):
 def _load_scheduler(model, session=None, **kw):
     from repro_torch.serve.serve import BatchScheduler, ServeConfig
 
-    return BatchScheduler(model, ServeConfig(
-        max_len=LOAD_MAX_LEN, batch=LOAD_BATCH, prefill_chunk=64, overlap=True,
-        page_size=16, **kw), session=session)
+    base = dict(max_len=LOAD_MAX_LEN, batch=LOAD_BATCH, prefill_chunk=64, overlap=True,
+                page_size=16)
+    return BatchScheduler(model, ServeConfig(**{**base, **kw}), session=session)
 
 
 def _serve_launches(cfg, st) -> dict:
     """The exact launches of a serving run: per forward 2L+1 RMSNorm, per
-    decode step L paged decode, per prefill chunk L paged prefill."""
+    decode step L paged decode, per prefill chunk and per speculative verify
+    (counted among the decode steps) L paged prefill."""
     from repro_torch.kernels import launch_counts
 
     L = cfg.n_layers
+    verify = st["spec_dispatches"]
     want = dict.fromkeys(launch_counts(), 0)
-    want.update({"paged_attention": L * st["decode_steps"],
-                 "paged_prefill_attention": L * st["prefill_chunks"],
+    want.update({"paged_attention": L * (st["decode_steps"] - verify),
+                 "paged_prefill_attention": L * (st["prefill_chunks"] + verify),
                  "rmsnorm": (2 * L + 1) * (st["decode_steps"] + st["prefill_chunks"])})
     return want
 
@@ -1157,12 +1196,11 @@ def _first_divergence(a: list, b: list) -> int | None:
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def _top2_gap(model, prompt: list, tokens: list, i: int) -> float:
-    """Top-2 logit gap where ``tokens[i]`` is chosen: the history up to it
-    through ``prefill_chunk`` on the card (64-token chunks, fresh cache)."""
+def _history_logits(model, hist: list):
+    """Logits (V,) after ``hist``: through ``prefill_chunk`` on the card
+    (64-token chunks, fresh cache)."""
     import torch
 
-    hist = prompt + tokens[:i]
     nL = -(-len(hist) // 16)
     caches = model.init_cache(1, nL * 16, page_size=16, num_pages=nL)
     tb = torch.arange(nL, dtype=torch.int32, device=DEV)[None]
@@ -1170,7 +1208,12 @@ def _top2_gap(model, prompt: list, tokens: list, i: int) -> float:
         chunk = hist[start:start + 64]
         logits = model.prefill_chunk(torch.tensor([chunk], dtype=torch.int32, device=DEV),
                                      caches, start, len(chunk), tb)
-    top2 = logits[0].float().topk(2).values
+    return logits[0]
+
+
+def _top2_gap(model, prompt: list, tokens: list, i: int) -> float:
+    """Top-2 logit gap where ``tokens[i]`` is chosen."""
+    top2 = _history_logits(model, prompt + tokens[:i]).float().topk(2).values
     return float(top2[0] - top2[1])
 
 
@@ -1339,6 +1382,326 @@ def phase_profile_load(model):
          groups_ms_count=_groups(events),
          top_kernels=[[e.key[:90], round(e.self_device_time_total / 1e3, 3), e.count]
                       for e in top])
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: sampled decoding and speculation at full width
+# ---------------------------------------------------------------------------
+
+
+def _sampled_top2_gap(model, prompt: list, tokens: list, i: int, rid, temperature: float,
+                      top_k, seed: int) -> float:
+    """Top-2 gap of (logits / T, top-k masked, + the request's Gumbel draw)
+    where ``tokens[i]`` is sampled, with the scheduler's key ``fold_in(
+    fold_in(PRNGKey(seed), tag), position)``."""
+    import torch
+
+    from repro_torch.serve import prng
+    from repro_torch.serve.serve import _request_tag
+
+    hist = prompt + tokens[:i]
+    lg = _history_logits(model, hist).float() / temperature
+    lg[model.cfg.vocab:] = float("-inf")
+    if top_k:
+        lg = torch.where(lg >= lg.topk(top_k).values[-1], lg, float("-inf"))
+    key = prng.fold_in(prng.fold_in(prng.prng_key(seed), _request_tag(rid)).to(DEV),
+                       len(hist) - 1)
+    z = (lg + prng.gumbel(key, lg.shape[0])).topk(2).values
+    return float(z[0] - z[1])
+
+
+def _tie_check(model, prompts: dict, runs: dict, base: str, label: str, failures: list,
+               sampled=None) -> list:
+    """Every request's tokens in each run against ``runs[base]``: equal, or
+    equal up to a near tie where they first differ (greedy: the top-2 logit
+    gap below LOGIT_TOL; ``sampled`` (temperature, top_k, seed): the top-2
+    gap of logits / T + the Gumbel draw below ``sampled[3]``)."""
+    ties = []
+    for name, toks in runs.items():
+        if name == base:
+            continue
+        for rid, want in runs[base].items():
+            got = toks.get(rid)
+            if got is None or len(got) != len(want):
+                failures.append(f"{label} {name}: request {rid} has "
+                                f"{None if got is None else len(got)} tokens, {base} {len(want)}")
+                continue
+            i = _first_divergence(got, want)
+            if i is None:
+                continue
+            if sampled:
+                gap = _sampled_top2_gap(model, prompts[rid], want, i, rid, *sampled[:3])
+                limit = sampled[3]
+            else:
+                gap, limit = _top2_gap(model, prompts[rid], want, i), LOGIT_TOL
+            ties.append({"run": name, "request": rid, "position": i, "top2_gap": gap})
+            if not gap < limit:
+                failures.append(f"{label} {name}: request {rid} differs at token {i}, "
+                                f"top-2 gap {gap} >= {limit}")
+    return ties
+
+
+def _spec_run(model, cfg, reqs, failures: list, label: str, late=None, session=None,
+              **kw) -> dict:
+    """Serve ``reqs`` [(id, prompt, max_new)] on phase 4b's server shape,
+    launch counters zeroed before and read after; ``late`` (id, prompt,
+    max_new, blocker id): submitted after the first tick, when every slot is
+    busy, so it waits for the (short) blocker's slot. Checks the launches,
+    the late request's slot and that no page stays in use."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    sched = _load_scheduler(model, session=session, **kw)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, prompt, max_new in reqs:
+        sched.submit(prompt, request_id=rid, max_new=max_new)
+    if late is not None:
+        sched.step()  # every request attaches: the batch is full
+        full = not any(sched._free(s) for s in range(LOAD_BATCH))
+        blocker_slot = sched._slot_of(sched._by_id[late[3]])
+        handle = sched.submit(late[1], request_id=late[0], max_new=late[2])
+        waited = 0
+        while handle.status == "queued":
+            sched.step()
+            waited += 1
+        late_info = {"batch_full_at_submit": full, "waited_ticks": waited,
+                     "slot": sched._slot_of(sched._by_id[late[0]]),
+                     "blocker_slot": blocker_slot}
+        if not (full and waited > 0 and late_info["slot"] == blocker_slot):
+            failures.append(f"{label}: the late request did not wait for the "
+                            f"blocker's slot: {late_info}")
+    sched.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, want = launch_counts(), _serve_launches(cfg, sched.stats)
+    kv = sched.kv_cache_stats()
+    toks = {r["id"]: r["generated"] for r in sched.completed}
+    n_tok = sum(len(t) for t in toks.values())
+    out = {"wall_s": wall, "ticks": sched.stats["ticks"], "tokens": n_tok,
+           "goodput_tokens_per_s": n_tok / wall, "launches": counts,
+           "sched_stats": dict(sched.stats), "speculation": kv["speculation"],
+           "pressure": kv["pressure"], "peak_used_pages": kv["peak_used_pages"],
+           "pages_in_use": kv["pages_in_use"], "generated": toks}
+    if late is not None:
+        out["late"] = late_info
+    if counts != want:
+        failures.append(f"{label}: launches {counts} != expected {want}")
+    if kv["pages_in_use"] or len(toks) != len(reqs) + (late is not None):
+        failures.append(f"{label}: {len(toks)} completed, {kv['pages_in_use']} pages in use")
+    if any(not 0 <= t < cfg.vocab for g in toks.values() for t in g):
+        failures.append(f"{label}: token id out of range")
+    return out
+
+
+def _copy_regime_motifs(copy_model, n: int, rng) -> tuple[list, list]:
+    """Prompts for the copy regime: a 4-token motif repeated, its last token
+    on a short cycle of the successor map, so greedy decode cycles at once.
+    The map is computed on the card as a decode step computes it (rows of
+    LOAD_BATCH through the final norm and the head); its cycles are found
+    on the host, the shortest used first (length-1 cycles last). Returns
+    the prompts and the cycles' lengths."""
+    import numpy as np
+    import torch
+
+    V = copy_model.cfg.vocab
+    succ = []
+    with torch.inference_mode():
+        for i in range(0, V, LOAD_BATCH):
+            t = torch.arange(i, min(i + LOAD_BATCH, V), dtype=torch.int32, device=DEV)[:, None]
+            x = copy_model._final_norm(copy_model._embed_inputs(t))
+            succ.append(copy_model._logits(x)[:, 0, :V].argmax(-1))
+    f = torch.cat(succ).cpu().numpy()
+    state = np.zeros(V, np.int8)
+    cycles = []
+    for s in range(V):
+        path = []
+        t = s
+        while state[t] == 0:
+            state[t] = 1
+            path.append(t)
+            t = int(f[t])
+        if state[t] == 1:
+            cycles.append(path[path.index(t):])
+        state[path] = 2
+    cycles.sort(key=lambda c: (len(c) == 1, len(c)))
+    ends = [t for c in cycles for t in c][:n]
+    prompts = []
+    for j in range(n):
+        motif = rng.integers(4, V, size=3).tolist() + [int(ends[j % len(ends)])]
+        prompts.append(motif * SPEC_MOTIF_REPS)
+    return prompts, sorted(len(c) for c in cycles)
+
+
+def _sampler_timing(cfg, spec_ticks_s: float, decode_tick_s: float) -> dict:
+    """The sampler (plain torch ops, no Pallas counterpart) at the decode
+    (LOAD_BATCH rows) and verify (LOAD_BATCH * (SPEC_K + 1) rows) shapes:
+    time per call (CUDA events), kernels per call (the profiler), and its
+    share of a tick's wall time."""
+    import functools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import prng
+    from repro_torch.serve.serve import _sample_tokens
+
+    out = {}
+    for name, rows, tick in (("decode", LOAD_BATCH, decode_tick_s),
+                             ("verify", LOAD_BATCH * (SPEC_K + 1), spec_ticks_s)):
+        logits = torch.randn(rows, cfg.vocab_padded, device=DEV).to(torch.bfloat16)
+        keys = prng.split(prng.prng_key(1), rows).to(DEV)
+        pos = torch.arange(rows, dtype=torch.int32, device=DEV)
+        fn = functools.partial(_sample_tokens, logits, keys, pos, greedy=False,
+                               vocab=cfg.vocab, **{k: SAMPLE[k] for k in ("temperature", "top_k")})
+        ms = cuda_ms(fn, iters=20, warmup=3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches = sum(e.count for e in _device_events(prof))
+        out[name] = {"rows": rows, "ms": ms, "kernels": launches,
+                     "tick_share": ms / 1e3 / tick if tick else None}
+    return out
+
+
+def phase_serve_spec(model):
+    """Sampled decoding and speculation, bf16, phase 4b's server shape: (a)
+    sampled streams equal in submit order, in reverse order with overlap
+    off, and with one request attached late behind a busy slot; (b) the copy
+    regime, spec on and off, greedy and sampled: tokens equal, drafts
+    accepted, fewer dispatches, exact launches (no K3 under speculation);
+    (c) (b)'s greedy traffic against a pool it fills: preemptions resumed,
+    tokens equal; (d) (b)'s greedy spec run under the monitor: a record
+    whose ``decode`` region is visited once per verify with K4's FLOPs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.factors import validate_pop
+    from repro_torch.core.records import ResourceConfig, RunRecord
+    from repro_torch.layers.common import tree_map
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.session import PerfSession, SessionConfig
+
+    cfg = model.cfg
+    failures: list = []
+
+    # (a) sampled streams
+    rng = np.random.default_rng(51)
+    prompts_a = {rid: rng.integers(4, cfg.vocab, size=int(n)).tolist()
+                 for rid, n in enumerate(rng.integers(77, 239, size=SPEC_REQUESTS))}
+    reqs = [(rid, p, 64) for rid, p in prompts_a.items()]
+    late_id = SPEC_REQUESTS - 1
+    blocker = ("blocker", rng.integers(4, cfg.vocab, size=40).tolist(), 8)
+    sampled = {
+        "submit_order": _spec_run(model, cfg, reqs, failures, "sampled", **SAMPLE),
+        "reverse_no_overlap": _spec_run(model, cfg, reqs[::-1], failures, "sampled reverse",
+                                        overlap=False, **SAMPLE),
+        "late_attach": _spec_run(model, cfg, [blocker] + reqs[:-1], failures, "sampled late",
+                                 late=(late_id, prompts_a[late_id], 64, "blocker"), **SAMPLE),
+    }
+    streams = {k: {rid: r["generated"][rid] for rid in prompts_a} for k, r in sampled.items()}
+    ties_a = _tie_check(model, prompts_a, streams, "submit_order", "sampled", failures,
+                        sampled=(SAMPLE["temperature"], SAMPLE["top_k"], SAMPLE["sample_seed"],
+                                 LOGIT_TOL))
+    torch.cuda.empty_cache()
+
+    # (b) the copy regime
+    params = model.params()
+    copy_model = Transformer(cfg, dict(params, slots=tree_map(torch.zeros_like,
+                                                              params["slots"])), DEV)
+    prompts_list, cycle_lens = _copy_regime_motifs(copy_model, SPEC_REQUESTS,
+                                                   np.random.default_rng(52))
+    prompts_b = dict(enumerate(prompts_list))
+    reqs_b = [(rid, p, SPEC_NEW) for rid, p in prompts_b.items()]
+    samp_b = dict(SAMPLE, temperature=SPEC_COPY_TEMP)
+    session = PerfSession(
+        SessionConfig(app_name=f"serve-{ARCH}", backend="monitor", lb_sample_every=1,
+                      respect_env=False, top_computations=64),
+        ResourceConfig(num_hosts=1, devices_per_host=1))
+    copy = {"greedy_off": _spec_run(copy_model, cfg, reqs_b, failures, "copy greedy off")}
+    with session:
+        copy["greedy_on"] = _spec_run(copy_model, cfg, reqs_b, failures, "copy greedy on",
+                                      session=session, spec_decode=True, spec_k=SPEC_K)
+    session.finalize(os.path.join(TALP_DIR, ARCH, "serve_spec"))
+    copy["sampled_off"] = _spec_run(copy_model, cfg, reqs_b, failures, "copy sampled off",
+                                    **samp_b)
+    copy["sampled_on"] = _spec_run(copy_model, cfg, reqs_b, failures, "copy sampled on",
+                                   spec_decode=True, spec_k=SPEC_K, **samp_b)
+    ties_b = _tie_check(copy_model, prompts_b, {k: copy[k]["generated"] for k in
+                                                ("greedy_off", "greedy_on")},
+                        "greedy_off", "copy greedy", failures)
+    # a logit that moves by LOGIT_TOL moves logits / T by LOGIT_TOL / T
+    ties_b += _tie_check(copy_model, prompts_b, {k: copy[k]["generated"] for k in
+                                                 ("sampled_off", "sampled_on")},
+                         "sampled_off", "copy sampled", failures,
+                         sampled=(samp_b["temperature"], samp_b["top_k"],
+                                  samp_b["sample_seed"], LOGIT_TOL / samp_b["temperature"]))
+    # sampling really sampled: some stream left the greedy path
+    if copy["sampled_off"]["generated"] == copy["greedy_off"]["generated"]:
+        failures.append("copy sampled: every sampled stream equals the greedy one")
+    for mode in ("greedy", "sampled"):
+        on, off = copy[f"{mode}_on"], copy[f"{mode}_off"]
+        sp = on["speculation"]
+        if (sp["accepted"] <= 0 or sp["tokens_per_dispatch"] <= 1
+                or on["sched_stats"]["decode_steps"] >= off["sched_stats"]["decode_steps"]):
+            failures.append(f"copy {mode}: speculation {sp}, decode dispatches "
+                            f"{on['sched_stats']['decode_steps']} vs "
+                            f"{off['sched_stats']['decode_steps']} off")
+        if on["launches"]["paged_attention"] != 0:
+            failures.append(f"copy {mode}: {on['launches']['paged_attention']} K3 launches")
+
+    # (c) speculation under pressure
+    tight = _spec_run(copy_model, cfg, reqs_b, failures, "copy tight",
+                      num_pages=SPEC_TIGHT_PAGES, spec_decode=True, spec_k=SPEC_K)
+    pr = tight["pressure"]
+    if (pr["preemptions"] < 1 or pr["resumes"] != pr["preemptions"]
+            or tight["peak_used_pages"] != SPEC_TIGHT_PAGES):
+        failures.append(f"copy tight: pressure {pr}, peak {tight['peak_used_pages']} of "
+                        f"{SPEC_TIGHT_PAGES} pages")
+    ties_c = _tie_check(copy_model, prompts_b, {"ample": copy["greedy_on"]["generated"],
+                                                "tight": tight["generated"]},
+                        "ample", "copy tight", failures)
+
+    # (d) the monitored record of (b)'s greedy spec run
+    record = RunRecord.load(session.last_record_path)
+    visits = {n: r.measurements.num_visits for n, r in record.regions.items()}
+    pop_errors = {n: e for n, r in record.regions.items() if (e := validate_pop(r.pop))}
+    st = copy["greedy_on"]["sched_stats"]
+    if pop_errors or visits.get("decode") != st["spec_dispatches"] or \
+            visits.get("prefill") != st["prefill_chunks"]:
+        failures.append(f"record: visits {visits}, spec dispatches {st['spec_dispatches']}, "
+                        f"chunks {st['prefill_chunks']}, POP errors {pop_errors}")
+    comps = record.regions["decode"].computations if "decode" in record.regions else {}
+    decode_k4 = comps["paged_prefill_attention"].flops if "paged_prefill_attention" in comps \
+        else 0.0
+    if decode_k4 <= 0 or "paged_attention" in comps:
+        failures.append(f"record: decode region's kernels {sorted(comps)}")
+    del copy_model
+    torch.cuda.empty_cache()
+
+    def info(r: dict) -> dict:
+        return {k: r[k] for k in ("wall_s", "ticks", "tokens", "goodput_tokens_per_s",
+                                  "speculation", "pressure", "peak_used_pages", "launches")}
+
+    decode_tick = sampled["submit_order"]["wall_s"] / sampled["submit_order"]["ticks"]
+    spec_tick = copy["sampled_on"]["wall_s"] / copy["sampled_on"]["ticks"]
+    emit("serve_spec", arch=ARCH, dtype="bfloat16", batch=LOAD_BATCH, max_len=LOAD_MAX_LEN,
+         spec_k=SPEC_K, sample=SAMPLE, copy_temperature=SPEC_COPY_TEMP,
+         sampled={k: {**info(r), **({"late": r["late"]} if "late" in r else {})}
+                  for k, r in sampled.items()},
+         sampled_near_ties=ties_a,
+         copy_regime={"cycle_lengths": cycle_lens[:12], "prompt_len": 4 * SPEC_MOTIF_REPS,
+                      "max_new": SPEC_NEW, **{k: info(r) for k, r in copy.items()}},
+         copy_near_ties=ties_b, tight={**info(tight), "pool_pages": SPEC_TIGHT_PAGES},
+         tight_near_ties=ties_c,
+         record=os.path.relpath(session.last_record_path, ROOT), visits=visits,
+         decode_region_k4_flops=decode_k4,
+         sampler=_sampler_timing(cfg, spec_tick, decode_tick))
+    if failures:
+        raise AssertionError("serve_spec: " + "; ".join(failures))
+    return copy["greedy_on"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1721,11 +2084,12 @@ def phase_report():
     failures += [f"talp {k}: exit {v['rc']}: {v['stderr'][-400:]}" for k, v in cli.items()
                  if v["rc"] != 0]
     m = re.search(r"(\d+) runs checked, (\d+) violations", cli["validate"]["stdout"])
-    if not m or m.groups() != ("3", "0"):  # train monitor and tracer, serve monitor
+    # train monitor and tracer, serve monitor (4b) and serve spec (4c)
+    if not m or m.groups() != ("4", "0"):
         failures.append(f"talp validate: {cli['validate']['stdout'][-400:]!r}")
     index = os.path.join(SITE_DIR, "index.html")
     page = open(index).read() if os.path.exists(index) else ""
-    for exp in ("train_monitor", "train_tracer", "serve_monitor"):
+    for exp in ("train_monitor", "train_tracer", "serve_monitor", "serve_spec"):
         if f"<h2>Experiment: {ARCH} / {exp}</h2>" not in page:
             failures.append(f"index.html names no experiment {ARCH} / {exp}")
     pe_html = _html_parallel_efficiency(page, f"{ARCH} / train_monitor", "train_step")
@@ -1818,39 +2182,15 @@ def phase_timing(main_err, counts):
         library="F.scaled_dot_product_attention on the pre-gathered dense view",
         bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops))
 
-    # K4: paged prefill at the serving shape
-    B, C, Hq, Hkv, D, ps, nL, P, starts, _, _ = cases.MAIN_PREFILL
-    t = _tensors(cases.prefill_case(B, C, Hq, Hkv, D, ps, nL, P, starts, seed=42), bf, fl)
-    args = (t["q"], t["k_pages"], t["v_pages"], t["block_tables"])
-    kw = dict(q_positions=t["q_positions"], cache_len=t["cache_len"], causal=True)
-    flops, nbytes = PA.launch_costs(t["q"], t["k_pages"], nL, [s + C for s in starts], starts,
-                                    causal=True)
-    bound, by = _bound_ms(nbytes, flops, "bfloat16")
-    S = nL * ps
-    kd = PR.gather_pages(t["k_pages"], t["block_tables"]).permute(0, 2, 1, 3)
-    vd = PR.gather_pages(t["v_pages"], t["block_tables"]).permute(0, 2, 1, 3)
-    kd = kd.repeat_interleave(Hq // Hkv, dim=1).contiguous()
-    vd = vd.repeat_interleave(Hq // Hkv, dim=1).contiguous()
-    qd = t["q"].permute(0, 2, 1, 3).contiguous()
-    kpos = torch.arange(S, device=DEV)
-    mask = ((kpos[None, None, :] <= t["q_positions"][:, :, None])
-            & (kpos[None, None, :] < t["cache_len"][:, None, None]))[:, None]
+    # K4: paged prefill at the serving shape, and at the speculative
+    # verify's (PREFILL_SPLIT_CASES' ragged row)
+    verify = next(c for c in cases.PREFILL_SPLIT_CASES if len(c) == 12)
     rows.append(dict(
         name="paged_prefill_attention", route="cuda", variant=PA.route(bf),
         source="src/repro_torch/csrc/paged_attention_tc.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:99",
-        shape=f"B={B} C={C} Hq={Hq} Hkv={Hkv} D={D} page={ps} start={list(starts)} bf16",
-        ms=cuda_ms(lambda: PA.paged_prefill_attention(*args, **kw)),
-        device_ms=graph_ms(lambda: PA.paged_prefill_attention(*args, **kw)),
-        library_device_ms=graph_ms(
-            lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
-        cold_device_ms=cold_graph_ms(lambda: PA.paged_prefill_attention(*args, **kw)),
-        library_cold_device_ms=cold_graph_ms(
-            lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
-        plain_ms=cuda_ms(lambda: PR.paged_prefill_attention_reference(*args, **kw), iters=50),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
-        library="F.scaled_dot_product_attention on the pre-gathered dense view",
-        bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops))
+        **_prefill_timing(cases.MAIN_PREFILL, seed=42),
+        verify_shape=_prefill_timing(verify, seed=44)))
 
     # K1: RMSNorm at the decode shape (4 rows), and the prefill-chunk shape;
     # no operand requires grad, so the wrapper launches the forward directly
@@ -1886,6 +2226,48 @@ def phase_timing(main_err, counts):
         if row["name"] in main_err["l2_rel_err"]:
             row["l2_rel_err"] = main_err["l2_rel_err"][row["name"]]
     return rows
+
+
+def _prefill_timing(case, seed: int) -> dict:
+    """K4 at one ``PREFILL_*`` case, bf16: the kernel, its plain version and
+    SDPA over the pre-gathered dense view (the same masks), beside the
+    bound from ``launch_costs`` of these inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.paged_attention import ops as PA
+    from repro_torch.kernels.paged_attention import ref as PR
+
+    B, C, Hq, Hkv, D, ps, nL, P, starts, _, _, lengths = cases.prefill_row(case)
+    t = _tensors(cases.prefill_case(B, C, Hq, Hkv, D, ps, nL, P, starts, seed=seed,
+                                    lengths=lengths), torch.bfloat16, ("q", "k_pages", "v_pages"))
+    args = (t["q"], t["k_pages"], t["v_pages"], t["block_tables"])
+    kw = dict(q_positions=t["q_positions"], cache_len=t["cache_len"], causal=True)
+    flops, nbytes = PA.launch_costs(t["q"], t["k_pages"], nL, t["cache_len"].tolist(),
+                                    list(starts), causal=True)
+    bound, by = _bound_ms(nbytes, flops, "bfloat16")
+    S = nL * ps
+    kd = PR.gather_pages(t["k_pages"], t["block_tables"]).permute(0, 2, 1, 3)
+    vd = PR.gather_pages(t["v_pages"], t["block_tables"]).permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+    vd = vd.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+    qd = t["q"].permute(0, 2, 1, 3).contiguous()
+    kpos = torch.arange(S, device=DEV)
+    mask = ((kpos[None, None, :] <= t["q_positions"][:, :, None])
+            & (kpos[None, None, :] < t["cache_len"][:, None, None]))[:, None]
+    kernel = lambda: PA.paged_prefill_attention(*args, **kw)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)  # noqa: E731
+    return dict(
+        shape=(f"B={B} C={C} Hq={Hq} Hkv={Hkv} D={D} page={ps} start={list(starts)}"
+               + (f" length={list(lengths)}" if lengths else "") + " bf16"),
+        ms=cuda_ms(kernel), device_ms=graph_ms(kernel),
+        library_device_ms=graph_ms(sdpa), cold_device_ms=cold_graph_ms(kernel),
+        library_cold_device_ms=cold_graph_ms(sdpa),
+        plain_ms=cuda_ms(lambda: PR.paged_prefill_attention_reference(*args, **kw), iters=50),
+        library_ms=cuda_ms(sdpa),
+        library="F.scaled_dot_product_attention on the pre-gathered dense view",
+        bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
 
 
 def _kernel_split_ms(fn, parts: dict, iters: int = 20) -> dict:
@@ -2058,6 +2440,7 @@ def main() -> int:
     load_counts = phase_serve_load(model)
     if profile:
         phase_profile_load(model)
+    spec_counts = phase_serve_spec(model)
     del model
     torch.cuda.empty_cache()
     phase_train_parity(params)
@@ -2065,7 +2448,7 @@ def main() -> int:
     train_counts = phase_train(profile)
     phase_report()
     rows = phase_timing(main_err, {"serve": serve_counts, "serve_load": load_counts,
-                                   "train": train_counts})
+                                   "serve_spec": spec_counts, "train": train_counts})
     emit("timing", rows=len(rows))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

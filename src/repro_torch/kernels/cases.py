@@ -86,6 +86,13 @@ PREFILL_SPLIT_CASES = [
     # after a copy-on-write hit: chunks that start mid-page over tables whose
     # first 15 entries are another row's pages
     (2, 64, 32, 4, 64, 16, 64, 26, (250, 265), None, None),
+    # the speculative verify at batch 16, spec_k 4 (max_len 1024): one
+    # [last token, 4 drafts] row a slot at its own start, ragged lengths
+    # (a 12th field), windows that cross page boundaries, an idle slot
+    # (length 0, no key) and a row with no draft (length 1)
+    (16, 5, 32, 4, 64, 16, 64, 320,
+     (0, 97, 14, 250, 31, 126, 300, 511, 62, 190, 777, 1019, 158, 45, 383, 600),
+     None, None, (0, 1, 5, 5, 3, 5, 2, 4, 4, 5, 5, 5, 3, 5, 1, 5)),
     (2, 2, 8, 1, 64, 16, 32, 40, (300, 62), 100, None),   # 16 rows: 8 splits
 ]
 
@@ -165,12 +172,22 @@ def paged_case(B, Hq, Hkv, D, psize, nL, P, lens, seed=0) -> dict:
             "cache_len": lens, "q_position": lens - 1}
 
 
-def prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=0) -> dict:
-    """Prefill inputs: a C-token chunk per row at ``starts[b]``; cache_len =
-    start + C; q_positions (B,C) contiguous."""
+def prefill_row(case) -> tuple:
+    """A ``PREFILL_*`` row as (B, C, Hq, Hkv, D, psize, nL, P, starts,
+    window, softcap, lengths); ``lengths`` is None where every row fills
+    its chunk."""
+    return tuple(case) if len(case) == 12 else (*case, None)
+
+
+def prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=0, lengths=None) -> dict:
+    """Prefill inputs: a C-token chunk per row at ``starts[b]``, of which
+    ``lengths[b]`` tokens are written (default C; the rest is padding that
+    still attends); cache_len = start + length; q_positions (B,C)
+    contiguous."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
-    lens = np.asarray([s + C for s in starts], np.int32)
+    lengths = [C] * len(starts) if lengths is None else lengths
+    lens = np.asarray([s + n for s, n in zip(starts, lengths)], np.int32)
     qpos = (np.asarray(starts)[:, None] + np.arange(C)[None]).astype(np.int32)
     return {"q": f(B, C, Hq, D), "k_pages": f(P, psize, Hkv, D),
             "v_pages": f(P, psize, Hkv, D),

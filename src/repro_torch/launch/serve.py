@@ -1,5 +1,6 @@
 """Serving launcher for the PyTorch port: continuous batching over the
-paged KV cache, chunked prefill overlapped with decode, greedy tokens,
+paged KV cache, chunked prefill overlapped with decode, greedy tokens
+(``--sample``: temperature and top-k sampling keyed like ``jax.random``),
 under a monitored session (``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
@@ -10,7 +11,9 @@ then gives every prompt one system prompt); ``--arrival poisson|burst``
 replaces the fixed trace with the seeded open-loop traffic harness (mixed
 lengths, priority classes, ``--cancel-frac`` mid-stream cancellations)
 and reports goodput, TTFT percentiles and queue depth;
-``--preempt-policy`` picks the victim order when the page pool runs dry:
+``--preempt-policy`` picks the victim order when the page pool runs dry;
+``--spec`` drafts up to ``--spec-k`` tokens a slot by prompt lookup and
+verifies them in one batched dispatch a tick:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --device cpu --arrival burst --rate 0.8 --requests 16 \\
@@ -19,7 +22,8 @@ and reports goodput, TTFT percentiles and queue depth;
 Without ``--device`` it runs on the card (``cuda``) and raises if there
 is none. Weights are the port's seeded initializer's, seed 0. It prints
 the completed count, ticks, decode steps, prefill chunks, the traffic,
-paged-KV, prefix-cache and pressure lines, each kernel's launch count,
+paged-KV, prefix-cache, pressure and speculation lines, each kernel's
+launch count,
 and where the TALP run record (regions ``decode``, ``prefill``,
 ``preempt``, ``traffic``) was written.
 """
@@ -70,6 +74,19 @@ def main(argv=None) -> int:
                     help="victim selection when the page pool runs dry: "
                          "lowest-priority-first (default), most-pages, "
                          "least-progress, or never (exhaustion raises)")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative decoding: n-gram self-drafting + one "
+                         "batched verify dispatch per tick (tokens stay "
+                         "identical to plain decode)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens proposed per verify dispatch")
+    ap.add_argument("--spec-min-match", type=int, default=2,
+                    help="shortest history n-gram the drafter may match on")
+    ap.add_argument("--sample", action="store_true",
+                    help="temperature/top-k sampling instead of greedy argmax")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--top-k", type=int, default=None)
+    ap.add_argument("--sample-seed", type=int, default=0)
     ap.add_argument("--talp-out", default="",
                     help="directory for the TALP run record (CI artifact)")
     args = ap.parse_args(argv)
@@ -102,6 +119,10 @@ def main(argv=None) -> int:
             prefix_cache=args.prefix_cache,
             prefix_trie_capacity=args.prefix_trie_capacity,
             preempt_policy=args.preempt_policy,
+            greedy=not args.sample, temperature=args.temperature, top_k=args.top_k,
+            sample_seed=args.sample_seed,
+            spec_decode=args.spec, spec_k=args.spec_k,
+            spec_min_match=args.spec_min_match,
         ), session=session)
         if args.arrival:
             # open-loop traffic: arrivals, lengths, priorities and cancels
@@ -168,6 +189,13 @@ def main(argv=None) -> int:
           f"{pr['evictions_for_preempt']} trie evictions for preempt, "
           f"{pr['cancellations']} cancellations, "
           f"peak queue depth {pr['peak_queue_depth']}")
+    if args.spec:
+        sp = kv["speculation"]
+        print(f"[serve] speculation: acceptance rate {sp['acceptance_rate']} "
+              f"({sp['accepted']}/{sp['drafted']} drafts), "
+              f"{sp['tokens_per_dispatch']} tokens/dispatch over "
+              f"{sp['verify_dispatches']} verify dispatches "
+              f"(mean accepted len {sp['mean_accepted_len']})")
     counts = launch_counts()
     route = "kernel launches" if model.device.type == "cuda" else \
         "kernel launches (0 on the CPU: plain versions ran)"

@@ -35,10 +35,22 @@ What the port keeps of the JAX scheduler, with its semantics:
   flush, when a request reaches its budget, every ``eos_check_every``
   ticks when ``eos_id`` is set, before a preemption, or on
   ``flush()``/``drain()``;
-* monitoring through ``repro_torch.session``: every decode dispatch is a
-  visit of the session's ``decode`` region, every prefill chunk one of
-  ``prefill``, every preemption one of ``preempt``;
-* greedy sampling: an argmax over the padded vocabulary, unmasked.
+* monitoring through ``repro_torch.session``: every decode dispatch (and
+  every speculative verify) is a visit of the session's ``decode`` region,
+  every prefill chunk one of ``prefill``, every preemption one of
+  ``preempt``;
+* sampling: greedy (an argmax over the padded vocabulary, unmasked) by
+  default; with ``greedy=False`` temperature and top-k sampling on the
+  device from the request's key ``fold_in(PRNGKey(sample_seed), tag)``
+  folded with the sampled position (``serve/prng.py``: the ``jax.random``
+  functions in torch integer ops, so the draws are JAX's). A request's
+  stream is then a function of its prompt, id and seed alone, never of
+  its slot, its neighbours, the overlap schedule or a preemption;
+* speculative decoding (``spec_decode=True``): each tick the prompt-lookup
+  drafter (``serve/spec.py``) proposes up to ``spec_k`` tokens a slot and
+  one batched verify dispatch (``prefill_chunk`` with every position's
+  logits) scores them all; the longest prefix where draft == output is
+  kept, so tokens equal those of plain decode, greedy or sampled.
 
 The KV pools are written in place (``layers.attention.paged_write``), not
 returned anew as in the JAX package. Everything runs on one stream, so a
@@ -49,11 +61,15 @@ the new owner only after every earlier dispatch that named it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
+import zlib
 
 import numpy as np
 import torch
 
+from repro_torch.serve import prng
+from repro_torch.serve.spec import draft_tokens
 from repro_torch.session import PerfSession, SessionConfig
 
 PREEMPT_POLICIES = ("priority", "pages", "progress", "never")
@@ -63,6 +79,13 @@ PREEMPT_POLICIES = ("priority", "pages", "progress", "never")
 class ServeConfig:
     max_len: int
     batch: int
+    # sampling: greedy argmax by default; greedy=False samples on the device
+    # with temperature (and top_k) from the request's key, folded with the
+    # sampled position (see the module docstring)
+    temperature: float = 1.0
+    greedy: bool = True
+    top_k: int | None = None
+    sample_seed: int = 0
     # prefill token budget (= chunk size) per tick
     prefill_chunk: int = 32
     # chunked prefill dispatched between decode dispatches; False completes
@@ -86,6 +109,12 @@ class ServeConfig:
     # most pages, then least progress), "pages" (most pages), "progress"
     # (least generated), or "never" (exhaustion unwinds and raises)
     preempt_policy: str = "priority"
+    # speculative decoding: up to spec_k drafted tokens a slot and one
+    # batched verify a tick; spec_min_match is the shortest history n-gram
+    # the drafter may match on
+    spec_decode: bool = False
+    spec_k: int = 4
+    spec_min_match: int = 2
 
     def __post_init__(self):
         if self.max_len % self.page_size:
@@ -101,6 +130,11 @@ class ServeConfig:
             raise ValueError(
                 f"preempt_policy must be one of priority|pages|progress|never,"
                 f" got {self.preempt_policy!r}"
+            )
+        if self.spec_decode and (self.spec_k < 1 or self.spec_min_match < 1):
+            raise ValueError(
+                f"spec_k ({self.spec_k}) and spec_min_match "
+                f"({self.spec_min_match}) must be >= 1"
             )
 
 
@@ -342,6 +376,14 @@ class _PoolPressure(Exception):
         self.msg = msg
 
 
+def _request_tag(request_id) -> int:
+    """Stable 31-bit tag of a request id, the seed of its sampling key: an
+    int maps to itself, anything else to the crc32 of its ``repr``."""
+    if isinstance(request_id, (int, np.integer)):
+        return int(request_id) & 0x7FFFFFFF
+    return zlib.crc32(repr(request_id).encode()) & 0x7FFFFFFF
+
+
 # terminal request statuses: the stream is closed, no more tokens can come
 _TERMINAL = ("done", "cancelled", "failed")
 # kv_cache_stats()["recovery"]: the JAX package's fault-recovery counters,
@@ -394,9 +436,32 @@ class RequestHandle:
         return self.tokens
 
 
-def _sample_tokens(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy: argmax over the padded vocabulary, no mask. (N,V) -> (N,) int32."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def _sample_tokens(logits, keys, positions, *, greedy: bool, temperature: float,
+                   top_k: int | None, vocab: int) -> torch.Tensor:
+    """Next tokens of N rows: logits (N,V), keys (N,2) base keys, positions
+    (N,) (or one int) the positions whose logits these are. Greedy: the
+    argmax over the padded vocabulary, unmasked; keys and positions are
+    not read. Sampled: logits in fp32 over ``max(temperature, 1e-6)``,
+    padded ids masked, the top-k threshold at the k-th largest value
+    (every value >= it kept), then ``categorical`` with the key
+    ``fold_in(keys[i], positions[i])``. Returns (N,) int32."""
+    if greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    dev = logits.device
+    if not isinstance(positions, torch.Tensor):
+        positions = torch.full(logits.shape[:1], int(positions), dtype=torch.int64, device=dev)
+    use = prng.fold_in(keys, positions)
+    # a device scalar: a host float would be a reciprocal and a product on
+    # the card, one rounding off the quotient
+    t = torch.full((), max(float(temperature), 1e-6), dtype=torch.float32, device=dev)
+    lg = logits.float() / t
+    V = lg.shape[-1]
+    if vocab < V:
+        lg = lg.masked_fill(torch.arange(V, device=dev) >= vocab, float("-inf"))
+    if top_k:
+        kth = torch.topk(lg, min(int(top_k), V), dim=-1).values[:, -1:]
+        lg = torch.where(lg >= kth, lg, float("-inf"))
+    return prng.categorical(use, lg).to(torch.int32)
 
 
 def _upload(arr: np.ndarray, device) -> torch.Tensor:
@@ -412,9 +477,10 @@ def _upload(arr: np.ndarray, device) -> torch.Tensor:
 class BatchScheduler:
     """Slot-based continuous batching with chunked prefill overlapped with
     decode, over the model's paged KV pool, with priority admission,
-    preemption and recompute-resume, and the prefix cache. Tokens are
-    greedy and identical with overlap on or off, sharing on or off, and
-    under any pool pressure.
+    preemption and recompute-resume, the prefix cache, sampling and
+    speculative decoding. Tokens are identical with overlap on or off,
+    sharing on or off, speculation on or off, and under any pool pressure,
+    greedy or sampled.
 
     Request records are dicts: ``id``, ``prompt``, ``max_new``,
     ``priority``, ``generated`` (host tokens), ``_status`` (queued |
@@ -422,8 +488,9 @@ class BatchScheduler:
     ``t_submit``/``t_first_token`` (host clock: submit, and the flush that
     first put a token on the host).
 
-    ``session``: a ``PerfSession`` whose ``decode``, ``prefill`` and
-    ``preempt`` regions this scheduler visits; None builds a null session
+    ``session``: a ``PerfSession`` whose ``decode`` (decode dispatches or
+    verify dispatches), ``prefill`` and ``preempt`` regions this scheduler
+    visits; None builds a null session
     (``TALP_ENABLE`` can still turn it on). The caller owns ``finalize``."""
 
     def __init__(self, model, scfg: ServeConfig, session=None):
@@ -440,6 +507,16 @@ class BatchScheduler:
         self.prefill = self.session.wrap_step(
             self._prefill_step, region="prefill", derive=True,
             observe=lambda out: {"outputs": out})
+        # the batched verify shares the decode region: a speculative tick is
+        # the decode tick, spec_k+1 tokens wide
+        self.verify = None
+        if scfg.spec_decode:
+            self.verify = self.session.wrap_step(
+                self._verify_step, region="decode", derive=True,
+                observe=lambda out: {"outputs": out[0]})
+        self._sample = functools.partial(
+            _sample_tokens, greedy=scfg.greedy, temperature=scfg.temperature,
+            top_k=scfg.top_k, vocab=self.cfg.vocab)
         self._max_pages = scfg.max_len // scfg.page_size
         n_pages = scfg.num_pages
         if n_pages is None:
@@ -458,6 +535,11 @@ class BatchScheduler:
                                        page_size=scfg.page_size, num_pages=n_pages)
         self.tokens = torch.zeros((scfg.batch, 1), dtype=torch.int32,
                                   device=self.device)
+        # per-slot sampling key rows on the device; in sampled mode an attach
+        # overwrites the slot's row with the request's own key, so the key
+        # follows the request, not the slot (greedy never reads them)
+        self._base_key = prng.prng_key(scfg.sample_seed)
+        self.rng_keys = prng.split(self._base_key, scfg.batch).to(self.device)
         self.queue: list[dict] = []    # admission queue: priority, FIFO within
         self.active: list[dict | None] = [None] * scfg.batch   # decoding slots
         self.pos = np.zeros(scfg.batch, np.int32)              # per-slot position
@@ -476,6 +558,9 @@ class BatchScheduler:
         self._seeds: dict[int, torch.Tensor | int] = {}
         # pending readbacks: (device tokens (n,1), row -> request map)
         self._pending: list[tuple[torch.Tensor, list[dict | None]]] = []
+        # speculative decode: each slot's next input token, on the host (the
+        # accept counts come back every tick anyway)
+        self._last_tok = np.zeros(scfg.batch, np.int32)
         self.stats = {
             "ticks": 0, "decode_steps": 0, "prefill_chunks": 0, "readbacks": 0,
             # ticks with a prefill in flight beside >= 1 decoding slot, and
@@ -485,18 +570,45 @@ class BatchScheduler:
             "preemptions": 0, "resumes": 0, "cancellations": 0,
             "pages_freed_by_preempt": 0, "evictions_for_preempt": 0,
             "peak_queue_depth": 0,
+            # speculation (kv_cache_stats()["speculation"]): drafted, accepted
+            # and rejected count draft tokens only; spec_emitted new tokens
+            # (replayed history excluded)
+            "spec_dispatches": 0, "spec_drafted": 0, "spec_accepted": 0,
+            "spec_rejected": 0, "spec_emitted": 0,
         }
 
-    # -- the two dispatched steps (wrapped by the session) -------------------
+    # -- the dispatched steps (wrapped by the session) ----------------------
 
-    def _decode_step(self, tokens, pos, active, tables) -> torch.Tensor:
+    def _decode_step(self, tokens, pos, active, tables, keys) -> torch.Tensor:
         logits = self.model.decode_step(tokens, pos, self.caches, active=active,
                                         block_tables=tables)
-        return _sample_tokens(logits)[:, None]
+        return self._sample(logits, keys, pos)[:, None]
 
-    def _prefill_step(self, chunk, start, length, tables) -> torch.Tensor:
-        return _sample_tokens(self.model.prefill_chunk(
-            chunk, self.caches, start, length, tables))
+    def _prefill_step(self, chunk, start, length, tables, keys) -> torch.Tensor:
+        """One chunk at ``start``; samples at its last valid position."""
+        logits = self.model.prefill_chunk(chunk, self.caches, start, length, tables)
+        return self._sample(logits, keys, start + length - 1)
+
+    def _verify_step(self, tokens, start, length, tables, keys):
+        """The batched speculative verify: row b is ``[last token, drafts..]``
+        (B,C) at ``start[b]``, ``length[b]`` valid tokens (0: an idle slot,
+        nothing written). One ``prefill_chunk`` with every position's
+        logits; each position sampled as a decode step there would be.
+        Returns (out (B,C) int32, the verified token at each position;
+        accept (B,) int32, the accepted drafts: the longest prefix with
+        ``out[:, i] == tokens[:, i+1]`` within ``length - 1``)."""
+        B, C = tokens.shape
+        logits = self.model.prefill_chunk(tokens, self.caches, start, length, tables,
+                                          all_logits=True)  # (B,C,V)
+        offs = torch.arange(C, dtype=torch.int32, device=tokens.device)[None, :]
+        positions = start[:, None] + offs
+        if not self.scfg.greedy:
+            keys = keys.repeat_interleave(C, dim=0)
+        out = self._sample(logits.reshape(B * C, -1), keys,
+                           positions.reshape(-1)).reshape(B, C)
+        match = (out[:, :-1] == tokens[:, 1:]) & (offs[:, :C - 1] < (length - 1)[:, None])
+        accept = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        return out, accept
 
     # -- admission ---------------------------------------------------------
 
@@ -527,7 +639,8 @@ class BatchScheduler:
             )
         req = {"id": request_id, "prompt": prompt, "max_new": max_new,
                "generated": [], "_pending": 0, "priority": int(priority),
-               "_seq": self._seq, "_status": "queued", "_cancelled": False,
+               "_seq": self._seq, "_tag": _request_tag(request_id),
+               "_status": "queued", "_cancelled": False,
                "_not_before": 0,
                "t_submit": time.perf_counter(), "t_first_token": None}
         self._seq += 1
@@ -676,11 +789,19 @@ class BatchScheduler:
         for decode replay."""
         resume = req["_status"] == "preempted"
         self.pos[slot] = 0
+        if not self.scfg.greedy:
+            # the slot's key row becomes the request's key, so a resumed
+            # request keeps its stream in any slot
+            row = prng.fold_in(self._base_key, req["_tag"])
+            self.rng_keys[slot] = _upload(row.numpy(), self.device)
         if not req["prompt"]:
             # nothing to prefill: decode from an empty cache off seed 0; on
             # resume replay the whole history (the seed regenerates
             # generated[0], which is discarded)
-            self._seeds[slot] = 0
+            if self.scfg.spec_decode:
+                self._last_tok[slot] = 0
+            else:
+                self._seeds[slot] = 0
             if req["generated"]:
                 self._replay[slot] = list(req["generated"])
             self.active[slot] = req
@@ -988,6 +1109,22 @@ class BatchScheduler:
         out["pressure"]["queued"] = len(self.queue)
         out["pressure"]["parked"] = len(self._parked)
         out["recovery"] = dict.fromkeys(_RECOVERY_KEYS, 0)
+        # speculation (present whether or not it ran): acceptance_rate is the
+        # share of drafts kept, tokens_per_dispatch the end-to-end gain
+        drafted = self.stats["spec_drafted"]
+        dispatches = self.stats["spec_dispatches"]
+        accepted = self.stats["spec_accepted"]
+        out["speculation"] = {
+            "enabled": self.scfg.spec_decode,
+            "drafted": drafted,
+            "accepted": accepted,
+            "rejected": self.stats["spec_rejected"],
+            "acceptance_rate": round(accepted / drafted, 4) if drafted else 0.0,
+            "mean_accepted_len": round(accepted / dispatches, 4) if dispatches else 0.0,
+            "verify_dispatches": dispatches,
+            "tokens_per_dispatch": (round(self.stats["spec_emitted"] / dispatches, 4)
+                                    if dispatches else 0.0),
+        }
         return out
 
     # -- dispatch ------------------------------------------------------------
@@ -1008,7 +1145,7 @@ class BatchScheduler:
             return
         tables = self._tables_device()
         next_tok = self.prefill(_upload(chunk, self.device), start, L,
-                                tables[slot:slot + 1])  # (1,)
+                                tables[slot:slot + 1], self.rng_keys[slot:slot + 1])  # (1,)
         task["done"] = start + L
         self.stats["prefill_chunks"] += 1
         if task["done"] < len(prompt):
@@ -1025,9 +1162,23 @@ class BatchScheduler:
             # recompute-resume: the same chunk grid rebuilt the prompt's KV;
             # the re-sampled first token is generated[0], already on the
             # host. Discard it and replay the rest of the history
-            self._seeds[slot] = req["generated"][0]
+            if self.scfg.spec_decode:
+                self._last_tok[slot] = req["generated"][0]
+            else:
+                self._seeds[slot] = req["generated"][0]
             if len(req["generated"]) > 1:
                 self._replay[slot] = list(req["generated"][1:])
+        elif self.scfg.spec_decode:
+            # speculation reads back every tick anyway: the first token comes
+            # to the host now (the TTFT point) and is the next verify's input
+            tok = int(next_tok.cpu()[0])
+            self.stats["readbacks"] += 1
+            req["generated"].append(tok)
+            req["t_first_token"] = time.perf_counter()
+            self._last_tok[slot] = tok
+            eos = self.scfg.eos_id
+            if req["max_new"] <= 1 or (eos is not None and tok == eos):
+                self._retire(slot, req)
         else:
             req["_pending"] += 1
             self._pending.append((next_tok.reshape(1, 1), [req]))
@@ -1053,7 +1204,7 @@ class BatchScheduler:
         active = np.asarray([r is not None for r in decoding])
         self.tokens = self.decode(
             self.tokens, _upload(self.pos, self.device),
-            _upload(active, self.device), self._tables_device())
+            _upload(active, self.device), self._tables_device(), self.rng_keys)
         self.stats["decode_steps"] += 1
         if self.stats["prefill_chunks"] > chunks_at_tick_start:
             self.stats["decode_after_prefill_ticks"] += 1
@@ -1110,17 +1261,122 @@ class BatchScheduler:
                 done = True
             if done:
                 del gen[req["max_new"]:]
-                req["_status"] = "done"
-                self.completed.append(req)
-                self.active[slot] = None
-                self._release_slot_pages(slot)
-                self._replay.pop(slot, None)
+                self._retire(slot, req)
+
+    def _retire(self, slot: int, req: dict) -> None:
+        req["_status"] = "done"
+        self.completed.append(req)
+        self.active[slot] = None
+        self._release_slot_pages(slot)
+        self._replay.pop(slot, None)
+
+    # -- speculative decode (draft + batched verify) ---------------------------
+
+    def _plan_drafts(self) -> dict[int, dict]:
+        """Each decoding slot's draft window for this tick's verify. Replay
+        tokens of a recompute-resume come first (true history, so the verify
+        accepts them); the drafter's proposals follow once the whole replay
+        queue fits in the window, with a budget that keeps the emitted
+        tokens within ``max_new`` (at most n_draft + 1 a dispatch) and the
+        deepest write at ``max_len - 1``."""
+        K = self.scfg.spec_k
+        plans: dict[int, dict] = {}
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            replay = self._replay.get(slot, [])
+            drafts = [int(t) for t in replay[:K]]
+            n_replay = len(drafts)
+            n_draft = 0
+            if n_replay == len(replay):
+                remaining = req["max_new"] - len(req["generated"])
+                budget = min(K - n_replay, max(remaining - 1, 0),
+                             max(self.scfg.max_len - 1 - int(self.pos[slot]) - n_replay, 0))
+                if budget > 0:
+                    drafts += draft_tokens(req["prompt"] + req["generated"], budget,
+                                           min_match=self.scfg.spec_min_match)
+                    n_draft = len(drafts) - n_replay
+            plans[slot] = {"drafts": drafts, "n_replay": n_replay, "n_draft": n_draft}
+        return plans
+
+    def _spec_tick(self, chunks_at_tick_start: int) -> None:
+        """The speculative replacement of the one-token decode dispatch: plan
+        each slot's window, back its deepest write with pages (pressure may
+        preempt), score every window in one verify dispatch, read back the
+        outputs and accept counts at once, and commit each slot's accepted
+        prefix plus the verified token. Rejected positions roll back by not
+        advancing ``pos``: their writes are overwritten before any read."""
+        plans = self._plan_drafts()
+        for slot, plan in plans.items():
+            req = self.active[slot]
+            if req is None:
+                continue  # a pressure round below evicted this slot
+            try:
+                self._ensure_pages(slot, int(self.pos[slot]) + len(plan["drafts"]), req)
+            except _PoolPressure as e:
+                self._handle_pressure(slot, e)
+        decoding = list(self.active)
+        plans = {s: p for s, p in plans.items() if decoding[s] is not None}
+        if self._prefills and plans:
+            self.stats["overlap_ticks"] += 1
+        if not plans:
+            return
+        B, C = self.scfg.batch, self.scfg.spec_k + 1
+        chunk = np.zeros((B, C), np.int32)
+        length = np.zeros(B, np.int32)
+        for slot, plan in plans.items():
+            drafts = plan["drafts"]
+            chunk[slot, 0] = self._last_tok[slot]
+            chunk[slot, 1:1 + len(drafts)] = drafts
+            length[slot] = 1 + len(drafts)
+        out_dev, acc_dev = self.verify(
+            _upload(chunk, self.device), _upload(self.pos, self.device),
+            _upload(length, self.device), self._tables_device(), self.rng_keys)
+        self.stats["decode_steps"] += 1
+        self.stats["spec_dispatches"] += 1
+        if self.stats["prefill_chunks"] > chunks_at_tick_start:
+            self.stats["decode_after_prefill_ticks"] += 1
+        host = torch.cat([out_dev.reshape(-1), acc_dev]).cpu().numpy()
+        self.stats["readbacks"] += 1
+        out, acc = host[:B * C].reshape(B, C), host[B * C:]
+        eos = self.scfg.eos_id
+        for slot, plan in plans.items():
+            req = decoding[slot]
+            n_acc = int(acc[slot])
+            emitted = [int(t) for t in out[slot, :n_acc + 1]]
+            self.pos[slot] += n_acc + 1
+            self._last_tok[slot] = emitted[-1]
+            acc_draft = max(0, n_acc - plan["n_replay"])
+            self.stats["spec_drafted"] += plan["n_draft"]
+            self.stats["spec_accepted"] += acc_draft
+            self.stats["spec_rejected"] += plan["n_draft"] - acc_draft
+            # replay outputs are tokens already in the history: pop them
+            new_toks = emitted
+            if slot in self._replay:
+                hist = self._replay[slot]
+                n_hist = min(len(hist), len(emitted))
+                del hist[:n_hist]
+                if not hist:
+                    del self._replay[slot]
+                new_toks = emitted[n_hist:]
+            if req["_cancelled"]:
+                continue
+            gen = req["generated"]
+            gen.extend(new_toks)
+            self.stats["spec_emitted"] += len(new_toks)
+            done = len(gen) >= req["max_new"]
+            if eos is not None and eos in gen:
+                del gen[gen.index(eos) + 1:]  # EOS inside the accepted window
+                done = True
+            if done:
+                self._retire(slot, req)
 
     # -- the tick -------------------------------------------------------------
 
     def step(self) -> int:
-        """One tick: attach, decode dispatch for every decoding slot, then
-        at most one prefill chunk. Returns the number of busy slots."""
+        """One tick: attach, decode dispatch for every decoding slot (or,
+        with speculation, the batched verify), then at most one prefill
+        chunk. Returns the number of busy slots."""
         self.stats["ticks"] += 1
         self._attach()
         chunks_at_tick_start = self.stats["prefill_chunks"]
@@ -1128,21 +1384,27 @@ class BatchScheduler:
             while self._prefills:
                 self._dispatch_prefill_chunk()
         self._apply_seeds()
-        # this step writes each decoding slot's K/V at pos[slot]: back any
-        # page boundary being crossed before snapshotting the active set.
-        # Pressure here may preempt a victim or park this slot's request
-        for slot in range(self.scfg.batch):
-            req = self.active[slot]
-            if req is not None:
-                try:
-                    self._ensure_pages(slot, int(self.pos[slot]), req)
-                except _PoolPressure as e:
-                    self._handle_pressure(slot, e)
-        decoding = list(self.active)
-        if any(r is not None for r in decoding):
-            if self._prefills:
-                self.stats["overlap_ticks"] += 1
-            self._decode(decoding, chunks_at_tick_start)
+        if self.scfg.spec_decode:
+            # drafts and one batched verify take the place of the one-token
+            # decode dispatch (pages are backed inside, per window)
+            self._spec_tick(chunks_at_tick_start)
+        else:
+            # this step writes each decoding slot's K/V at pos[slot]: back
+            # any page boundary being crossed before snapshotting the active
+            # set. Pressure here may preempt a victim or park this slot's
+            # request
+            for slot in range(self.scfg.batch):
+                req = self.active[slot]
+                if req is not None:
+                    try:
+                        self._ensure_pages(slot, int(self.pos[slot]), req)
+                    except _PoolPressure as e:
+                        self._handle_pressure(slot, e)
+            decoding = list(self.active)
+            if any(r is not None for r in decoding):
+                if self._prefills:
+                    self.stats["overlap_ticks"] += 1
+                self._decode(decoding, chunks_at_tick_start)
         if self.scfg.overlap and self._prefills:
             self._dispatch_prefill_chunk()
         flush_due = any(

@@ -84,8 +84,8 @@ def _paged_args(case, dtype, cuda, seed):
 
 def _prefill_args(case, dtype, cuda, seed):
     """Prefill inputs on the card and the wrapper's keyword arguments."""
-    B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap = case
-    c = cases.prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=seed)
+    B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap, lengths = cases.prefill_row(case)
+    c = cases.prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=seed, lengths=lengths)
     td = TORCH_DT[dtype]
     args = [_th(c[k], td, cuda) for k in ("q", "k_pages", "v_pages")]
     args.append(_th(c["block_tables"], None, cuda))
@@ -151,6 +151,32 @@ def test_paged_idle_slot_writes_zeros(cuda, dtype):
     torch.cuda.synchronize()
     assert case[7][0] == 0
     assert torch.count_nonzero(out[0]) == 0 and torch.count_nonzero(out[1:]) > 0
+
+
+VERIFY_CASE = next(c for c in cases.PREFILL_SPLIT_CASES if len(c) == 12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_verify_idle_slot_and_ragged_lengths(cuda, dtype):
+    """The speculative verify's K4 call (16 rows of 5 positions, ragged
+    lengths): the idle row (length 0 at start 0) is exactly 0; released as
+    the scheduler leaves it (table -1, a stale start of 300), it changes
+    no other row, bitwise, and every row stays within the gates."""
+    args, kw = _prefill_args(VERIFY_CASE, dtype, cuda, seed=12)
+    out = PA.paged_prefill_attention(*args, **kw)
+    assert VERIFY_CASE[11][0] == 0 and VERIFY_CASE[8][0] == 0
+    assert torch.count_nonzero(out[0]) == 0 and torch.count_nonzero(out[1:]) > 0
+    tables, qpos, lens = args[3].clone(), kw["q_positions"].clone(), kw["cache_len"].clone()
+    tables[0] = -1
+    qpos[0] += 300
+    lens[0] = 300
+    args2 = (*args[:3], tables)
+    kw2 = dict(kw, q_positions=qpos, cache_len=lens)
+    stale = PA.paged_prefill_attention(*args2, **kw2)
+    torch.cuda.synchronize()
+    assert torch.equal(stale[1:], out[1:])
+    _paged_close(_f32(stale), _f32(paged_prefill_attention_reference(*args2, **kw2)), dtype)
 
 
 @pytest.mark.cuda

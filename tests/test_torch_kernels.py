@@ -88,8 +88,8 @@ def test_paged_decode_plain_matches_pallas(case, dtype):
 @pytest.mark.parametrize("case", PREFILL_JAX, ids=[str(c[:9]) for c in PREFILL_JAX])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_prefill_plain_matches_pallas(case, dtype):
-    B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap = case
-    c = cases.prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=2)
+    B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap, lengths = cases.prefill_row(case)
+    c = cases.prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=2, lengths=lengths)
     jd = jnp.dtype(dtype)
     out_j = paged_prefill_attention_pallas(
         _jx(c["q"], jd), _jx(c["k_pages"], jd), _jx(c["v_pages"], jd),

@@ -268,8 +268,8 @@ def _decode(case, seed):
 
 
 def _prefill(case, seed):
-    B, C, Hq, Hkv, D, ps, nL, P, starts, window, softcap = case
-    c = cases.prefill_case(B, C, Hq, Hkv, D, ps, nL, P, starts, seed=seed)
+    B, C, Hq, Hkv, D, ps, nL, P, starts, window, softcap, lengths = cases.prefill_row(case)
+    c = cases.prefill_case(B, C, Hq, Hkv, D, ps, nL, P, starts, seed=seed, lengths=lengths)
     kw = dict(causal=True, window=window, softcap=softcap)
     return c, c["q_positions"][:, 0], kw
 

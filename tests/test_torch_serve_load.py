@@ -444,8 +444,8 @@ def test_serve_config_refuses_what_jax_refuses():
         with pytest.raises(ValueError, match="preempt_policy"):
             ServeConfig(max_len=64, batch=2, **bad)
     # the JAX fields of later slices are absent, not accepted and ignored
-    for field in ("paged", "greedy", "temperature", "spec_decode", "max_retries",
-                  "checksum_pages", "shed_queue_depth", "watchdog_deadline_s"):
+    for field in ("paged", "max_retries", "retry_backoff_base", "retry_backoff_cap",
+                  "watchdog_deadline_s", "checksum_pages", "shed_queue_depth"):
         assert hasattr(ScfgJ(max_len=64, batch=2), field)
         with pytest.raises(TypeError):
             ServeConfig(max_len=64, batch=2, **{field: getattr(ScfgJ(max_len=64, batch=2),
@@ -453,6 +453,16 @@ def test_serve_config_refuses_what_jax_refuses():
     cfg = ServeConfig(max_len=64, batch=2, prefix_cache=True, prefix_trie_capacity=3)
     assert (cfg.prefix_cache, cfg.prefix_trie_capacity, cfg.preempt_policy) == \
         (True, 3, "priority")
+    # sampling and speculation: JAX's defaults and JAX's checks
+    sampling = ("greedy", "temperature", "top_k", "sample_seed", "spec_decode", "spec_k",
+                "spec_min_match")
+    jx, pt = ScfgJ(max_len=64, batch=2), ServeConfig(max_len=64, batch=2)
+    assert {f: getattr(pt, f) for f in sampling} == {f: getattr(jx, f) for f in sampling}
+    for bad in (dict(spec_k=0), dict(spec_min_match=0)):
+        for cls in (ScfgJ, ServeConfig):
+            with pytest.raises(ValueError, match="spec_k"):
+                cls(max_len=64, batch=2, spec_decode=True, **bad)
+            cls(max_len=64, batch=2, **bad)  # only checked with spec_decode on
 
 
 # ---------------------------------------------------------------------------
