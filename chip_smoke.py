@@ -34,7 +34,9 @@ exit:
            and ``cases.TOL_L2_PAGED`` of the relative L2 error, two paged
            calls bitwise equal, and each dtype on its own paged route;
            flash attention forward and backward (dq, dk,
-           dv against the plain version's autograd) and the RMSNorm
+           dv against the plain version's autograd), the flash attention
+           forward at the dense KV layout's decode and chunk shapes
+           (``cases.MAIN_FLASH_DENSE``), and the RMSNorm
            backward within 1e-4 (f32) and 2e-2 (bf16) of the largest
            |value| (at least of 1), flash attention also within
            ``cases.TOL_L2`` and the RMSNorm backward within
@@ -43,7 +45,11 @@ exit:
            flash backward calls, and two RMSNorm backward calls, must give
            bitwise-equal gradients; f32 flash must launch only the
            CUDA-core route and bf16 only the tensor-core route. TF32 is off
-           for every matmul;
+           for every matmul. Then ``kernels.nan_check`` for K2 (dense
+           decode and chunk), K3 and K4 on both routes: a NaN key row or
+           page a row can see makes that row non-finite and leaves every
+           other row bitwise the clean call's, kernel and plain version
+           alike; a NaN where no row may look is recorded;
 3. parity  tinyllama-1.1b at full width in fp32 with seeded weights: one
            64-token ``prefill_chunk`` (logits at every position) and
            DECODE_STEPS ``decode_step``s on the card (kernels) and on the
@@ -51,7 +57,8 @@ exit:
            tokens agree wherever the top-2 gap exceeds it. The card with
            the plain versions and a float64 CPU run are the witnesses: the
            kernels' own share and each fp32 run's distance from exact,
-           per layer too;
+           per layer too. The same run on the card's dense layout (K2 for
+           attention) is gated in phase 4e;
 4. serve   tinyllama-1.1b in bf16 through ``BatchScheduler`` (batch 4,
            max_len 512, page 16, chunk 64, overlap): 8 requests of 64-256
            prompt tokens, 32 new tokens each. Launch counters are zeroed
@@ -98,6 +105,33 @@ exit:
            ``decode`` visited once per verify, K4's FLOPs in its profile.
            For information: goodput, tokens per verify, acceptance, and the
            sampler's time, kernels and share of a tick;
+4d. serve-fault  phase 4b's server under faults (``serve/faults.py``):
+           (a) FAULT_TRAFFIC fault-free and under FAULTS (2 NaN logits, 2
+           NaN pages, 2 allocator spikes, 1 hang), both under the monitor,
+           the watchdog's deadline set from the fault-free run's slowest
+           decode dispatch: every scheduled fault lands, retries at least
+           the NaN, page and hang faults, watchdog trips equal the hangs,
+           every request completes with the fault-free tokens (except at a
+           near tie), no page in use, no free page holding a non-finite
+           value, and the record (``results/talp/<arch>/serve_fault/``)
+           visits ``recovery`` once per retry, quarantine, shed, checksum
+           failure and watchdog trip; (b) a bit flip in a trie page of the
+           prefix run's system prompt, caught by ``checksum_pages``: a
+           checksum failure, the subtree evicted, the same tokens; (c)
+           max_retries + 1 NaNs pinned to one request: it ends ``failed``,
+           its neighbours' tokens unchanged; (d) FAULT_SHED_N requests at
+           once against ``shed_queue_depth``: the rule's victims shed, the
+           rest complete; (e) 4c's copy regime with speculation and NaNs in
+           verify dispatches: retries, tokens equal 4c's spec-off run;
+4e. serve-dense  phase 4's trace on the dense layout (``paged=False``)
+           under the monitor and unmonitored: tokens equal phase 4's paged
+           run except at a near tie, exactly 22 K2 forward launches per
+           decode step and per chunk and no K3/K4, the record
+           (``results/talp/<arch>/serve_dense/``) counting the first decode
+           step's K2 FLOPs from its positions (p + 1 keys a row, not 1);
+           phase 3's fp32 dense logits within LOGIT_TOL of the CPU's and
+           their RMS error against float64 within EXACT_RATIO times the
+           CPU fp32 run's;
 5. train-parity  tinyllama-1.1b at full width in fp32, phase 3's weights:
            the loss and gradients of one batch (B=1, S=256, remat full) on
            the card (kernels), on the CPU (plain versions) and on the card
@@ -121,9 +155,9 @@ exit:
            pass ``validate_pop``, hardware ``h100_sxm``); then the ``talp``
            CLI (``python -m repro_torch.core.pages``) as subprocesses:
            ``metadata``, ``ci-report`` into ``results/talp_site/index.html``,
-           ``validate`` (4 runs, 0 violations) and ``badge``, each exiting
-           0, the page naming the four experiments (phase 4b's and 4c's
-           serve records too) with a train_step table whose
+           ``validate`` (6 runs, 0 violations) and ``badge``, each exiting
+           0, the page naming the six experiments (phase 4b's, 4c's, 4d's
+           and 4e's serve records too) with a train_step table whose
            parallel efficiency is the monitor record's, and a badge with a
            number. For information only: the median step time under null,
            monitor and tracer, the trace's bytes against the record's,
@@ -137,6 +171,8 @@ exit:
            card's own time); for K3 and K4 also ``cold_device_ms`` with the
            L2 cache flushed before each call, as the serving step finds it,
            and K4 at the speculative verify's shape too (``verify_shape``);
+           K2's forward also at the dense layout's decode and chunk shapes
+           (rows with ``path`` ``serve_dense``, SDPA on the same mask);
            for the K1 backward the row pass's and the combine's device times
            apart, from the profiler's kernel names.
 
@@ -224,6 +260,22 @@ LOAD_TRAFFIC = dict(n_requests=64, seed=0, arrival="burst", rate=0.25, burst_mul
 SAMPLE = dict(greedy=False, temperature=0.8, top_k=50, sample_seed=0)
 SPEC_REQUESTS, SPEC_K, SPEC_NEW, SPEC_MOTIF_REPS = 16, 4, 256, 16
 SPEC_COPY_TEMP, SPEC_TIGHT_PAGES = 0.02, 160
+# Phase 4d: serving under faults on phase 4b's server (dense-equivalent
+# pool). (a) FAULT_TRAFFIC (LOAD_TRAFFIC cut to 32 requests, without
+# cancellations, so every request completes in both runs) fault-free and
+# under FAULTS (NaN logits, NaN pages, allocator spikes, a hang), both under
+# the monitor: the watchdog's deadline is FAULT_DEADLINE_X times the
+# fault-free run's slowest decode dispatch (its first, the monitor's
+# counting pass, included) and the hang FAULT_HANG_X times the deadline;
+# (c) FAULT_QUARANTINE_N requests; (d) FAULT_SHED_N requests at once against
+# FAULT_SHED_DEPTH; (e) NaNs at FAULT_SPEC_TICKS into 4c's copy regime.
+FAULT_TRAFFIC = dict(LOAD_TRAFFIC, n_requests=32, cancel_frac=0.0)
+FAULTS = dict(seed=1, horizon_ticks=160, n_nan=2, n_page_corrupt=2, n_alloc_spike=2,
+              n_hang=1, corrupt_mode="nan", spike_pages=64, spike_ticks=8)
+FAULT_DEADLINE_X, FAULT_HANG_X = 2.0, 2.0
+FAULT_QUARANTINE_N = 6
+FAULT_SHED_N, FAULT_SHED_DEPTH = 24, 4
+FAULT_SPEC_TICKS = (6, 20, 40)
 TALP_DIR = os.path.join(ROOT, "results", "talp")  # the CI folder: <arch>/<experiment>/
 SITE_DIR = os.path.join(ROOT, "results", "talp_site")
 ARCH = "tinyllama-1.1b"
@@ -564,13 +616,16 @@ def phase_kernels():
                     main_err["rmsnorm"] = e
                     main_err["l2_rel_err"]["rmsnorm"] = l2
     deterministic = _check_training_kernels(checks, main_err)
+    _check_dense_flash(checks, main_err)
+    _check_nan(checks)
     emit("kernels", tf32=False, tolerance={"float32": 1e-4, "bfloat16": 2e-2},
          training_tolerance="of the largest |value|, at least of 1",
          flash_l2_tolerance=cases.TOL_L2,
          paged_l2_tolerance=cases.TOL_L2_PAGED, rmsnorm_l2_tolerance=cases.TOL_L2_RMS,
          max_abs_err={k: max(c[2] for c in v) for k, v in checks.items()
-                      if not k.endswith("_routes")},
+                      if not k.endswith("_routes") and k != "nan"},
          flash_routes=checks["flash_routes"], paged_routes=checks["paged_routes"],
+         flash_dense_routes=checks["flash_dense_routes"], nan=checks["nan"],
          paged_bitwise_repeatable=True,
          main_shape_bf16_err=main_err, flash_backward_bitwise_repeatable=deterministic,
          rmsnorm_backward_bitwise_repeatable=True, cases=checks)
@@ -816,23 +871,81 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
     return deterministic
 
 
+def _check_dense_flash(checks: dict, main_err: dict) -> None:
+    """K2's forward at the dense KV layout's shapes (``cases.MAIN_FLASH_DENSE``),
+    both routes: both gates (``cases.TOL_MAX``, ``cases.TOL_L2``), two calls
+    bitwise equal, each dtype on its own route."""
+    import torch
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    checks["flash_attention_dense"], checks["flash_dense_routes"] = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        before = dict(FA.ROUTE_LAUNCHES)
+        for name, case in zip(("decode", "chunk"), cases.MAIN_FLASH_DENSE):
+            (q, k, v, _), kw = flash_inputs(case, dtype, seed=16)
+            with torch.no_grad():
+                out, again = FA.flash_attention(q, k, v, **kw), FA.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            got, want = _np(out), _np(flash_attention_reference(q, k, v, **kw))
+            e, l2 = cases.max_rel_err(got, want), cases.l2_rel_err(got, want)
+            checks["flash_attention_dense"].append([dn, name, e, l2])
+            if not (e <= cases.TOL_MAX[dn] and l2 <= cases.TOL_L2[dn]):
+                raise AssertionError(f"flash attention dense {name} {dn}: err {e}, L2 {l2}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"flash attention dense {name} {dn}: two calls differ")
+            if dtype is torch.bfloat16:
+                main_err[f"flash_attention_dense_{name}"] = e
+                main_err["l2_rel_err"][f"flash_attention_dense_{name}"] = l2
+        moved = {r: FA.ROUTE_LAUNCHES[r] - before[r] for r in before}
+        want_r = {r: (4 if r == FA.route(dtype) else 0) for r in before}
+        checks["flash_dense_routes"][dn] = moved
+        if moved != want_r:
+            raise AssertionError(f"flash attention dense {dn}: route launches {moved}")
+
+
+def _check_nan(checks: dict) -> None:
+    """``kernels.nan_check`` for K2 dense, K3 and K4 on both routes: a NaN a
+    row can see makes that row non-finite, every other row is bitwise the
+    clean call's, kernel and plain version alike. Where no row may look,
+    each reading is recorded (the plain versions' 0 * NaN)."""
+    from repro_torch.kernels import nan_check
+
+    checks["nan"] = {}
+    for kind in nan_check.KINDS:
+        for dn in ("float32", "bfloat16"):
+            r = nan_check.check(kind, dn, DEV)
+            checks["nan"][f"{kind}/{dn}"] = r
+            bad = [impl for impl in ("kernel", "plain")
+                   if not (r[impl]["seen_nonfinite"] and r[impl]["unseen_equal"])]
+            if bad:
+                raise AssertionError(f"nan check {kind} {dn}: {r}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full width, card vs CPU
 # ---------------------------------------------------------------------------
 
 
-def _greedy_run(model, prompt, page: int, toks=None):
+def _greedy_run(model, prompt, page: int, toks=None, dense: bool = False):
     """One ``prefill_chunk`` (every position's logits) then DECODE_STEPS
     ``decode_step``s, feeding ``toks`` or, when None, the run's own greedy
-    tokens. Returns, on the CPU in float64, the logits (positions, V), the
-    fed tokens, and the residual stream after every layer of every forward
+    tokens, over a paged cache (``dense``: the dense layout, through K2).
+    Returns, on the CPU in float64, the logits (positions, V), the fed
+    tokens, and the residual stream after every layer of every forward
     (prefill first, then each decode step)."""
     import torch
 
     dev, C = model.device, prompt.shape[1]
     nL = -(-(C + DECODE_STEPS) // page)
-    caches = model.init_cache(1, nL * page, page_size=page, num_pages=nL)
-    tb = torch.arange(nL, dtype=torch.int32, device=dev)[None]
+    if dense:
+        caches, tb = model.init_cache(1, nL * page, paged=False), None
+    else:
+        caches = model.init_cache(1, nL * page, page_size=page, num_pages=nL)
+        tb = torch.arange(nL, dtype=torch.int32, device=dev)[None]
     resid: list = []
     inner = model._apply_slot
 
@@ -922,6 +1035,8 @@ def phase_parity():
                                      for s in range(1, DECODE_STEPS + 1)) for i in range(L)],
         }
 
+    # the dense layout on the card (K2 for attention), the same tokens fed
+    dense, _, res_dense = _greedy_run(gpu, prompt, page, toks, dense=True)
     vs_float64 = {"card": witness(got, res_card), "card_plain": witness(plain, res_plain),
                   "cpu": witness(ref, res_cpu),
                   "resid_absmax_prefill": [float(e.abs().max()) for e in res_exact[:L]]}
@@ -958,10 +1073,15 @@ def phase_parity():
     if card_rms > EXACT_RATIO * cpu_rms:
         raise AssertionError(f"card's RMS logit error against float64 {card_rms}, "
                              f"more than {EXACT_RATIO}x the CPU fp32 run's ({cpu_rms})")
+    dense_parity = {"max_abs_err_vs_cpu": dist(dense, ref),
+                    "finite": bool(torch.isfinite(dense).all()),
+                    "vs_float64": witness(dense, res_dense),
+                    "cpu_rms_rel_vs_float64": cpu_rms,
+                    "tolerance": {"vs_cpu": LOGIT_TOL, "rms_over_cpu_vs_float64": EXACT_RATIO}}
     params = cpu.params()
     del cpu, gpu
     torch.cuda.empty_cache()
-    return params
+    return params, dense_parity
 
 
 # ---------------------------------------------------------------------------
@@ -1080,7 +1200,7 @@ def phase_serve(params_f32):
         raise AssertionError("serve: non-finite logits")
     if counts != want or min(counts[k] for k in SERVE_KERNELS) <= 0:
         raise AssertionError(f"serve: launches {counts} != expected {want}")
-    return model, counts
+    return model, counts, {r["id"]: r["generated"] for r in sched.completed}, n_tok / wall
 
 
 # ---------------------------------------------------------------------------
@@ -1088,12 +1208,13 @@ def phase_serve(params_f32):
 # ---------------------------------------------------------------------------
 
 
-def _load_scheduler(model, session=None, **kw):
+def _load_scheduler(model, session=None, fault_injector=None, **kw):
     from repro_torch.serve.serve import BatchScheduler, ServeConfig
 
     base = dict(max_len=LOAD_MAX_LEN, batch=LOAD_BATCH, prefill_chunk=64, overlap=True,
                 page_size=16)
-    return BatchScheduler(model, ServeConfig(**{**base, **kw}), session=session)
+    return BatchScheduler(model, ServeConfig(**{**base, **kw}), session=session,
+                          fault_injector=fault_injector)
 
 
 def _serve_launches(cfg, st) -> dict:
@@ -1196,14 +1317,17 @@ def _first_divergence(a: list, b: list) -> int | None:
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def _history_logits(model, hist: list):
+def _history_logits(model, hist: list, dense: bool = False):
     """Logits (V,) after ``hist``: through ``prefill_chunk`` on the card
-    (64-token chunks, fresh cache)."""
+    (64-token chunks, fresh cache; ``dense``: the dense layout)."""
     import torch
 
     nL = -(-len(hist) // 16)
-    caches = model.init_cache(1, nL * 16, page_size=16, num_pages=nL)
-    tb = torch.arange(nL, dtype=torch.int32, device=DEV)[None]
+    if dense:
+        caches, tb = model.init_cache(1, nL * 16, paged=False), None
+    else:
+        caches = model.init_cache(1, nL * 16, page_size=16, num_pages=nL)
+        tb = torch.arange(nL, dtype=torch.int32, device=DEV)[None]
     for start in range(0, len(hist), 64):
         chunk = hist[start:start + 64]
         logits = model.prefill_chunk(torch.tensor([chunk], dtype=torch.int32, device=DEV),
@@ -1678,9 +1802,6 @@ def phase_serve_spec(model):
         else 0.0
     if decode_k4 <= 0 or "paged_attention" in comps:
         failures.append(f"record: decode region's kernels {sorted(comps)}")
-    del copy_model
-    torch.cuda.empty_cache()
-
     def info(r: dict) -> dict:
         return {k: r[k] for k in ("wall_s", "ticks", "tokens", "goodput_tokens_per_s",
                                   "speculation", "pressure", "peak_used_pages", "launches")}
@@ -1701,7 +1822,426 @@ def phase_serve_spec(model):
          sampler=_sampler_timing(cfg, spec_tick, decode_tick))
     if failures:
         raise AssertionError("serve_spec: " + "; ".join(failures))
-    return copy["greedy_on"]["launches"]
+    # the copy regime's model and fault-free spec-off streams, for 4d (e)
+    copy_ctx = {"model": copy_model, "reqs": reqs_b, "prompts": prompts_b,
+                "base": copy["greedy_off"]["generated"]}
+    return copy["greedy_on"]["launches"], copy_ctx
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: serving under faults at full width
+# ---------------------------------------------------------------------------
+
+
+def _sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _monitor(app: str):
+    from repro_torch.core.records import ResourceConfig
+    from repro_torch.session import PerfSession, SessionConfig
+
+    return PerfSession(SessionConfig(app_name=app, backend="monitor", lb_sample_every=1,
+                                     respect_env=False, top_computations=64),
+                       ResourceConfig(num_hosts=1, devices_per_host=1))
+
+
+def _timed_decode(sched) -> list:
+    """Seconds of each decode dispatch call, as the watchdog times it."""
+    times, inner = [], sched.decode
+
+    def decode(*a, **k):
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    sched.decode = decode
+    return times
+
+
+def _free_pages_finite(sched) -> bool:
+    """No page on the free list holds a non-finite value."""
+    import torch
+
+    free = sorted(set(range(sched._alloc.num_pages)) - set(sched._alloc.refs))
+    idx = torch.as_tensor(free, dtype=torch.long, device=sched.device)
+    return all(bool(torch.isfinite(pool.index_select(1, idx)).all())
+               for slot in sched.caches.values() for pool in slot["attn"].values())
+
+
+def _chaos_replay(model, cfg, failures: list) -> dict:
+    """(a) FAULT_TRAFFIC fault-free and then under FAULTS, both under the
+    monitor. The fault-free run's decode dispatch times set the watchdog
+    (FAULT_DEADLINE_X times their maximum) and the hang (FAULT_HANG_X
+    times the deadline)."""
+    from repro_torch.core.factors import validate_pop
+    from repro_torch.core.records import RunRecord
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.faults import FaultConfig, FaultInjector
+    from repro_torch.serve.traffic import TrafficConfig, generate_workload, replay
+
+    work = generate_workload(TrafficConfig(**FAULT_TRAFFIC))
+    runs, deadline = {}, None
+    for name in ("clean", "chaos"):
+        session = _monitor(f"serve-{ARCH}")
+        sched = _load_scheduler(model, session=session, watchdog_deadline_s=deadline)
+        times = _timed_decode(sched)
+        injector = None
+        if name == "chaos":
+            injector = FaultInjector(FaultConfig(**FAULTS, hang_s=FAULT_HANG_X * deadline))
+        reset_launch_counts()
+        with session:
+            m = replay(sched, work, faults=injector)
+        _sync()
+        counts, want = launch_counts(), _serve_launches(cfg, sched.stats)
+        if counts != want:
+            failures.append(f"fault {name}: launches {counts} != expected {want}")
+        if name == "chaos":
+            session.finalize(os.path.join(TALP_DIR, ARCH, "serve_fault"))
+        else:
+            deadline = FAULT_DEADLINE_X * max(times)
+        runs[name] = {"metrics": m, "stats": dict(sched.stats), "launches": counts,
+                      "dispatch_s": {"max": max(times), "median": sorted(times)[len(times) // 2],
+                                     "n": len(times)},
+                      "record": session.last_record_path, "scrubbed": _free_pages_finite(sched),
+                      "injected": injector and dict(injector.counters),
+                      "exhausted": injector is None or injector.exhausted,
+                      "status": {r: q["_status"] for r, q in sched._by_id.items()}}
+        del sched
+
+    clean, chaos = runs["clean"]["metrics"], runs["chaos"]["metrics"]
+    rec, inj = chaos["recovery"], runs["chaos"]["injected"]
+    landed = {k: inj[v] for k, v in (("nan", "nan_injected"), ("page_corrupt", "pages_corrupted"),
+                                     ("alloc_spike", "alloc_spikes"), ("hang", "hangs"))}
+    scheduled = {"nan": FAULTS["n_nan"], "page_corrupt": FAULTS["n_page_corrupt"],
+                 "alloc_spike": FAULTS["n_alloc_spike"], "hang": FAULTS["n_hang"]}
+    if landed != scheduled or not runs["chaos"]["exhausted"]:
+        failures.append(f"chaos: landed {landed} of {scheduled}")
+    if rec["retries"] < landed["nan"] + landed["page_corrupt"] + landed["hang"]:
+        failures.append(f"chaos: {rec['retries']} retries for {landed}")
+    if rec["watchdog_trips"] != landed["hang"]:
+        failures.append(f"chaos: {rec['watchdog_trips']} watchdog trips, {landed['hang']} hangs "
+                        f"(clean dispatch max {runs['clean']['dispatch_s']['max']:.3f} s, "
+                        f"deadline {deadline:.3f} s)")
+    for name, r in runs.items():
+        m = r["metrics"]
+        if (m["completed"] + m["cancelled"] != len(work) or m["failed"] or m["shed"]
+                or m["kv"]["pages_in_use"]):
+            failures.append(f"fault {name}: {m['completed']} completed + {m['cancelled']} "
+                            f"cancelled of {len(work)}, failed {m['failed']}, shed "
+                            f"{m['shed']}, {m['kv']['pages_in_use']} pages in use")
+    if not runs["chaos"]["scrubbed"]:
+        failures.append("chaos: a free page holds a non-finite value")
+    record = RunRecord.load(runs["chaos"]["record"])
+    visits = {n: r.measurements.num_visits for n, r in record.regions.items()}
+    acts = (rec["retries"] + rec["quarantined"] + rec["shed"] + rec["checksum_failures"]
+            + rec["watchdog_trips"])
+    pop_errors = {n: e for n, r in record.regions.items() if (e := validate_pop(r.pop))}
+    if visits.get("recovery") != acts or pop_errors:
+        failures.append(f"chaos record: visits {visits}, {acts} recovery actions, "
+                        f"POP errors {pop_errors}")
+    prompts = {str(r.request_id): list(r.prompt) for r in work}
+    ties = _tie_check(model, prompts, {"clean": clean["generated"], "chaos": chaos["generated"]},
+                      "clean", "chaos", failures)
+    return {"traffic": FAULT_TRAFFIC, "faults": {**FAULTS, "hang_s": FAULT_HANG_X * deadline},
+            "watchdog_deadline_s": deadline, "landed": landed, "injected": inj,
+            "recovery": rec, "record": os.path.relpath(runs["chaos"]["record"], ROOT),
+            "visits": visits, "near_ties": ties,
+            **{name: {"dispatch_s": r["dispatch_s"], "wall_s": r["metrics"]["wall_s"],
+                      "ticks": r["metrics"]["ticks"],
+                      "goodput_tokens_per_sec": r["metrics"]["goodput_tokens_per_sec"],
+                      "ttft_p99_s": r["metrics"]["ttft_p99_s"], "sched_stats": r["stats"],
+                      "launches": r["launches"]} for name, r in runs.items()}}
+
+
+def _bitflip_run(model, cfg, failures: list) -> dict:
+    """(b) The prefix run's system prompt with checksums: a request fills
+    the trie, a bit flip lands on a page only the trie pins, and the same
+    prompt again must find the checksum mismatch, evict the subtree and
+    prefill afresh to the same tokens."""
+    import numpy as np
+
+    from repro_torch.serve.faults import FaultConfig, FaultEvent, FaultInjector
+
+    rng = np.random.default_rng(41)
+    prompt = rng.integers(4, cfg.vocab, size=250).tolist() + rng.integers(
+        4, cfg.vocab, size=20).tolist()
+    injector = FaultInjector(FaultConfig(corrupt_mode="bitflip"),
+                             events=[FaultEvent(kind="page_corrupt", tick=1)])
+    sched = _load_scheduler(model, prefix_cache=True, checksum_pages=True,
+                            fault_injector=injector)
+    first = sched.submit(prompt, request_id="a", max_new=32).result()
+    while not injector.exhausted:
+        sched.step()
+    trie_before = sched._prefix.size
+    second = sched.submit(prompt, request_id="b", max_new=32).result()
+    sched.drain()
+    kv = sched.kv_cache_stats()
+    out = {"prompt_len": len(prompt), "checksum_failures": kv["recovery"]["checksum_failures"],
+           "trie_pages_before": trie_before, "trie_pages_after": sched._prefix.size,
+           "evicted_pages": kv["prefix_cache"]["evicted_pages"],
+           "hits": kv["prefix_cache"]["hits"], "injected": dict(injector.counters),
+           "equal_tokens": first == second}
+    # the re-prefill starts where the match was cut, on another chunk grid
+    out["near_ties"] = _tie_check(model, {0: prompt}, {"a": {0: first}, "b": {0: second}}, "a",
+                                  "bitflip", failures)
+    if (out["checksum_failures"] < 1 or out["evicted_pages"] < 1
+            or injector.counters["pages_corrupted"] != 1
+            or sched._alloc.used != sched._prefix.size):
+        failures.append(f"bitflip: {out}")
+    return out
+
+
+def _quarantine_run(model, cfg, failures: list) -> dict:
+    """(c) FAULT_QUARANTINE_N short requests, max_retries + 1 NaNs pinned to
+    request 0: it ends failed, its pages freed, the others' tokens equal
+    the fault-free run's (except at a near tie)."""
+    import numpy as np
+
+    from repro_torch.serve.faults import FaultEvent, FaultInjector
+
+    rng = np.random.default_rng(71)
+    prompts = {rid: rng.integers(4, cfg.vocab, size=int(n)).tolist()
+               for rid, n in enumerate(rng.integers(32, 129, size=FAULT_QUARANTINE_N))}
+    retries = 2
+    gens = {}
+    for name in ("clean", "chaos"):
+        injector = None
+        if name == "chaos":
+            injector = FaultInjector(events=[FaultEvent(kind="nan", tick=2 + 2 * i, request_id=0)
+                                             for i in range(retries + 1)])
+        sched = _load_scheduler(model, max_retries=retries, fault_injector=injector)
+        handles = [sched.submit(p, request_id=rid, max_new=32) for rid, p in prompts.items()]
+        sched.drain()
+        gens[name] = {r["id"]: r["generated"] for r in sched.completed}
+        status = [h.status for h in handles]
+    out = {"requests": FAULT_QUARANTINE_N, "max_retries": retries, "status": status,
+           "failed": [r["id"] for r in sched.failed], "recovery": sched.kv_cache_stats()["recovery"],
+           "injected": dict(injector.counters), "pages_in_use": sched._alloc.used}
+    neighbours = {rid: t for rid, t in gens["clean"].items() if rid != 0}
+    out["near_ties"] = _tie_check(model, prompts, {"clean": neighbours, "chaos": gens["chaos"]},
+                                  "clean", "quarantine", failures)
+    if (out["failed"] != [0] or status[0] != "failed" or out["recovery"]["quarantined"] != 1
+            or out["injected"]["nan_injected"] != retries + 1 or out["pages_in_use"]
+            or set(gens["chaos"]) != set(neighbours)):
+        failures.append(f"quarantine: {out}")
+    return out
+
+
+def _shed_run(model, cfg, failures: list) -> dict:
+    """(d) FAULT_SHED_N requests of mixed priority submitted at once against
+    shed_queue_depth FAULT_SHED_DEPTH: the shed ids are those the rule
+    (lowest priority, youngest first, at each submit) picks, each handle
+    reads shed with no token, the rest complete."""
+    import numpy as np
+
+    rng = np.random.default_rng(81)
+    prio = rng.integers(0, 3, size=FAULT_SHED_N).tolist()
+    sched = _load_scheduler(model, shed_queue_depth=FAULT_SHED_DEPTH)
+    handles = [sched.submit(rng.integers(4, cfg.vocab, size=24).tolist(), request_id=i,
+                            max_new=8, priority=p) for i, p in enumerate(prio)]
+    queue, want = [], []
+    for i, p in enumerate(prio):  # the rule, apart from the scheduler
+        queue.append((p, i))
+        if len(queue) > FAULT_SHED_DEPTH:
+            victim = min(queue, key=lambda r: (r[0], -r[1]))
+            queue.remove(victim)
+            want.append(victim[1])
+    sched.drain()
+    shed = [r["id"] for r in sched.shed]
+    out = {"requests": FAULT_SHED_N, "batch": LOAD_BATCH, "depth": FAULT_SHED_DEPTH,
+           "priorities": prio, "shed": shed, "expected": want,
+           "recovery": sched.kv_cache_stats()["recovery"]}
+    ok = all((h.status, h.tokens == []) == ("shed", True) if h.request_id in want
+             else (h.status, len(h.tokens)) == ("done", 8) for h in handles)
+    if shed != want or out["recovery"]["shed"] != len(want) or not ok or sched._alloc.used:
+        failures.append(f"shed: {out}")
+    return out
+
+
+def _spec_fault_run(copy_ctx, cfg, failures: list) -> dict:
+    """(e) 4c's copy regime with speculation, NaNs in verify dispatches:
+    retries happen, and every stream equals 4c's spec-off fault-free run
+    (except at a near tie)."""
+    from repro_torch.serve.faults import FaultEvent, FaultInjector
+
+    injector = FaultInjector(events=[FaultEvent(kind="nan", tick=t) for t in FAULT_SPEC_TICKS])
+    sched = _load_scheduler(copy_ctx["model"], spec_decode=True, spec_k=SPEC_K,
+                            fault_injector=injector)
+    t0 = time.perf_counter()
+    for rid, prompt, max_new in copy_ctx["reqs"]:
+        sched.submit(prompt, request_id=rid, max_new=max_new)
+    sched.drain()
+    _sync()
+    toks = {r["id"]: r["generated"] for r in sched.completed}
+    kv = sched.kv_cache_stats()
+    out = {"wall_s": time.perf_counter() - t0, "recovery": kv["recovery"],
+           "speculation": kv["speculation"], "pages_in_use": kv["pages_in_use"]}
+    out["near_ties"] = _tie_check(copy_ctx["model"], copy_ctx["prompts"],
+                                  {"off": copy_ctx["base"], "chaos": toks}, "off", "spec fault",
+                                  failures)
+    if (kv["recovery"]["retries"] < len(FAULT_SPEC_TICKS)
+            or kv["recovery"]["injected"]["nan_injected"] != len(FAULT_SPEC_TICKS)
+            or kv["pages_in_use"] or kv["speculation"]["accepted"] <= 0):
+        failures.append(f"spec fault: {out}")
+    return out
+
+
+def phase_serve_fault(model, copy_ctx):
+    """Serving under faults, bf16, phase 4b's server shape: (a) a chaos
+    replay under the monitor; (b) a bit flip caught by the page checksums;
+    (c) quarantine; (d) shedding; (e) speculation under NaN verifies."""
+    import torch
+
+    cfg = model.cfg
+    failures: list = []
+    out = {"chaos": _chaos_replay(model, cfg, failures)}
+    torch.cuda.empty_cache()
+    out["bitflip"] = _bitflip_run(model, cfg, failures)
+    out["quarantine"] = _quarantine_run(model, cfg, failures)
+    out["shed"] = _shed_run(model, cfg, failures)
+    out["spec"] = _spec_fault_run(copy_ctx, cfg, failures)
+    emit("serve_fault", arch=ARCH, dtype="bfloat16", batch=LOAD_BATCH, max_len=LOAD_MAX_LEN,
+         **out)
+    if failures:
+        raise AssertionError("serve_fault: " + "; ".join(failures))
+    return out["chaos"]["chaos"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the dense KV layout at full width
+# ---------------------------------------------------------------------------
+
+
+def _serve_layout(model, prompts, max_new, session=None, paged=False) -> dict:
+    """Phase 4's server (``paged``) or its dense twin over ``prompts``,
+    launch counters zeroed before and read after; the positions of the
+    first decode dispatch (the one the monitor counts)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.serve import BatchScheduler, ServeConfig
+
+    sched = BatchScheduler(model, ServeConfig(max_len=512, batch=4, prefill_chunk=64,
+                                              overlap=True, paged=paged), session=session)
+    first, inner = {}, sched._decode
+
+    def recording(decoding, c0):
+        first.setdefault("pos", sched.pos.copy())
+        return inner(decoding, c0)
+
+    sched._decode = recording
+    reset_launch_counts()
+    _sync()
+    t0 = time.perf_counter()
+    with sched.session:
+        for rid, p in enumerate(prompts):
+            sched.submit(p, request_id=rid, max_new=max_new)
+        sched.drain()
+    _sync()
+    wall = time.perf_counter() - t0
+    st = sched.stats
+    n_tok = sum(len(r["generated"]) for r in sched.completed)
+    return {"wall_s": wall, "tokens_per_s": n_tok / wall, "ticks": st["ticks"],
+            "decode_steps": st["decode_steps"], "prefill_chunks": st["prefill_chunks"],
+            "launches": launch_counts(), "first_decode_pos": first["pos"].tolist(),
+            "tokens": {r["id"]: r["generated"] for r in sched.completed},
+            "layout": sched.kv_cache_stats()["layout"],
+            "kv_bytes": sched.kv_cache_stats()["kv_bytes"]}
+
+
+def phase_serve_dense(model, params_f32, paged_tokens: dict, paged_tokens_per_s: float,
+                      dense_parity: dict):
+    """Phase 4's trace on the dense layout, bf16: under the monitor
+    (exact launches, the record's counted K2 FLOPs), then unmonitored in
+    turns with the paged layout (paged, dense, dense, paged: tokens/s).
+    Tokens against the paged layout in fp32 (phase 3's weights, both
+    layouts on the card), where two attention kernels' roundings cannot
+    pass for a difference; in bf16, where they can, the first divergences
+    and the two layouts' prefill logits for information. Phase 3's fp32
+    dense logits against float64."""
+    import torch
+
+    from repro_torch.core.records import RunRecord
+    from repro_torch.layers.common import tree_map
+    from repro_torch.models.transformer import Transformer
+
+    cfg = model.cfg
+    failures: list = []
+    prompts, max_new = _serve_trace(cfg)
+    session = _monitor(f"serve-{ARCH}")
+    runs = {"monitor": _serve_layout(model, prompts, max_new, session=session)}
+    session.finalize(os.path.join(TALP_DIR, ARCH, "serve_dense"))
+    turns: dict = {"paged": [], "dense": []}
+    for name in ("paged", "dense", "dense", "paged"):
+        r = _serve_layout(model, prompts, max_new, paged=name == "paged")
+        turns[name].append(r["tokens_per_s"])
+        runs[f"null_{name}"] = r
+    L = cfg.n_layers
+    for name, r in runs.items():
+        if name == "null_paged":
+            continue
+        forwards = r["decode_steps"] + r["prefill_chunks"]
+        want = dict.fromkeys(r["launches"], 0)
+        want.update({"flash_attention": L * forwards, "rmsnorm": (2 * L + 1) * forwards})
+        if r["launches"] != want or r["layout"] != "dense":
+            failures.append(f"dense {name}: layout {r['layout']}, launches {r['launches']} "
+                            f"!= expected {want}")
+    # the decode region's profile is the first decode step's count, scaled
+    # by the region's steps: K2 at each row's position p against kv_len
+    # p + 1, p + 1 pairs a row
+    record = RunRecord.load(session.last_record_path)
+    dec = record.regions.get("decode")
+    comps = dec.computations if dec else {}
+    got = comps["flash_attention"].flops if "flash_attention" in comps else 0.0
+    n = max(dec.measurements.num_steps, dec.measurements.num_visits, 1) if dec else 0
+    per_step = L * 4.0 * cfg.n_heads * cfg.head_dim_ * sum(
+        p + 1 for p in runs["monitor"]["first_decode_pos"])
+    index_step = L * 4.0 * cfg.n_heads * cfg.head_dim_ * len(runs["monitor"]["first_decode_pos"])
+    if got != n * per_step or "paged_attention" in comps:
+        failures.append(f"dense record: decode K2 FLOPs {got} != {n} x {per_step} from "
+                        f"positions {runs['monitor']['first_decode_pos']}; kernels "
+                        f"{sorted(comps)}")
+    if runs["null_dense"]["tokens"] != runs["monitor"]["tokens"]:
+        failures.append("dense: the monitored run's tokens differ from the unmonitored run's")
+    # tokens, dense against paged, in fp32
+    cfg32 = cfg.replace(param_dtype_name="float32", compute_dtype_name="float32")
+    model32 = Transformer(cfg32, tree_map(lambda t: t.to(torch.float32), params_f32), DEV)
+    fp32 = {"paged": _serve_layout(model32, prompts, max_new, paged=True),
+            "dense": _serve_layout(model32, prompts, max_new)}
+    prompts_d = dict(enumerate(prompts))
+    ties = _tie_check(model32, prompts_d, {k: v["tokens"] for k, v in fp32.items()}, "paged",
+                      "dense fp32", failures)
+    del model32
+    torch.cuda.empty_cache()
+    paged_bf16 = runs["null_paged"]["tokens"]
+    bf16_div = [{"request": rid, "position": i, "top2_gap": _top2_gap(model, prompts_d[rid],
+                                                                     toks, i)}
+                for rid, toks in paged_bf16.items()
+                if (i := _first_divergence(toks, runs["monitor"]["tokens"][rid])) is not None]
+    lp, ld = (_history_logits(model, prompts[0], dense=d).float() for d in (False, True))
+    bf16_logits = {"max_abs_diff": float((lp - ld).abs().max()),
+                   "logit_absmax": float(lp.abs().max()),
+                   "paged_equals_phase4": paged_bf16 == paged_tokens}
+    dp = dense_parity
+    rms_ratio = dp["vs_float64"]["rms_rel"] / dp["cpu_rms_rel_vs_float64"]
+    if not (dp["finite"] and dp["max_abs_err_vs_cpu"] <= LOGIT_TOL and rms_ratio <= EXACT_RATIO):
+        failures.append(f"dense fp32 logits: {dp['max_abs_err_vs_cpu']} vs the CPU (tol "
+                        f"{LOGIT_TOL}), RMS vs float64 {rms_ratio}x the CPU's")
+    emit("serve_dense", arch=ARCH, dtype="bfloat16",
+         runs={k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in runs.items()},
+         phase4_paged_tokens_per_s=paged_tokens_per_s, tokens_per_s_in_turns=turns,
+         fp32={k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in fp32.items()},
+         fp32_near_ties=ties, bf16_first_divergence_from_paged=bf16_div,
+         bf16_prefill_logits=bf16_logits,
+         decode_k2_flops={"record": got, "steps": n, "per_step_from_positions": per_step,
+                          "per_step_at_index_positions": index_step},
+         parity_fp32={**dp, "rms_over_cpu_vs_float64": rms_ratio})
+    if failures:
+        raise AssertionError("serve_dense: " + "; ".join(failures))
+    return runs["monitor"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2084,12 +2624,14 @@ def phase_report():
     failures += [f"talp {k}: exit {v['rc']}: {v['stderr'][-400:]}" for k, v in cli.items()
                  if v["rc"] != 0]
     m = re.search(r"(\d+) runs checked, (\d+) violations", cli["validate"]["stdout"])
-    # train monitor and tracer, serve monitor (4b) and serve spec (4c)
-    if not m or m.groups() != ("4", "0"):
+    # train monitor and tracer, serve monitor (4b), serve spec (4c), serve
+    # fault (4d) and serve dense (4e)
+    if not m or m.groups() != ("6", "0"):
         failures.append(f"talp validate: {cli['validate']['stdout'][-400:]!r}")
     index = os.path.join(SITE_DIR, "index.html")
     page = open(index).read() if os.path.exists(index) else ""
-    for exp in ("train_monitor", "train_tracer", "serve_monitor", "serve_spec"):
+    for exp in ("train_monitor", "train_tracer", "serve_monitor", "serve_spec", "serve_fault",
+                "serve_dense"):
         if f"<h2>Experiment: {ARCH} / {exp}</h2>" not in page:
             failures.append(f"index.html names no experiment {ARCH} / {exp}")
     pe_html = _html_parallel_efficiency(page, f"{ARCH} / train_monitor", "train_step")
@@ -2140,6 +2682,7 @@ def phase_timing(main_err, counts):
     import torch.nn.functional as F
 
     from repro_torch.kernels import cases
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.paged_attention import ops as PA
     from repro_torch.kernels.paged_attention import ref as PR
     from repro_torch.kernels.rmsnorm import ops as RMS
@@ -2219,13 +2762,58 @@ def phase_timing(main_err, counts):
                      **extra[r0], chunk_shape=extra[cases.MAIN_RMS[1][0]],
                      train_shape=_rms_train_timing()))
     rows += _training_timing()
+    for name, case in zip(("decode", "chunk"), cases.MAIN_FLASH_DENSE):
+        rows.append(dict(name="flash_attention", route="cuda", path="serve_dense",
+                         err_key=f"flash_attention_dense_{name}", variant=FA.route(bf),
+                         source="src/repro_torch/csrc/flash_attention_tc.cu",
+                         replaces="src/repro/kernels/flash_attention/kernel.py:35",
+                         **_dense_flash_timing(case, seed=47)))
     for row in rows:
-        row["launches"] = counts["train"].get(row["name"], 0) or counts["serve"][row["name"]]
+        path = row.get("path")
+        row["launches"] = (counts[path][row["name"]] if path else
+                           counts["train"].get(row["name"], 0) or counts["serve"][row["name"]])
         row["launches_by_path"] = {p: c[row["name"]] for p, c in counts.items()}
-        row["max_abs_err"] = main_err[row["name"]]
-        if row["name"] in main_err["l2_rel_err"]:
-            row["l2_rel_err"] = main_err["l2_rel_err"][row["name"]]
+        key = row.pop("err_key", row["name"])
+        row["max_abs_err"] = main_err[key]
+        if key in main_err["l2_rel_err"]:
+            row["l2_rel_err"] = main_err["l2_rel_err"][key]
     return rows
+
+
+def _dense_flash_timing(case, seed: int) -> dict:
+    """K2's forward at a dense serving shape, bf16: the kernel, its plain
+    version and SDPA on the same masked inputs (k/v repeated to the q heads
+    outside the timing; the mask causal and cut at kv_len), beside the bound
+    from ``launch_costs`` of these positions."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    B, Sq, Sk, Hq, Hkv, D, causal, _, _, off, kvl = case
+    c = cases.flash_case(B, Sq, Sk, Hq, Hkv, D, seed=seed, q_offset=off, kv_len=kvl)
+    q, k, v = (torch.from_numpy(c[n]).to(DEV, torch.bfloat16) for n in ("q", "k", "v"))
+    qpos, kpos, lens = (torch.from_numpy(c[n]).to(DEV) for n in
+                        ("q_positions", "k_positions", "kv_len"))
+    flops, nbytes = FA.launch_costs(q, k, causal, None, False, qpos, kpos, lens)
+    bound, by = _bound_ms(nbytes, flops, "bfloat16")
+    G = Hq // Hkv
+    qd = q.transpose(1, 2).contiguous()
+    kd, vd = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for t in (k, v))
+    mask = ((kpos[:, None, None, :] <= qpos[:, None, :, None])
+            & (kpos[:, None, None, :] < lens[:, None, None, None]))
+    kernel = lambda: FA.flash_forward(q, k, v, qpos, kpos, lens, causal, None, None)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)  # noqa: E731
+    plain = lambda: flash_attention_reference(q, k, v, q_positions=qpos,  # noqa: E731
+                                              k_positions=kpos, causal=causal, kv_len=lens)
+    return dict(
+        shape=f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} q_pos={off} kv_len={list(kvl)} bf16",
+        ms=cuda_ms(kernel), device_ms=graph_ms(kernel), plain_ms=cuda_ms(plain, iters=50),
+        library_ms=cuda_ms(sdpa), library_device_ms=graph_ms(sdpa),
+        library="F.scaled_dot_product_attention, k/v repeated, the same mask",
+        bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
 
 
 def _prefill_timing(case, seed: int) -> dict:
@@ -2433,22 +3021,26 @@ def main() -> int:
     shutil.rmtree(TALP_DIR, ignore_errors=True)  # the CI folder phase 7 renders
     phase_build()
     main_err = phase_kernels()
-    params = phase_parity()
-    model, serve_counts = phase_serve(params)
+    params, dense_parity = phase_parity()
+    model, serve_counts, serve_tokens, serve_tps = phase_serve(params)
     if profile:
         phase_profile(model)
     load_counts = phase_serve_load(model)
     if profile:
         phase_profile_load(model)
-    spec_counts = phase_serve_spec(model)
+    spec_counts, copy_ctx = phase_serve_spec(model)
+    fault_counts = phase_serve_fault(model, copy_ctx)
+    del copy_ctx
+    dense_counts = phase_serve_dense(model, params, serve_tokens, serve_tps, dense_parity)
     del model
     torch.cuda.empty_cache()
     phase_train_parity(params)
     del params
     train_counts = phase_train(profile)
     phase_report()
-    rows = phase_timing(main_err, {"serve": serve_counts, "serve_load": load_counts,
-                                   "serve_spec": spec_counts, "train": train_counts})
+    rows = phase_timing(main_err, {"serve": serve_counts, "serve_dense": dense_counts,
+                                   "serve_load": load_counts, "serve_spec": spec_counts,
+                                   "serve_fault": fault_counts, "train": train_counts})
     emit("timing", rows=len(rows))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2467,8 +3059,8 @@ def main() -> int:
         {**{k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "device_ms", "library_device_ms")},
-         **{k: row[k] for k in ("variant", "tflops", "row_pass_device_ms", "combine_device_ms")
-            if k in row}}
+         **{k: row[k] for k in ("variant", "path", "shape", "tflops", "row_pass_device_ms",
+                                "combine_device_ms") if k in row}}
         for row in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -110,6 +110,15 @@ MAIN_RMS = [(4, 2048), (64, 2048)]
 # RMSNorm over B*S = 8192 rows of 2048
 MAIN_FLASH = (4, 2048, 2048, 32, 4, 64, True, None, None)
 MAIN_RMS_TRAIN = (8192, 2048)
+# tinyllama-1.1b serving on the dense KV layout (max_len 512) through K2,
+# forward only: a decode step, one query row a slot at positions 96..287
+# against 512 keys cut at kv_len = position + 1; a 64-token chunk at 192
+# into one slot's row, keys cut at kv_len 256. Rows as FLASH_KVLEN_CASES
+# (q_offset per row for the decode)
+MAIN_FLASH_DECODE = (4, 1, 512, 32, 4, 64, True, None, None, (96, 159, 222, 287),
+                     (97, 160, 223, 288))
+MAIN_FLASH_CHUNK = (1, 64, 512, 32, 4, 64, True, None, None, 192, (256,))
+MAIN_FLASH_DENSE = [MAIN_FLASH_DECODE, MAIN_FLASH_CHUNK]
 
 
 # Gates of a kernel against its plain version, by dtype. TOL_MAX bounds the
@@ -197,14 +206,15 @@ def prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=0, lengths=None) -
 
 def flash_case(B, Sq, Sk, Hq, Hkv, D, seed=0, q_offset=0, kv_len=None) -> dict:
     """q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) and a cotangent dout like q, fp32;
-    positions: queries at ``q_offset + i``, keys at ``j``; kv_len (B,) or
-    None."""
+    positions: queries at ``q_offset + i`` (``q_offset`` an int or one a
+    row), keys at ``j``; kv_len (B,) or None."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
     return {"q": f(B, Sq, Hq, D), "k": f(B, Sk, Hkv, D), "v": f(B, Sk, Hkv, D),
             "dout": f(B, Sq, Hq, D),
-            "q_positions": np.broadcast_to(q_offset + np.arange(Sq, dtype=np.int32),
-                                           (B, Sq)).copy(),
+            "q_positions": np.broadcast_to(
+                np.asarray(q_offset, np.int32).reshape(-1, 1) + np.arange(Sq, dtype=np.int32),
+                (B, Sq)).copy(),
             "k_positions": np.broadcast_to(np.arange(Sk, dtype=np.int32), (B, Sk)).copy(),
             "kv_len": None if kv_len is None else np.asarray(kv_len, np.int32)}
 

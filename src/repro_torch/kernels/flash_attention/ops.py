@@ -104,14 +104,47 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def launch_costs(q, k, causal, window, backward: bool):
-    """(FLOPs, bytes) of one forward or backward launch at these shapes."""
+def position_pairs(qpos, kpos, kv_len, causal: bool, window: int | None):
+    """(pairs, keys) at these positions: the (query, key) pairs the kernels
+    compute, and per batch row the keys in the span some query sees (the
+    K/V rows the kernels read). ``qpos`` (B,Sq) and ``kpos`` (B,Sk) host
+    ints, ``kv_len`` (B,) or None. Key j is visible to query i when ``kpos
+    <= qpos`` (causal), ``kpos > qpos - window`` (window) and ``kpos <
+    kv_len``: a dense decode row at position p against kv_len p+1 sees p+1
+    keys, where the index count would give it one."""
+    big = np.int64(1) << 62
+    qpos, kpos = np.asarray(qpos, np.int64), np.asarray(kpos, np.int64)
+    pairs = keys = 0
+    for b in range(qpos.shape[0]):
+        ks = np.sort(kpos[b])
+        hi = qpos[b] if causal else np.full_like(qpos[b], big)
+        if kv_len is not None:
+            hi = np.minimum(hi, int(kv_len[b]) - 1)
+        lo = qpos[b] - window if window and window > 0 else np.full_like(qpos[b], -big)
+        n = np.searchsorted(ks, hi, "right") - np.searchsorted(ks, lo, "right")
+        pairs += int(np.clip(n, 0, None).sum())
+        keys += max(0, int(np.searchsorted(ks, hi.max(), "right")
+                           - np.searchsorted(ks, lo.min(), "right")))
+    return pairs, keys
+
+
+def launch_costs(q, k, causal, window, backward: bool, qpos=None, kpos=None,
+                 kv_len=None):
+    """(FLOPs, bytes) of one forward or backward launch. Without positions:
+    at index positions (``visible_pairs``, every key read). With the
+    launch's positions and ``kv_len`` (tensors or host ints;
+    ``position_pairs``): the pairs and key span these positions give."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     es = q.element_size()
-    pairs = visible_pairs(Sq, Sk, causal, window)
-    fwd_flops = 4.0 * B * Hq * D * pairs
-    io_q, io_kv, rows = B * Sq * Hq * D * es, B * Sk * Hkv * D * es, B * Hq * Sq * 4
+    if qpos is None:
+        pairs, keys = B * visible_pairs(Sq, Sk, causal, window), B * Sk
+    else:
+        host = lambda t: t.cpu().numpy() if isinstance(t, torch.Tensor) else t  # noqa: E731
+        pairs, keys = position_pairs(host(qpos), host(kpos),
+                                     None if kv_len is None else host(kv_len), causal, window)
+    fwd_flops = 4.0 * Hq * D * pairs
+    io_q, io_kv, rows = B * Sq * Hq * D * es, keys * Hkv * D * es, B * Hq * Sq * 4
     if not backward:  # read q, k, v; write o and the LSE
         return fwd_flops, 2 * io_q + 2 * io_kv + rows
     # recompute S, dP, dQ, dK, dV: five products of the forward's two;
@@ -170,7 +203,9 @@ def flash_forward(q, k, v, qpos, kpos, kv_len, causal, window, softcap):
         _raise_on(_lib().flash_fwd_launch(*ptrs, *opts), "flash_fwd_kernel")
     LAUNCHES["flash_attention"] += 1
     ROUTE_LAUNCHES[rt] += 1
-    record_cost("flash_attention", lambda: launch_costs(q, k, causal, window, False))
+    # the positions come to the host only while a step is being counted
+    record_cost("flash_attention", lambda: launch_costs(
+        q, k, causal, window, False, qpos, kpos, kv_len))
     return out, lse
 
 
@@ -205,7 +240,8 @@ def flash_backward(q, k, v, out, lse, dout, qpos, kpos, kv_len, causal, window, 
         _raise_on(rc, "flash_bwd_dq_kernel / flash_bwd_dkdv_kernel")
     LAUNCHES["flash_attention_backward"] += 1
     ROUTE_LAUNCHES[rt] += 1
-    record_cost("flash_attention_backward", lambda: launch_costs(q, k, causal, window, True))
+    record_cost("flash_attention_backward", lambda: launch_costs(
+        q, k, causal, window, True, qpos, kpos, kv_len))
     return dq, dk, dv
 
 

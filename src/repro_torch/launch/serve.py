@@ -13,7 +13,11 @@ lengths, priority classes, ``--cancel-frac`` mid-stream cancellations)
 and reports goodput, TTFT percentiles and queue depth;
 ``--preempt-policy`` picks the victim order when the page pool runs dry;
 ``--spec`` drafts up to ``--spec-k`` tokens a slot by prompt lookup and
-verifies them in one batched dispatch a tick:
+verifies them in one batched dispatch a tick; ``--dense`` keeps one dense
+KV cache row a slot instead of the paged pool; ``--chaos`` attaches the
+seeded fault injector (``--fault-seed``), with ``--max-retries``,
+``--watchdog-deadline``, ``--checksum-pages`` and ``--shed-queue-depth``
+for the recovery layer:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --device cpu --arrival burst --rate 0.8 --requests 16 \\
@@ -22,9 +26,8 @@ verifies them in one batched dispatch a tick:
 Without ``--device`` it runs on the card (``cuda``) and raises if there
 is none. Weights are the port's seeded initializer's, seed 0. It prints
 the completed count, ticks, decode steps, prefill chunks, the traffic,
-paged-KV, prefix-cache, pressure and speculation lines, each kernel's
-launch count,
-and where the TALP run record (regions ``decode``, ``prefill``,
+KV, prefix-cache, pressure, speculation and recovery lines, each
+kernel's launch count, and where the TALP run record (regions ``decode``, ``prefill``,
 ``preempt``, ``traffic``) was written.
 """
 
@@ -50,6 +53,11 @@ def main(argv=None) -> int:
                     help="stop-the-world prefill on attach (A/B baseline)")
     ap.add_argument("--eos-id", type=int, default=None,
                     help="retire requests early on this token id")
+    ap.add_argument("--paged", dest="paged", action="store_true", default=True,
+                    help="paged KV cache (the default): shared page pool + "
+                         "per-slot block tables")
+    ap.add_argument("--dense", dest="paged", action="store_false",
+                    help="dense (batch x max_len) KV cache, the A/B baseline")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page (must divide --max-len)")
     ap.add_argument("--num-pages", type=int, default=None,
@@ -74,6 +82,24 @@ def main(argv=None) -> int:
                     help="victim selection when the page pool runs dry: "
                          "lowest-priority-first (default), most-pages, "
                          "least-progress, or never (exhaustion raises)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="attach the seeded fault injector (NaN logits, KV "
+                         "page corruption, allocator spikes, hung dispatches): "
+                         "the scheduler must recover")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="FaultConfig seed: same seed, same fault schedule")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="fault retries per request before quarantine")
+    ap.add_argument("--watchdog-deadline", type=float, default=None,
+                    help="per-dispatch watchdog deadline in seconds (default: "
+                         "off; --chaos defaults it to 0.5)")
+    ap.add_argument("--checksum-pages", action="store_true",
+                    help="per-page fingerprints checked at prefix-cache "
+                         "sharing (catches silent bit flips)")
+    ap.add_argument("--shed-queue-depth", type=int, default=None,
+                    help="admission queue depth beyond which the "
+                         "lowest-priority youngest waiter is shed (default: "
+                         "never)")
     ap.add_argument("--spec", action="store_true",
                     help="speculative decoding: n-gram self-drafting + one "
                          "batched verify dispatch per tick (tokens stay "
@@ -110,20 +136,31 @@ def main(argv=None) -> int:
         ResourceConfig(num_hosts=1, devices_per_host=1),
     )
     rng = np.random.default_rng(0)
+    injector = None
+    watchdog = args.watchdog_deadline
+    if args.chaos:
+        from repro_torch.serve.faults import FaultConfig, FaultInjector
+
+        injector = FaultInjector(FaultConfig(seed=args.fault_seed))
+        if watchdog is None:
+            watchdog = 0.5
     reset_launch_counts()
     with session:
         sched = BatchScheduler(model, ServeConfig(
             max_len=args.max_len, batch=args.batch,
             prefill_chunk=args.prefill_chunk, overlap=not args.no_overlap,
-            eos_id=args.eos_id, page_size=args.page_size, num_pages=args.num_pages,
+            eos_id=args.eos_id, paged=args.paged, page_size=args.page_size,
+            num_pages=args.num_pages,
             prefix_cache=args.prefix_cache,
             prefix_trie_capacity=args.prefix_trie_capacity,
             preempt_policy=args.preempt_policy,
             greedy=not args.sample, temperature=args.temperature, top_k=args.top_k,
             sample_seed=args.sample_seed,
+            max_retries=args.max_retries, watchdog_deadline_s=watchdog,
+            checksum_pages=args.checksum_pages, shed_queue_depth=args.shed_queue_depth,
             spec_decode=args.spec, spec_k=args.spec_k,
             spec_min_match=args.spec_min_match,
-        ), session=session)
+        ), session=session, fault_injector=injector)
         if args.arrival:
             # open-loop traffic: arrivals, lengths, priorities and cancels
             # are a pure function of the seeded TrafficConfig
@@ -169,10 +206,13 @@ def main(argv=None) -> int:
               f"queue depth peak {metrics['queue_depth_peak']} "
               f"(mean {metrics['queue_depth_mean']})")
     kv = sched.kv_cache_stats()
-    print(f"[serve] paged KV: {kv['kv_bytes']} pool bytes, "
-          f"{kv['num_pages']} pages x {kv['page_size']} tokens, "
-          f"peak {kv['peak_used_pages']} pages in use "
-          f"(utilization {kv['pool_utilization']})")
+    if kv["layout"] == "paged":
+        print(f"[serve] paged KV: {kv['kv_bytes']} pool bytes, "
+              f"{kv['num_pages']} pages x {kv['page_size']} tokens, "
+              f"peak {kv['peak_used_pages']} pages in use "
+              f"(utilization {kv['pool_utilization']})")
+    else:
+        print(f"[serve] dense KV: {kv['kv_bytes']} bytes")
     if "prefix_cache" in kv:
         pc = kv["prefix_cache"]
         print(f"[serve] prefix cache: hit rate {pc['hit_rate']} "
@@ -196,6 +236,13 @@ def main(argv=None) -> int:
               f"{sp['tokens_per_dispatch']} tokens/dispatch over "
               f"{sp['verify_dispatches']} verify dispatches "
               f"(mean accepted len {sp['mean_accepted_len']})")
+    rec = kv["recovery"]
+    print(f"[serve] recovery: {rec['retries']} retries "
+          f"({rec['backoff_total_ticks']} backoff ticks), "
+          f"{rec['quarantined']} quarantined, {rec['shed']} shed, "
+          f"{rec['watchdog_trips']} watchdog trips, "
+          f"{rec['checksum_failures']} checksum failures"
+          + (f"; injected {rec['injected']}" if "injected" in rec else ""))
     counts = launch_counts()
     route = "kernel launches" if model.device.type == "cuda" else \
         "kernel launches (0 on the CPU: plain versions ran)"

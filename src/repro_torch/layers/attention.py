@@ -1,8 +1,9 @@
-"""Attention (``repro.layers.attention``): RoPE, the paged KV write, and the
-paged and cache-less branches of the attention block.
+"""Attention (``repro.layers.attention``): RoPE, the paged and dense KV
+writes, and the paged, dense and cache-less branches of the attention
+block.
 
 Shapes follow (batch, seq, heads, head_dim) throughout, as in the JAX
-package. The dense-cache branch waits for a later slice.
+package.
 
 Paged pool layout: ``(P + 1, page, Hkv, hd)`` per layer. Pages ``0..P-1``
 are the pool the allocator hands out; page ``P`` is a spare that receives
@@ -11,10 +12,17 @@ entries, unallocated table entries, positions past the table). Sending
 them there keeps the write free of a host sync (no boolean indexing), and
 no block table ever names page ``P``, so readers never see it: attention
 reads ``pool[:-1]``.
+
+Dense cache layout: ``(B + 1, max_len, Hkv, hd)`` per layer. Rows
+``0..B-1`` are the slots; row ``B`` is the spare that takes the writes the
+JAX package drops. A spare batch row, not a spare column, keeps every
+read a contiguous slice (``[:B]`` for a decode step, ``[slot:slot+1]``
+for one slot's prefill chunk), which the flash-attention kernel needs.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -92,6 +100,33 @@ def paged_write(pool: torch.Tensor, vals: torch.Tensor, positions: torch.Tensor,
     )
 
 
+def dense_write(cache: torch.Tensor, vals: torch.Tensor, positions: torch.Tensor,
+                row0: int, seq_mask: torch.Tensor | None = None) -> None:
+    """Write ``vals`` (B,S,Hkv,hd) at ``positions`` (B,S) into cache rows
+    ``row0 .. row0+B-1`` of ``cache`` (Bc, Smax, Hkv, hd), IN PLACE (the
+    JAX masked scatter). Masked entries and positions outside ``[0,
+    Smax)`` go to the spare row ``Bc-1``, as the JAX write drops them."""
+    Bc, Smax, hkv, hd = cache.shape
+    B = vals.shape[0]
+    rows = torch.arange(row0, row0 + B, dtype=torch.int64, device=cache.device)[:, None]
+    valid = (positions >= 0) & (positions < Smax)
+    if seq_mask is not None:
+        valid = valid & seq_mask
+    flat = rows * Smax + positions.long()
+    write_idx = torch.where(valid, flat, torch.full_like(flat, (Bc - 1) * Smax))
+    cache.view(Bc * Smax, hkv, hd).index_put_(
+        (write_idx.reshape(-1),), vals.reshape(-1, hkv, hd).to(cache.dtype)
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def key_positions(B: int, Smax: int, device: torch.device) -> torch.Tensor:
+    """The dense cache's key positions, ``arange(Smax)`` per row, as the
+    contiguous (B, Smax) int32 the flash-attention kernel reads: built once
+    per shape, not per layer and step."""
+    return torch.arange(Smax, dtype=torch.int32, device=device).expand(B, Smax).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # the attention block
 # ---------------------------------------------------------------------------
@@ -112,21 +147,22 @@ def attention_params(cfg) -> dict:
 
 def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
                     cache_len, block_tables, seq_mask=None, causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
-    """The paged and cache-less branches of the JAX ``attention_block``.
+                    window: int | None = None, cache_row0: int = 0) -> torch.Tensor:
+    """The JAX ``attention_block``'s branches.
 
     ``cache`` None (training, full-sequence forward): project, rotate and
     attend over the sequence itself through the flash-attention kernel,
     at ``positions`` (B,S). ``cache`` dict(k_pages=(P+1,page,Hkv,hd),
     v_pages=...): write this step's K/V into the pool (in place), attend
-    through the block table; ``positions`` doubles as each row's write
-    index. S == 1 is a decode step (paged decode kernel), S > 1 a prefill
-    chunk (paged prefill kernel). Returns (B,S,d)."""
-    if cache is not None and "k_pages" not in cache:
-        raise NotImplementedError(
-            "the dense-cache attention branch is not ported yet: use the "
-            "paged cache"
-        )
+    through the block table; S == 1 is a decode step (paged decode
+    kernel), S > 1 a prefill chunk (paged prefill kernel). ``cache``
+    dict(k=(Bc,Smax,Hkv,hd), v=...), the dense layout: write into cache
+    rows ``cache_row0 .. cache_row0+B-1`` (in place) and attend those rows
+    through the flash-attention kernel, keys at positions ``0..Smax-1``
+    cut by ``kv_len = cache_len``: one query row a slot for a decode step,
+    the chunk against everything written so far (the JAX
+    ``cache_attend``) for S > 1. ``positions`` doubles as each row's
+    write index. Returns (B,S,d)."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     compute = cfg.compute_dtype
@@ -140,21 +176,30 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
     if cache is None:
         o = flash_attention(q, k, v, q_positions=positions, k_positions=positions,
                             causal=causal, window=window, softcap=cfg.attn_softcap)
-        return o.reshape(B, S, hq * hd) @ params["wo"].to(compute)
-
-    k_pool, v_pool = cache["k_pages"], cache["v_pages"]
-    paged_write(k_pool, k, positions, block_tables, seq_mask)
-    paged_write(v_pool, v, positions, block_tables, seq_mask)
-    k_read, v_read = k_pool[:-1], v_pool[:-1]
-    if S == 1:
-        o = paged_attention(
-            q, k_read, v_read, block_tables, q_position=positions[:, 0],
-            cache_len=cache_len, window=window, softcap=cfg.attn_softcap,
-        )
+    elif "k_pages" in cache:
+        k_pool, v_pool = cache["k_pages"], cache["v_pages"]
+        paged_write(k_pool, k, positions, block_tables, seq_mask)
+        paged_write(v_pool, v, positions, block_tables, seq_mask)
+        k_read, v_read = k_pool[:-1], v_pool[:-1]
+        if S == 1:
+            o = paged_attention(
+                q, k_read, v_read, block_tables, q_position=positions[:, 0],
+                cache_len=cache_len, window=window, softcap=cfg.attn_softcap,
+            )
+        else:
+            o = paged_prefill_attention(
+                q, k_read, v_read, block_tables, q_positions=positions,
+                cache_len=cache_len, causal=causal, window=window,
+                softcap=cfg.attn_softcap,
+            )
     else:
-        o = paged_prefill_attention(
-            q, k_read, v_read, block_tables, q_positions=positions,
-            cache_len=cache_len, causal=causal, window=window,
-            softcap=cfg.attn_softcap,
+        k_cache, v_cache = cache["k"], cache["v"]
+        dense_write(k_cache, k, positions, cache_row0, seq_mask)
+        dense_write(v_cache, v, positions, cache_row0, seq_mask)
+        rows = slice(cache_row0, cache_row0 + B)
+        o = flash_attention(
+            q, k_cache[rows], v_cache[rows], q_positions=positions,
+            k_positions=key_positions(B, k_cache.shape[1], k_cache.device),
+            causal=causal, window=window, softcap=cfg.attn_softcap, kv_len=cache_len,
         )
     return o.reshape(B, S, hq * hd) @ params["wo"].to(compute)

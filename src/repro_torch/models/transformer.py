@@ -4,14 +4,15 @@ The layer stack is ``cfg.pattern`` repeated ``cfg.repeats`` times; the
 parameter tree is the JAX package's, stacked over repeats, and a Python
 loop over repeats takes the place of the ``scan``. The port runs the
 ``attn`` block kind, cache-less for training and over the paged KV pool
-for serving:
+or the dense KV cache for serving:
 
   model_params(cfg)                      ParamSpec tree
   Transformer.from_init(cfg, seed)       seeded weights (port's initializer)
   Transformer(cfg, params)               weights from a tree of tensors
   model.forward(batch)                   (loss, aux): training/eval loss
   model.apply_logits(batch)              (logits, aux): full-sequence logits
-  model.init_cache(batch, max_len, ...)  paged pools (R, P+1, page, Hkv, hd)
+  model.init_cache(batch, max_len, ...)  paged pools (R, P+1, page, Hkv, hd), or
+                                         with paged=False dense (R, B+1, max_len, Hkv, hd)
   model.prefill_chunk(tokens, ...)       incremental prefill at per-row offsets
   model.decode_step(tokens, pos, ...)    one-token step, per-slot positions
 """
@@ -133,21 +134,28 @@ class Transformer(nn.Module):
 
     # -- caches ---------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int, *, page_size: int = 16,
-                   num_pages: int | None = None, dtype=None) -> dict:
-        """Paged pools per attention slot, ``(R, P+1, page, Hkv, hd)``: P pages
-        for the allocator plus the spare that takes dropped writes (see
-        ``layers.attention``). ``num_pages`` defaults to dense-equivalent
-        capacity, ``ceil(batch*max_len/page_size)``."""
+    def init_cache(self, batch: int, max_len: int, *, paged: bool = True,
+                   page_size: int = 16, num_pages: int | None = None,
+                   dtype=None) -> dict:
+        """KV caches per attention slot. Paged (the default): pools ``(R,
+        P+1, page, Hkv, hd)``, P pages for the allocator plus the spare that
+        takes dropped writes; ``num_pages`` defaults to dense-equivalent
+        capacity, ``ceil(batch*max_len/page_size)``. ``paged=False``: dense
+        ``(R, batch+1, max_len, Hkv, hd)``, a row a slot plus the spare row
+        (see ``layers.attention``)."""
         cfg = self.cfg
         dtype = dtype or cfg.compute_dtype
-        if num_pages is None:
-            num_pages = -(-batch * max_len // page_size)
-        shape = (cfg.repeats, num_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim_)
+        if paged:
+            if num_pages is None:
+                num_pages = -(-batch * max_len // page_size)
+            names = ("k_pages", "v_pages")
+            shape = (cfg.repeats, num_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim_)
+        else:
+            names = ("k", "v")
+            shape = (cfg.repeats, batch + 1, max_len, cfg.n_kv_heads, cfg.head_dim_)
         return {
             f"slot{i}_{kind}": {"attn": {
-                "k_pages": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v_pages": torch.zeros(shape, dtype=dtype, device=self.device),
+                n: torch.zeros(shape, dtype=dtype, device=self.device) for n in names
             }}
             for i, kind in enumerate(cfg.pattern)
         }
@@ -174,7 +182,7 @@ class Transformer(nn.Module):
         return rmsnorm(x, self.norm_f__scale, cfg.norm_eps, cfg.zero_centered_norm)
 
     def _apply_slot(self, sp: dict, x, *, positions, cache, cache_len, seq_mask,
-                    block_tables):
+                    block_tables, cache_row0=0):
         """One ``attn`` block: pre-norm attention + pre-norm MLP, residuals."""
         cfg = self.cfg
         h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
@@ -182,13 +190,13 @@ class Transformer(nn.Module):
             sp["attn"], h, cfg, positions=positions,
             cache=None if cache is None else cache["attn"],
             cache_len=cache_len, block_tables=block_tables, seq_mask=seq_mask,
-            causal=True,
+            causal=True, cache_row0=cache_row0,
         )
         h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         return x + FFN.mlp_block(sp["mlp"], h2, cfg)
 
     def _run_stack(self, x, caches, *, positions, cache_len, seq_mask,
-                   block_tables):
+                   block_tables, cache_row0=0):
         """Pattern x repeats. Each stacked leaf is unbound over repeats once
         (views; the backward stacks the per-layer gradients in one op
         rather than scattering into the stacked leaf once per layer). With
@@ -206,7 +214,8 @@ class Transformer(nn.Module):
                 layer = tree_map(lambda t: t[r], sp)
                 cache = None if caches is None else tree_map(lambda t: t[r], caches[name])
                 kw = dict(positions=positions, cache=cache, cache_len=cache_len,
-                          seq_mask=seq_mask, block_tables=block_tables)
+                          seq_mask=seq_mask, block_tables=block_tables,
+                          cache_row0=cache_row0)
                 if remat:
                     x = checkpoint(self._apply_slot, layer, x, use_reentrant=False, **kw)
                 else:
@@ -283,14 +292,15 @@ class Transformer(nn.Module):
         return self._logits(self._full_sequence(batch["tokens"])), {}
 
     @torch.inference_mode()
-    def prefill_chunk(self, tokens, caches, start, length, block_tables,
-                      all_logits: bool = False):
+    def prefill_chunk(self, tokens, caches, start, length, block_tables=None,
+                      all_logits: bool = False, slot: int = 0):
         """One chunk of an incremental prefill: ``tokens`` (B,C) at positions
         ``start .. start+C``; ``length`` () or (B,) valid tokens (the rest is
-        padding that writes nothing). Writes the pools in place and attends
-        against everything written so far through ``block_tables`` (B,nL).
-        Returns logits (B,V) at each row's last valid position, or (B,C,V)
-        with ``all_logits``."""
+        padding that writes nothing). Writes the caches in place and attends
+        against everything written so far: through ``block_tables`` (B,nL)
+        on the paged layout, or, on the dense layout (``block_tables``
+        None), in cache rows ``slot .. slot+B-1``. Returns logits (B,V) at
+        each row's last valid position, or (B,C,V) with ``all_logits``."""
         x = self._embed_inputs(tokens)
         B, C, _ = x.shape
         start = self._per_row(start, B)
@@ -299,7 +309,8 @@ class Transformer(nn.Module):
         seq_mask = offs < length[:, None]
         positions = start[:, None] + offs
         x = self._run_stack(x, caches, positions=positions, cache_len=start + length,
-                            seq_mask=seq_mask, block_tables=block_tables)
+                            seq_mask=seq_mask, block_tables=block_tables,
+                            cache_row0=slot)
         x = self._final_norm(x)
         if all_logits:
             return self._logits(x)
@@ -309,9 +320,9 @@ class Transformer(nn.Module):
     @torch.inference_mode()
     def decode_step(self, tokens, pos, caches, active=None, block_tables=None):
         """One decode step. tokens: (B,1); pos: () or (B,) per-slot positions;
-        ``active`` (B,) bool: inactive slots write nothing. Returns (B,V)."""
-        if block_tables is None:
-            raise NotImplementedError("only the paged cache is ported")
+        ``active`` (B,) bool: inactive slots write nothing. ``block_tables``
+        (B,nL) on the paged layout, None on the dense one (cache rows
+        0..B-1). Returns (B,V)."""
         x = self._embed_inputs(tokens)
         B = x.shape[0]
         pos = self._per_row(pos, B)

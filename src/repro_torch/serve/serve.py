@@ -50,12 +50,33 @@ What the port keeps of the JAX scheduler, with its semantics:
   drafter (``serve/spec.py``) proposes up to ``spec_k`` tokens a slot and
   one batched verify dispatch (``prefill_chunk`` with every position's
   logits) scores them all; the longest prefix where draft == output is
-  kept, so tokens equal those of plain decode, greedy or sampled.
+  kept, so tokens equal those of plain decode, greedy or sampled;
+* resilience: every decode, prefill-chunk and verify dispatch computes a
+  NaN/Inf sentinel on the device (``bad``), which comes to the host in the
+  same copy as the tokens. A flagged request retries through the
+  preemption's park/recompute-resume path after a capped exponential
+  backoff, so its stream equals a fault-free run's; past ``max_retries``
+  it is quarantined (terminal ``failed``, pages freed, neighbours
+  untouched). A watchdog (``watchdog_deadline_s``) times each decode and
+  verify dispatch call and retries the hung slot's request; per-page
+  checksums (``checksum_pages``) are recorded at trie insert and checked
+  before a shared page is mapped, a mismatch evicting its subtree; and
+  ``shed_queue_depth`` sheds the lowest-priority youngest waiter (terminal
+  ``shed``). Each action is one visit of the session's ``recovery``
+  region. A seeded ``serve.faults.FaultInjector`` (``fault_injector=``)
+  drives chaos schedules through these paths;
+* the dense layout (``paged=False``): one ``(B+1, max_len)`` cache row a
+  slot (row B takes dropped writes), attended through the flash-attention
+  kernel, the A/B baseline of the paged pool. Tokens equal the paged
+  layout's in fp32; in bf16 the two layouts' attention kernels round
+  differently, and greedy tokens can part where the top two logits are a
+  few ulps apart.
 
-The KV pools are written in place (``layers.attention.paged_write``), not
-returned anew as in the JAX package. Everything runs on one stream, so a
-page released on the host and handed to another request is written by
-the new owner only after every earlier dispatch that named it.
+The KV caches are written in place (``layers.attention.paged_write`` and
+``dense_write``), not returned anew as in the JAX package. Everything runs
+on one stream, so a page released on the host and handed to another
+request is written by the new owner only after every earlier dispatch
+that named it.
 """
 
 from __future__ import annotations
@@ -68,6 +89,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.serve import faults as F
 from repro_torch.serve import prng
 from repro_torch.serve.spec import draft_tokens
 from repro_torch.session import PerfSession, SessionConfig
@@ -95,47 +117,89 @@ class ServeConfig:
     # every eos_check_every ticks so EOS is seen with bounded delay
     eos_id: int | None = None
     eos_check_every: int = 8
+    # paged KV cache (the default): a shared pool of page_size-token pages
+    # through per-slot block tables; paged=False keeps one dense (max_len)
+    # cache row a slot, the A/B baseline
+    paged: bool = True
     page_size: int = 16
     # pool size in pages; None = dense-equivalent batch*max_len/page_size
     num_pages: int | None = None
-    # cross-request prefix cache: a radix trie over prompt-token pages maps
-    # cached prefixes read-only into a new request's block table and
-    # copy-on-writes the first partly shared page; the trie pins at most
-    # prefix_trie_capacity pages (LRU-trimmed on insert; None = unbounded,
-    # pool pressure still evicts pages no request reads)
+    # cross-request prefix cache (paged only): a radix trie over
+    # prompt-token pages maps cached prefixes read-only into a new request's
+    # block table and copy-on-writes the first partly shared page; the trie
+    # pins at most prefix_trie_capacity pages (LRU-trimmed on insert; None =
+    # unbounded, pool pressure still evicts pages no request reads)
     prefix_cache: bool = False
     prefix_trie_capacity: int | None = None
     # victim order when the pool runs dry: "priority" (lowest class, then
     # most pages, then least progress), "pages" (most pages), "progress"
     # (least generated), or "never" (exhaustion unwinds and raises)
     preempt_policy: str = "priority"
-    # speculative decoding: up to spec_k drafted tokens a slot and one
-    # batched verify a tick; spec_min_match is the shortest history n-gram
-    # the drafter may match on
+    # resilience: a request whose dispatch is found bad (non-finite logits,
+    # a watchdog trip) retries through park/recompute-resume after
+    # min(cap, base << (retries-1)) ticks; past max_retries it is
+    # quarantined (terminal "failed")
+    max_retries: int = 3
+    retry_backoff_base: int = 1
+    retry_backoff_cap: int = 8
+    # a decode or verify dispatch call longer than this many seconds trips
+    # the watchdog: its tokens are kept and the hung slot's request retries.
+    # None = off
+    watchdog_deadline_s: float | None = None
+    # per-page fingerprints (paged + prefix_cache): recorded at trie insert,
+    # checked before a shared page is mapped; a mismatch evicts the subtree
+    checksum_pages: bool = False
+    # with more than this many requests queued, submit sheds the
+    # lowest-priority youngest waiter (terminal "shed"). None = never
+    shed_queue_depth: int | None = None
+    # speculative decoding (paged only): up to spec_k drafted tokens a slot
+    # and one batched verify a tick; spec_min_match is the shortest history
+    # n-gram the drafter may match on
     spec_decode: bool = False
     spec_k: int = 4
     spec_min_match: int = 2
 
     def __post_init__(self):
-        if self.max_len % self.page_size:
+        # the JAX package's checks, in its order (max_len % page_size is
+        # the scheduler's, as there)
+        if self.checksum_pages and not (self.paged and self.prefix_cache):
             raise ValueError(
-                f"max_len ({self.max_len}) must be divisible by page_size "
-                f"({self.page_size})"
+                "checksum_pages=True requires paged=True and "
+                "prefix_cache=True: checksums guard pages shared across "
+                "requests through the prefix trie"
             )
-        if min(self.batch, self.prefill_chunk, self.eos_check_every,
-               self.page_size) < 1:
-            raise ValueError("batch, prefill_chunk, eos_check_every and "
-                             "page_size must be >= 1")
+        if self.max_retries < 0 or self.retry_backoff_base < 1 \
+                or self.retry_backoff_cap < 1:
+            raise ValueError(
+                "max_retries must be >= 0 and retry backoff base/cap >= 1"
+            )
+        if self.prefix_cache and not self.paged:
+            raise ValueError(
+                "prefix_cache=True requires paged=True: prefix sharing maps "
+                "pool pages into multiple slots' block tables, which the "
+                "dense (batch, max_len) layout cannot express"
+            )
         if self.preempt_policy not in PREEMPT_POLICIES:
             raise ValueError(
                 f"preempt_policy must be one of priority|pages|progress|never,"
                 f" got {self.preempt_policy!r}"
+            )
+        if self.spec_decode and not self.paged:
+            raise ValueError(
+                "spec_decode=True requires paged=True: the batched verify "
+                "step scores K+1 positions through the paged pool's "
+                "block-table reads, and rollback of rejected positions "
+                "relies on the pool's masked scatter writes"
             )
         if self.spec_decode and (self.spec_k < 1 or self.spec_min_match < 1):
             raise ValueError(
                 f"spec_k ({self.spec_k}) and spec_min_match "
                 f"({self.spec_min_match}) must be >= 1"
             )
+        if min(self.batch, self.prefill_chunk, self.eos_check_every,
+               self.page_size) < 1:
+            raise ValueError("batch, prefill_chunk, eos_check_every and "
+                             "page_size must be >= 1")
 
 
 class PageAllocator:
@@ -193,7 +257,7 @@ class PageAllocator:
 
 
 class _TrieNode:
-    __slots__ = ("tokens", "page", "children", "parent", "last_used")
+    __slots__ = ("tokens", "page", "children", "parent", "last_used", "checksum")
 
     def __init__(self, tokens, page, parent):
         self.tokens = tokens      # the page_size-token tuple keying this node
@@ -201,6 +265,7 @@ class _TrieNode:
         self.children: dict[tuple, _TrieNode] = {}
         self.parent = parent
         self.last_used = 0
+        self.checksum = None      # page fingerprint (checksum_pages)
 
 
 class PrefixCache:
@@ -257,11 +322,13 @@ class PrefixCache:
                 donor, donor_rows = child, n
         return chain, donor, donor_rows
 
-    def insert(self, prompt, pages) -> None:
+    def insert(self, prompt, pages, checksums=None) -> None:
         """Record a prefilled prompt's full pages (called when a request's
         prefill completes). Existing nodes are LRU-touched; new nodes pin
         their page with a trie-owned reference. The page straddling the
-        prompt's end is never inserted: decode writes its tail."""
+        prompt's end is never inserted: decode writes its tail.
+        ``checksums`` (one fingerprint a full page, with checksum_pages) are
+        stored on the nodes and checked before a later attach maps them."""
         psize = self.page_size
         node = self.root
         for j in range(len(prompt) // psize):
@@ -278,6 +345,8 @@ class PrefixCache:
                 self.allocator.share([pages[j]])
                 self.size += 1
                 self.stats["inserted_pages"] += 1
+            if checksums is not None:
+                child.checksum = checksums[j]
             self._touch(child)
             node = child
 
@@ -321,8 +390,9 @@ class PrefixCache:
         return True
 
     def evict_subtree(self, node: _TrieNode) -> int:
-        """Evict ``node`` and every descendant, children first; returns the
-        number of nodes evicted."""
+        """Evict ``node`` and every descendant, children first (a checksum
+        mismatch: the page can no longer be trusted, and its descendants
+        are unreachable without it); returns the number of nodes evicted."""
         stack, order = [node], []
         while stack:
             n = stack.pop()
@@ -385,18 +455,19 @@ def _request_tag(request_id) -> int:
 
 
 # terminal request statuses: the stream is closed, no more tokens can come
-_TERMINAL = ("done", "cancelled", "failed")
-# kv_cache_stats()["recovery"]: the JAX package's fault-recovery counters,
-# all 0 here (fault injection and recovery are not ported)
+_TERMINAL = ("done", "cancelled", "failed", "shed")
+# kv_cache_stats()["recovery"]: what the recovery layer did
 _RECOVERY_KEYS = ("retries", "backoff_total_ticks", "quarantined", "shed",
                   "checksum_failures", "watchdog_trips")
 
 
 class RequestHandle:
     """Caller-facing view of a submitted request: its lifecycle
-    (``queued -> prefilling -> decoding -> done``, with ``preempted``
-    parking and the ``cancelled``/``failed`` exits), the tokens flushed so
-    far, and ``cancel``/``stream``/``result``."""
+    (``queued -> prefilling -> decoding -> done``, with ``preempted`` and
+    ``retrying`` parking and the ``cancelled``/``failed``/``shed`` exits),
+    the tokens flushed so far, and ``cancel``/``stream``/``result``.
+    ``failed`` is also the quarantine exit (``max_retries`` recoveries
+    spent, pages freed); ``shed`` the load-shedding one."""
 
     __slots__ = ("_sched", "_req")
 
@@ -476,37 +547,47 @@ def _upload(arr: np.ndarray, device) -> torch.Tensor:
 
 class BatchScheduler:
     """Slot-based continuous batching with chunked prefill overlapped with
-    decode, over the model's paged KV pool, with priority admission,
-    preemption and recompute-resume, the prefix cache, sampling and
-    speculative decoding. Tokens are identical with overlap on or off,
-    sharing on or off, speculation on or off, and under any pool pressure,
-    greedy or sampled.
+    decode, over the model's paged KV pool (or, with ``paged=False``, its
+    dense cache), with priority admission, preemption and
+    recompute-resume, the prefix cache, sampling, speculative decoding and
+    fault recovery. Tokens are identical with overlap on or off, sharing
+    on or off, speculation on or off, under any pool pressure and through
+    any recovered fault, greedy or sampled, and paged or dense up to the
+    two layouts' attention kernels' rounding (see the module docstring).
 
     Request records are dicts: ``id``, ``prompt``, ``max_new``,
     ``priority``, ``generated`` (host tokens), ``_status`` (queued |
-    prefilling | decoding | preempted | done | cancelled | failed), and
-    ``t_submit``/``t_first_token`` (host clock: submit, and the flush that
-    first put a token on the host).
+    prefilling | decoding | preempted | retrying | done | cancelled |
+    failed | shed), ``_retries``, and ``t_submit``/``t_first_token`` (host
+    clock: submit, and the flush that first put a token on the host).
 
     ``session``: a ``PerfSession`` whose ``decode`` (decode dispatches or
-    verify dispatches), ``prefill`` and ``preempt`` regions this scheduler
-    visits; None builds a null session
-    (``TALP_ENABLE`` can still turn it on). The caller owns ``finalize``."""
+    verify dispatches), ``prefill``, ``preempt`` and ``recovery`` regions
+    this scheduler visits; None builds a null session (``TALP_ENABLE``
+    can still turn it on). The caller owns ``finalize``.
+    ``fault_injector``: a ``serve.faults.FaultInjector`` polled once a
+    tick, or None."""
 
-    def __init__(self, model, scfg: ServeConfig, session=None):
+    def __init__(self, model, scfg: ServeConfig, session=None, fault_injector=None):
         self.model, self.cfg, self.scfg = model, model.cfg, scfg
         self.device = model.device
+        if scfg.paged and scfg.max_len % scfg.page_size:
+            raise ValueError(
+                f"paged serving needs max_len ({scfg.max_len}) divisible by "
+                f"page_size ({scfg.page_size}) so the paged and dense layouts "
+                f"stay interchangeable"
+            )
         self.session = session if session is not None else PerfSession(
             SessionConfig(app_name="serve", backend="null")
         )
-        # observe the sampled tokens only: the pools are written in place
+        # observe the sampled tokens only: the caches are written in place
         # and never leave the card
         self.decode = self.session.wrap_step(
             self._decode_step, region="decode", derive=True,
-            observe=lambda out: {"outputs": out})
+            observe=lambda out: {"outputs": out[0]})
         self.prefill = self.session.wrap_step(
             self._prefill_step, region="prefill", derive=True,
-            observe=lambda out: {"outputs": out})
+            observe=lambda out: {"outputs": out[0]})
         # the batched verify shares the decode region: a speculative tick is
         # the decode tick, spec_k+1 tokens wide
         self.verify = None
@@ -517,22 +598,28 @@ class BatchScheduler:
         self._sample = functools.partial(
             _sample_tokens, greedy=scfg.greedy, temperature=scfg.temperature,
             top_k=scfg.top_k, vocab=self.cfg.vocab)
-        self._max_pages = scfg.max_len // scfg.page_size
-        n_pages = scfg.num_pages
-        if n_pages is None:
-            n_pages = scfg.batch * self._max_pages
-        self._alloc = PageAllocator(n_pages)
-        self._prefix = (
-            PrefixCache(scfg.page_size, self._alloc,
-                        capacity=scfg.prefix_trie_capacity)
-            if scfg.prefix_cache else None
-        )
-        self._tables = np.full((scfg.batch, self._max_pages), -1, np.int32)
+        # slot -> physical pages (empty on the dense layout)
         self._slot_pages: list[list[int]] = [[] for _ in range(scfg.batch)]
-        self._tables_dirty = True
-        self._tables_dev = None
-        self.caches = model.init_cache(scfg.batch, scfg.max_len,
-                                       page_size=scfg.page_size, num_pages=n_pages)
+        if scfg.paged:
+            self._max_pages = scfg.max_len // scfg.page_size
+            n_pages = scfg.num_pages
+            if n_pages is None:
+                n_pages = scfg.batch * self._max_pages
+            self._alloc: PageAllocator | None = PageAllocator(n_pages)
+            self._prefix = (
+                PrefixCache(scfg.page_size, self._alloc,
+                            capacity=scfg.prefix_trie_capacity)
+                if scfg.prefix_cache else None
+            )
+            self._tables = np.full((scfg.batch, self._max_pages), -1, np.int32)
+            self._tables_dirty = True
+            self._tables_dev = None
+            self.caches = model.init_cache(scfg.batch, scfg.max_len,
+                                           page_size=scfg.page_size, num_pages=n_pages)
+        else:
+            self._alloc = None
+            self._prefix = None
+            self.caches = model.init_cache(scfg.batch, scfg.max_len, paged=False)
         self.tokens = torch.zeros((scfg.batch, 1), dtype=torch.int32,
                                   device=self.device)
         # per-slot sampling key rows on the device; in sampled mode an attach
@@ -545,8 +632,8 @@ class BatchScheduler:
         self.pos = np.zeros(scfg.batch, np.int32)              # per-slot position
         self.completed: list[dict] = []
         self.cancelled: list[dict] = []
-        self.failed: list[dict] = []      # fatal pool pressure (unwound clean)
-        self._parked: list[dict] = []     # preempted, awaiting recompute-resume
+        self.failed: list[dict] = []      # fatal pool pressure or quarantine
+        self._parked: list[dict] = []     # preempted or retrying, to resume
         self._by_id: dict = {}            # request_id -> req (handles, cancel)
         self._seq = 0                     # admission order: FIFO within a class
         # recompute-resume: slot -> generated tokens still to re-feed through
@@ -556,11 +643,29 @@ class BatchScheduler:
         self._prefilling: list[dict | None] = [None] * scfg.batch
         # next-token seeds {slot: device scalar or int}, one scatter per tick
         self._seeds: dict[int, torch.Tensor | int] = {}
-        # pending readbacks: (device tokens (n,1), row -> request map)
-        self._pending: list[tuple[torch.Tensor, list[dict | None]]] = []
+        # pending readbacks: (device tokens (n,1), device sentinel (n,),
+        # row -> request map)
+        self._pending: list[tuple[torch.Tensor, torch.Tensor, list[dict | None]]] = []
         # speculative decode: each slot's next input token, on the host (the
         # accept counts come back every tick anyway)
         self._last_tok = np.zeros(scfg.batch, np.int32)
+        # -- fault injection and recovery ---------------------------------
+        self.faults = fault_injector
+        self.shed: list[dict] = []        # load-shed at admission
+        self._fault_nan_slots: set[int] = set()   # poison the next dispatch
+        # ids with a poisoned row dispatched but not flushed: not targeted
+        # again until the poison reaches the host
+        self._fault_nan_inflight: set = set()
+        self._fault_mask_zero = torch.zeros(scfg.batch, dtype=torch.bool, device=self.device)
+        # allocator spikes: (release tick, pages), released even after the
+        # injector drains and by drain(), so chaos never leaks pool pages
+        self._spike_holds: list[tuple[int, list[int]]] = []
+        self._hang_pending = 0.0          # injected dispatch delay (s)
+        self._hang_slot: int | None = None
+        # pages the injector filled with NaN: zeroed before they return to
+        # the free list (a recycled NaN page would poison its next owner)
+        self._corrupted_pages: set[int] = set()
+        self._corrupted_rows: set[int] = set()   # dense rows to zero on release
         self.stats = {
             "ticks": 0, "decode_steps": 0, "prefill_chunks": 0, "readbacks": 0,
             # ticks with a prefill in flight beside >= 1 decoding slot, and
@@ -570,6 +675,9 @@ class BatchScheduler:
             "preemptions": 0, "resumes": 0, "cancellations": 0,
             "pages_freed_by_preempt": 0, "evictions_for_preempt": 0,
             "peak_queue_depth": 0,
+            # recovery accounting (kv_cache_stats()["recovery"])
+            "retries": 0, "backoff_total_ticks": 0, "quarantined": 0,
+            "shed": 0, "checksum_failures": 0, "watchdog_trips": 0,
             # speculation (kv_cache_stats()["speculation"]): drafted, accepted
             # and rejected count draft tokens only; spec_emitted new tokens
             # (replayed history excluded)
@@ -579,28 +687,49 @@ class BatchScheduler:
 
     # -- the dispatched steps (wrapped by the session) ----------------------
 
-    def _decode_step(self, tokens, pos, active, tables, keys) -> torch.Tensor:
+    def _poison_and_sample(self, logits, fault_mask, keys, pos):
+        """NaN into the masked rows' logits (a select: an all-False mask
+        changes nothing), the sentinel ``bad`` (N,) = any non-finite logit
+        in the row, computed on the device, and the sampled tokens."""
+        logits = torch.where(fault_mask[:, None], torch.full((), float("nan"),
+                             dtype=logits.dtype, device=logits.device), logits)
+        bad = ~torch.isfinite(logits).all(dim=-1)
+        return self._sample(logits, keys, pos), bad
+
+    def _decode_step(self, tokens, pos, active, tables, keys, fault_mask):
+        """One token a slot; returns (tokens (B,1), bad (B,))."""
         logits = self.model.decode_step(tokens, pos, self.caches, active=active,
                                         block_tables=tables)
-        return self._sample(logits, keys, pos)[:, None]
+        tok, bad = self._poison_and_sample(logits, fault_mask, keys, pos)
+        return tok[:, None], bad
 
-    def _prefill_step(self, chunk, start, length, tables, keys) -> torch.Tensor:
-        """One chunk at ``start``; samples at its last valid position."""
-        logits = self.model.prefill_chunk(chunk, self.caches, start, length, tables)
-        return self._sample(logits, keys, start + length - 1)
+    def _prefill_step(self, chunk, start, length, tables, keys, slot):
+        """One chunk at ``start`` into ``slot`` (its table row when paged,
+        its cache row when dense); samples at its last valid position.
+        Returns (token (1,), bad (1,))."""
+        logits = self.model.prefill_chunk(chunk, self.caches, start, length, tables,
+                                          slot=slot)
+        bad = ~torch.isfinite(logits).all(dim=-1)
+        return self._sample(logits, keys, start + length - 1), bad
 
-    def _verify_step(self, tokens, start, length, tables, keys):
+    def _verify_step(self, tokens, start, length, tables, keys, fault_mask):
         """The batched speculative verify: row b is ``[last token, drafts..]``
         (B,C) at ``start[b]``, ``length[b]`` valid tokens (0: an idle slot,
         nothing written). One ``prefill_chunk`` with every position's
         logits; each position sampled as a decode step there would be.
         Returns (out (B,C) int32, the verified token at each position;
         accept (B,) int32, the accepted drafts: the longest prefix with
-        ``out[:, i] == tokens[:, i+1]`` within ``length - 1``)."""
+        ``out[:, i] == tokens[:, i+1]`` within ``length - 1``; bad (B,), a
+        non-finite logit at a valid position of the row, after the
+        ``fault_mask`` rows are poisoned)."""
         B, C = tokens.shape
         logits = self.model.prefill_chunk(tokens, self.caches, start, length, tables,
                                           all_logits=True)  # (B,C,V)
+        logits = torch.where(fault_mask[:, None, None], torch.full(
+            (), float("nan"), dtype=logits.dtype, device=logits.device), logits)
         offs = torch.arange(C, dtype=torch.int32, device=tokens.device)[None, :]
+        valid = offs < length[:, None]
+        bad = (~torch.isfinite(logits).all(dim=-1) & valid).any(dim=1)
         positions = start[:, None] + offs
         if not self.scfg.greedy:
             keys = keys.repeat_interleave(C, dim=0)
@@ -608,7 +737,7 @@ class BatchScheduler:
                            positions.reshape(-1)).reshape(B, C)
         match = (out[:, :-1] == tokens[:, 1:]) & (offs[:, :C - 1] < (length - 1)[:, None])
         accept = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
-        return out, accept
+        return out, accept, bad
 
     # -- admission ---------------------------------------------------------
 
@@ -617,7 +746,10 @@ class BatchScheduler:
         """Queue a request; returns its ``RequestHandle`` at once. Higher
         ``priority`` is admitted first (FIFO within a class) and may preempt
         strictly lower-priority work. Raises ValueError for a request that
-        can never fit: the last decode writes position prompt+max_new-2."""
+        can never fit: the last decode writes position prompt+max_new-2.
+        With more than ``shed_queue_depth`` requests queued, the
+        lowest-priority youngest waiter (maybe this one) is shed: its handle
+        reads ``shed`` at once, nothing raises."""
         prompt = [int(t) for t in prompt_tokens]
         if max_new < 1:
             raise ValueError(f"request {request_id!r}: max_new must be >= 1")
@@ -629,7 +761,7 @@ class BatchScheduler:
                 f"max_len={self.scfg.max_len}"
             )
         pages = -(-need // self.scfg.page_size)
-        if pages > self._alloc.num_pages:
+        if self._alloc is not None and pages > self._alloc.num_pages:
             raise ValueError(
                 f"request {request_id!r} needs {pages} page(s) (prompt "
                 f"{len(prompt)}, max_new {max_new}, page_size "
@@ -641,11 +773,19 @@ class BatchScheduler:
                "generated": [], "_pending": 0, "priority": int(priority),
                "_seq": self._seq, "_tag": _request_tag(request_id),
                "_status": "queued", "_cancelled": False,
-               "_not_before": 0,
+               "_retries": 0, "_not_before": 0,
                "t_submit": time.perf_counter(), "t_first_token": None}
         self._seq += 1
         self.queue.append(req)
         self._by_id[request_id] = req
+        if (self.scfg.shed_queue_depth is not None
+                and len(self.queue) > self.scfg.shed_queue_depth):
+            victim = min(self.queue, key=lambda r: (r["priority"], -r["_seq"]))
+            self.queue.remove(victim)
+            victim["_status"] = "shed"
+            self.shed.append(victim)
+            self.stats["shed"] += 1
+            self.session.event("recovery")
         self.stats["peak_queue_depth"] = max(
             self.stats["peak_queue_depth"], len(self.queue) + len(self._parked))
         return RequestHandle(self, req)
@@ -769,11 +909,13 @@ class BatchScheduler:
         return None
 
     def _ready(self, req: dict) -> bool:
-        """A parked request stays parked until its ``_not_before`` tick (0
-        here; fault recovery's retry backoff will set it)."""
+        """Retry backoff gate: a retrying request stays parked until its
+        ``_not_before`` tick (set by ``_fault_retry``)."""
         return req["_not_before"] <= self.stats["ticks"]
 
     def _resume_fits(self, req) -> bool:
+        if self._alloc is None:
+            return True
         need = len(req["prompt"]) + max(len(req["generated"]), 1)
         need = -(-need // self.scfg.page_size)
         avail = self._alloc.free_pages
@@ -786,8 +928,10 @@ class BatchScheduler:
         pressure (the request goes back where it came from, unwound). A
         request with generated history is a recompute-resume: the prompt
         re-prefills on the normal chunk grid and the history is scheduled
-        for decode replay."""
-        resume = req["_status"] == "preempted"
+        for decode replay. A retrying request (fault recovery) takes the
+        same path: its clean history replays, the faulted suffix
+        recomputes."""
+        resume = req["_status"] in ("preempted", "retrying")
         self.pos[slot] = 0
         if not self.scfg.greedy:
             # the slot's key row becomes the request's key, so a resumed
@@ -848,6 +992,8 @@ class BatchScheduler:
         prompt = req["prompt"]
         psize = self.scfg.page_size
         chain, donor, donor_rows = self._prefix.match(prompt)
+        if self.scfg.checksum_pages:
+            chain, donor, donor_rows = self._verify_chain(chain, donor, donor_rows)
         st = self._prefix.stats
         use = min(len(chain) * psize + donor_rows, len(prompt) - 1)
         if use <= 0:
@@ -877,6 +1023,29 @@ class BatchScheduler:
         st["prefill_tokens_skipped"] += use
         st["pages_shared"] += n_full
         return use
+
+    def _verify_chain(self, chain, donor, donor_rows):
+        """Per-page checksums at sharing time: recompute each matched page's
+        fingerprint and compare it with the one recorded at insert. A
+        mismatch (a flipped bit stays finite, so the sentinel cannot see
+        it) evicts the node's subtree and cuts the match before it: the
+        request prefills those tokens afresh and nobody matches them
+        again."""
+        for j, node in enumerate(chain):
+            if node.checksum is None:
+                continue
+            if F.page_fingerprint(self.caches, node.page) != node.checksum:
+                self.stats["checksum_failures"] += 1
+                self._prefix.evict_subtree(node)
+                self.session.event("recovery")
+                return chain[:j], None, 0
+        if donor is not None and donor.checksum is not None:
+            if F.page_fingerprint(self.caches, donor.page) != donor.checksum:
+                self.stats["checksum_failures"] += 1
+                self._prefix.evict_subtree(donor)
+                self.session.event("recovery")
+                donor, donor_rows = None, 0
+        return chain, donor, donor_rows
 
     def _cow_copy(self, src: int, dst: int) -> None:
         """Copy physical page ``src`` to ``dst`` in every attention slot's K
@@ -965,7 +1134,7 @@ class BatchScheduler:
         if req is None:
             return  # the flush retired it
         with self.session.region("preempt"):
-            freed = len(self._slot_pages[slot])
+            freed = len(self._slot_pages[slot])  # 0 on the dense layout
             self._detach(slot)
             req["_status"] = "preempted"
             self._parked.append(req)
@@ -986,6 +1155,185 @@ class BatchScheduler:
         raise RuntimeError(
             f"{e.msg} [kv_cache_stats: {self.kv_cache_stats()}]"
         ) from None
+
+    # -- fault recovery (retry, quarantine, injection) -----------------------
+
+    def _fault_retry(self, req: dict, poisoned: bool = False) -> None:
+        """Flush (the history must be on the host: resume replays it),
+        detach the request (pages freed, NaN storage scrubbed on the way)
+        and park it until ``min(cap, base << (retries-1))`` ticks from now.
+        The re-attach is a recompute-resume, so the stream equals a
+        fault-free run's; past ``max_retries`` the request is quarantined.
+        ``poisoned``: the sentinel flagged it (see ``_mark_poisoned``)."""
+        if poisoned:
+            self._mark_poisoned(req)
+        self._flush()
+        if req["_status"] in _TERMINAL or (
+            req["_status"] == "retrying" and req in self._parked
+        ):
+            return  # already resolved, or already parked for a retry
+        if req["_retries"] >= self.scfg.max_retries:
+            self._quarantine(req)
+            return
+        self._unplace(req)
+        req["_retries"] += 1
+        backoff = min(self.scfg.retry_backoff_cap,
+                      self.scfg.retry_backoff_base << (req["_retries"] - 1))
+        req["_not_before"] = self.stats["ticks"] + backoff
+        req["_status"] = "retrying"
+        self._parked.append(req)
+        self.stats["retries"] += 1
+        self.stats["backoff_total_ticks"] += backoff
+        self.session.event("recovery")
+
+    def _quarantine(self, req: dict) -> None:
+        """Retries spent: terminal ``failed``, pages freed, neighbours
+        untouched."""
+        self._unplace(req)
+        req["_status"] = "failed"
+        self.failed.append(req)
+        self.stats["quarantined"] += 1
+        self.session.event("recovery")
+
+    def _unplace(self, req: dict) -> None:
+        """Take ``req`` out of its slot, the queue or the parked set."""
+        slot = self._slot_of(req)
+        if slot is not None:
+            self._detach(slot)
+        elif req in self.queue:
+            self.queue.remove(req)
+        elif req in self._parked:
+            self._parked.remove(req)
+
+    def _mark_poisoned(self, req: dict) -> None:
+        """A request the sentinel flagged may have read a NaN, and then
+        wrote NaN K/V at every position since, in its own pages (or dense
+        row), not only in the page the injector hit. Its private storage
+        (pages no one else holds) is marked for the scrub on release: a
+        recycled page's unwritten tail is read masked, and 0 * NaN would
+        poison the next owner, who would poison the next (the JAX package
+        scrubs only the injected pages; ROADMAP.md Queue 3)."""
+        slot = self._slot_of(req)
+        if slot is None:
+            return
+        if self._alloc is None:
+            self._corrupted_rows.add(slot)
+        else:
+            self._corrupted_pages.update(
+                p for p in self._slot_pages[slot] if self._alloc.refs.get(p) == 1)
+
+    def _scrub_slot(self, slot: int) -> None:
+        """Zero, on the device, every NaN page ``slot`` still maps (or its
+        dense row), before its storage is reused: the free list recycles
+        pages as they are, and masked attention products carry a NaN even
+        from a masked key (0 * NaN), in the plain versions and in a kernel
+        tile that holds a visible key."""
+        if slot in self._corrupted_rows:
+            self._corrupted_rows.discard(slot)
+            for cache in self.caches.values():
+                for rows in cache["attn"].values():
+                    rows[:, slot].zero_()
+        dirty = [p for p in self._slot_pages[slot] if p in self._corrupted_pages]
+        if dirty:
+            F.page_edit(self.caches, dirty, "zero")
+            self._corrupted_pages.difference_update(dirty)
+
+    def _apply_faults(self) -> None:
+        """Release expired allocator spikes and apply the injector's due
+        events. An event without a target this tick is deferred; targets
+        come from the event's seeded picks, so a rerun hits the same
+        victims."""
+        tick = self.stats["ticks"]
+        if self._spike_holds:
+            expired = [h for h in self._spike_holds if h[0] <= tick]
+            if expired:
+                self._spike_holds = [h for h in self._spike_holds if h[0] > tick]
+                for _, pages in expired:
+                    self._alloc.release(pages)
+        if self.faults is None:
+            return
+        for e in self.faults.due(tick):
+            if e.kind == "nan":
+                cand = self._fault_decode_slots(e.request_id)
+                if not cand:
+                    self.faults.defer(e, tick)
+                    continue
+                victim = cand[e.pick % len(cand)]
+                if victim in self._fault_nan_slots:
+                    # two NaNs in one dispatch read as one: every injection
+                    # poisons a dispatch of its own
+                    self.faults.defer(e, tick)
+                    continue
+                self._fault_nan_slots.add(victim)
+                self.faults.record(e.kind)
+            elif e.kind == "hang":
+                cand = self._fault_decode_slots(e.request_id)
+                if not cand:
+                    self.faults.defer(e, tick)
+                    continue
+                self._hang_slot = cand[e.pick % len(cand)]
+                self._hang_pending = self.faults.fcfg.hang_s
+                self.faults.record(e.kind)
+            elif e.kind == "alloc_spike":
+                if self._alloc is None or self._alloc.free_pages == 0:
+                    self.faults.defer(e, tick)
+                    continue
+                n = min(self.faults.fcfg.spike_pages, self._alloc.free_pages)
+                pages = self._alloc.alloc(n, owner="fault-injector")
+                self._spike_holds.append((tick + self.faults.fcfg.spike_ticks, pages))
+                self.faults.record(e.kind)
+            elif e.kind == "page_corrupt":
+                if self._alloc is None:
+                    continue  # the dense layout has no pages: dropped
+                mode = self.faults.fcfg.corrupt_mode
+                cand = self._fault_page_candidates(mode, e.request_id)
+                if not cand:
+                    self.faults.defer(e, tick)
+                    continue
+                page = cand[e.pick2 % len(cand)]
+                F.page_edit(self.caches, page, mode)
+                if mode == "nan":
+                    # flipped bits stay finite and are overwritten or masked
+                    # for the next owner; a NaN page needs a scrub
+                    self._corrupted_pages.add(page)
+                self.faults.record(e.kind)
+
+    def _fault_decode_slots(self, request_id) -> list[int]:
+        """Slots a nan or hang fault can target: decoding, not replaying (a
+        replayed row's output is discarded), not already poisoned in
+        flight, and the pinned request's if ``request_id`` is set."""
+        return [
+            s for s in range(self.scfg.batch)
+            if (r := self.active[s]) is not None
+            and r["_status"] == "decoding"
+            and s not in self._replay
+            and r["id"] not in self._fault_nan_inflight
+            and (request_id is None or r["id"] == request_id)
+        ]
+
+    def _fault_page_candidates(self, mode: str, request_id) -> list[int]:
+        """Pages a corruption can hit. ``nan``: an unshared page of a
+        decoding slot (its partly written last page included), which the
+        victim's own sentinel reads next. ``bitflip``: a trie page no slot
+        maps (the trie's pin only), which only a checksum catches."""
+        if mode == "nan":
+            return [
+                p
+                for s in self._fault_decode_slots(request_id)
+                for p in self._slot_pages[s]
+                if self._alloc.refs.get(p) == 1
+            ]
+        if self._prefix is None:
+            return []
+        mapped = {p for pages in self._slot_pages for p in pages}
+        cand = []
+        stack = list(self._prefix.root.children.values())
+        while stack:
+            node = stack.pop()
+            if node.page not in mapped and self._alloc.refs.get(node.page) == 1:
+                cand.append(node.page)
+            stack.extend(node.children.values())
+        return sorted(cand)
 
     # -- paged-pool bookkeeping ----------------------------------------------
 
@@ -1011,8 +1359,11 @@ class BatchScheduler:
                 if (occ := self._occupant(s)) is not None and occ is not req
             )
             reclaim = self._prefix.reclaimable() if self._prefix is not None else 0
-            fatal = (self.scfg.preempt_policy == "never"
-                     or (not others_hold and reclaim == 0))
+            # pages an allocator spike holds come back in a few ticks: park
+            # and wait, never fatal
+            fatal = not self._spike_holds and (
+                self.scfg.preempt_policy == "never"
+                or (not others_hold and reclaim == 0))
             raise _PoolPressure(
                 fatal,
                 f"paged KV pool exhausted: request {req['id']!r} needs {n} "
@@ -1026,7 +1377,10 @@ class BatchScheduler:
     def _ensure_pages(self, slot: int, last_pos: int, req: dict) -> None:
         """Back position ``last_pos`` of ``slot`` with a page, one page at a
         time (each with the full escalation). Under pressure the pages
-        already taken are unwound before ``_PoolPressure`` propagates."""
+        already taken are unwound before ``_PoolPressure`` propagates. A
+        no-op on the dense layout."""
+        if self._alloc is None:
+            return
         need = last_pos // self.scfg.page_size + 1
         have = len(self._slot_pages[slot])
         if need <= have:
@@ -1048,6 +1402,8 @@ class BatchScheduler:
             raise
 
     def _release_slot_pages(self, slot: int) -> None:
+        if self._corrupted_pages or self._corrupted_rows:
+            self._scrub_slot(slot)
         if not self._slot_pages[slot]:
             return
         self._alloc.release(self._slot_pages[slot])
@@ -1055,36 +1411,41 @@ class BatchScheduler:
         self._tables[slot, :] = -1
         self._tables_dirty = True
 
-    def _tables_device(self) -> torch.Tensor:
-        """Device mirror of the block tables, uploaded only after a change.
-        ``-1`` entries go up intact: readers stop at cache_len and writers
-        send them to the spare page."""
+    def _tables_device(self) -> torch.Tensor | None:
+        """Device mirror of the block tables, uploaded only after a change
+        (None on the dense layout). ``-1`` entries go up intact: readers
+        stop at cache_len and writers send them to the spare page."""
+        if self._alloc is None:
+            return None
         if self._tables_dirty:
             self._tables_dev = _upload(self._tables, self.device)
             self._tables_dirty = False
         return self._tables_dev
 
     def kv_cache_stats(self) -> dict:
-        """Pool bytes as allocated (including each layer's spare page),
-        pages, the live-page peak, sharing, the prefix cache, pressure, and
-        the recovery counters (all 0: fault recovery is not ported)."""
+        """KV bytes as allocated (each layer's spare page or spare row
+        included); on the paged layout pages, the live-page peak and
+        sharing; the prefix cache, pressure, the recovery counters (and the
+        injector's, when one is attached) and speculation."""
         kv_bytes = sum(
             t.numel() * t.element_size()
             for slot in self.caches.values() for t in slot["attn"].values()
         )
+        out = {"layout": "paged" if self.scfg.paged else "dense",
+               "kv_bytes": int(kv_bytes)}
         alloc = self._alloc
-        per_page = kv_bytes / (alloc.num_pages + 1)
-        out = {
-            "layout": "paged", "kv_bytes": int(kv_bytes),
-            "page_size": self.scfg.page_size,
-            "num_pages": alloc.num_pages,
-            "pages_in_use": alloc.used,
-            "peak_used_pages": alloc.peak_used,
-            "peak_live_kv_bytes": int(alloc.peak_used * per_page),
-            "pool_utilization": round(alloc.peak_used / max(alloc.num_pages, 1), 4),
-            "refcounted_pages": len(alloc.refs),
-            "shared_pages": alloc.shared_pages,
-        }
+        if alloc is not None:
+            per_page = kv_bytes / (alloc.num_pages + 1)
+            out.update({
+                "page_size": self.scfg.page_size,
+                "num_pages": alloc.num_pages,
+                "pages_in_use": alloc.used,
+                "peak_used_pages": alloc.peak_used,
+                "peak_live_kv_bytes": int(alloc.peak_used * per_page),
+                "pool_utilization": round(alloc.peak_used / max(alloc.num_pages, 1), 4),
+                "refcounted_pages": len(alloc.refs),
+                "shared_pages": alloc.shared_pages,
+            })
         if self._prefix is not None:
             st = self._prefix.stats
             lookups = st["hits"] + st["misses"]
@@ -1108,7 +1469,9 @@ class BatchScheduler:
         }
         out["pressure"]["queued"] = len(self.queue)
         out["pressure"]["parked"] = len(self._parked)
-        out["recovery"] = dict.fromkeys(_RECOVERY_KEYS, 0)
+        out["recovery"] = {k: self.stats[k] for k in _RECOVERY_KEYS}
+        if self.faults is not None:
+            out["recovery"]["injected"] = dict(self.faults.counters)
         # speculation (present whether or not it ran): acceptance_rate is the
         # share of drafts kept, tokens_per_dispatch the end-to-end gain
         drafted = self.stats["spec_drafted"]
@@ -1131,7 +1494,8 @@ class BatchScheduler:
 
     def _dispatch_prefill_chunk(self) -> None:
         """One chunk of the oldest in-flight prefill (no host sync, unless
-        pool pressure preempts)."""
+        pool pressure preempts, checksums are recorded, or speculation
+        reads the first token back)."""
         task = self._prefills[0]
         C = self.scfg.prefill_chunk
         prompt, start, slot, req = task["prompt"], task["done"], task["slot"], task["req"]
@@ -1144,15 +1508,25 @@ class BatchScheduler:
             self._handle_pressure(slot, e)
             return
         tables = self._tables_device()
-        next_tok = self.prefill(_upload(chunk, self.device), start, L,
-                                tables[slot:slot + 1], self.rng_keys[slot:slot + 1])  # (1,)
+        next_tok, bad = self.prefill(
+            _upload(chunk, self.device), start, L,
+            None if tables is None else tables[slot:slot + 1],
+            self.rng_keys[slot:slot + 1], slot)  # (1,), (1,)
         task["done"] = start + L
         self.stats["prefill_chunks"] += 1
         if task["done"] < len(prompt):
             return
         # the prompt's last chunk: next_tok is the first generated token
         if self._prefix is not None:
-            self._prefix.insert(req["prompt"], self._slot_pages[slot])
+            # the prompt's full pages enter the trie; with checksum_pages
+            # each is fingerprinted now (decode writes land past the prompt)
+            pages = self._slot_pages[slot]
+            if self.scfg.checksum_pages:
+                n_full = len(req["prompt"]) // self.scfg.page_size
+                self._prefix.insert(req["prompt"], pages, checksums=[
+                    F.page_fingerprint(self.caches, p) for p in pages[:n_full]])
+            else:
+                self._prefix.insert(req["prompt"], pages)
         self._prefills.remove(task)
         self._prefilling[slot] = None
         self.active[slot] = req
@@ -1171,8 +1545,14 @@ class BatchScheduler:
         elif self.scfg.spec_decode:
             # speculation reads back every tick anyway: the first token comes
             # to the host now (the TTFT point) and is the next verify's input
-            tok = int(next_tok.cpu()[0])
+            tok, is_bad = torch.cat([next_tok, bad.to(torch.int32)]).cpu().tolist()
             self.stats["readbacks"] += 1
+            if is_bad:
+                # a poisoned prefill emitted nothing: retry from the empty
+                # clean history
+                self._fault_nan_inflight.discard(req["id"])
+                self._fault_retry(req, poisoned=True)
+                return
             req["generated"].append(tok)
             req["t_first_token"] = time.perf_counter()
             self._last_tok[slot] = tok
@@ -1181,7 +1561,7 @@ class BatchScheduler:
                 self._retire(slot, req)
         else:
             req["_pending"] += 1
-            self._pending.append((next_tok.reshape(1, 1), [req]))
+            self._pending.append((next_tok.reshape(1, 1), bad.reshape(1), [req]))
             self._seeds[slot] = next_tok[0]
 
     def _apply_seeds(self) -> None:
@@ -1200,11 +1580,49 @@ class BatchScheduler:
             (slots, torch.zeros_like(slots)), toks
         )
 
+    def _fault_mask(self, decoding: list[dict | None]) -> torch.Tensor:
+        """This dispatch's injected poison: the masked slots' logits become
+        NaN ahead of the sentinel (all False on every other tick)."""
+        if not self._fault_nan_slots:
+            return self._fault_mask_zero
+        m = np.zeros(self.scfg.batch, bool)
+        m[list(self._fault_nan_slots)] = True
+        for s in self._fault_nan_slots:
+            if decoding[s] is not None:
+                self._fault_nan_inflight.add(decoding[s]["id"])
+        self._fault_nan_slots.clear()
+        return _upload(m, self.device)
+
+    def _hang(self) -> None:
+        """An injected dispatch hang (a wedged host thread): burn wall time
+        where the watchdog measures it."""
+        if self._hang_pending:
+            time.sleep(self._hang_pending)
+            self._hang_pending = 0.0
+
+    def _watchdog(self, dispatch_s: float) -> None:
+        """A dispatch call past ``watchdog_deadline_s``: count the trip and
+        retry the hung slot's request (its late tokens are kept)."""
+        if (self.scfg.watchdog_deadline_s is None
+                or dispatch_s <= self.scfg.watchdog_deadline_s):
+            return
+        self.stats["watchdog_trips"] += 1
+        self.session.event("recovery")
+        victim, self._hang_slot = self._hang_slot, None
+        req = self.active[victim] if victim is not None else None
+        if req is not None and req["_status"] not in _TERMINAL:
+            self._fault_retry(req)
+
     def _decode(self, decoding: list[dict | None], chunks_at_tick_start: int) -> None:
         active = np.asarray([r is not None for r in decoding])
-        self.tokens = self.decode(
+        fault_mask = self._fault_mask(decoding)
+        t0 = time.perf_counter()
+        self._hang()
+        self.tokens, bad = self.decode(
             self.tokens, _upload(self.pos, self.device),
-            _upload(active, self.device), self._tables_device(), self.rng_keys)
+            _upload(active, self.device), self._tables_device(), self.rng_keys,
+            fault_mask)
+        dispatch_s = time.perf_counter() - t0
         self.stats["decode_steps"] += 1
         if self.stats["prefill_chunks"] > chunks_at_tick_start:
             self.stats["decode_after_prefill_ticks"] += 1
@@ -1213,10 +1631,11 @@ class BatchScheduler:
         # discard it (None row, no _pending) instead of counting it twice
         reqmap = [None if (r is not None and s in self._replay) else r
                   for s, r in enumerate(decoding)]
-        self._pending.append((self.tokens, reqmap))
+        self._pending.append((self.tokens, bad, reqmap))
         for req in reqmap:
             if req is not None:
                 req["_pending"] += 1
+        self._watchdog(dispatch_s)
         # the popped history token overrides the sampled output as the next
         # input; once the list empties, the next output is new and kept
         for slot in list(self._replay):
@@ -1229,27 +1648,43 @@ class BatchScheduler:
     # -- readback ---------------------------------------------------------------
 
     def _flush(self) -> None:
-        """Bring every pending token to the host in one transfer; retire
-        requests at their budget or at EOS (tokens past EOS are dropped).
-        Rows of cancelled requests are dropped."""
+        """Bring every pending token, and the sentinel beside it, to the
+        host in one transfer; retire requests at their budget or at EOS
+        (tokens past EOS are dropped). Rows of cancelled requests are
+        dropped. A flagged row's token is garbage: it is dropped, with every
+        later row of its request in this flush, and the request retries."""
         if not self._pending:
             return
         pending, self._pending = self._pending, []
-        host = torch.cat([t.reshape(-1) for t, _ in pending]).cpu().numpy()
+        host = torch.cat([t for toks, bad, _ in pending
+                          for t in (toks.reshape(-1), bad.reshape(-1).to(torch.int32))]
+                         ).cpu().numpy()
         self.stats["readbacks"] += 1
         now = time.perf_counter()
+        poisoned: list[dict] = []
+        poisoned_ids: set = set()
         i = 0
-        for _, reqmap in pending:
+        for _, _, reqmap in pending:
+            n = len(reqmap)
+            toks, bad = host[i:i + n], host[i + n:i + 2 * n]
+            i += 2 * n
             for row, req in enumerate(reqmap):
                 if req is None:
                     continue
                 req["_pending"] -= 1
+                if bad[row]:
+                    # the poison reached the host: targetable again
+                    self._fault_nan_inflight.discard(req["id"])
                 if req["_cancelled"]:
                     continue
-                req["generated"].append(int(host[i + row]))
+                if bad[row] or req["id"] in poisoned_ids:
+                    if req["id"] not in poisoned_ids:
+                        poisoned_ids.add(req["id"])
+                        poisoned.append(req)
+                    continue
+                req["generated"].append(int(toks[row]))
                 if req["t_first_token"] is None:
                     req["t_first_token"] = now
-            i += len(reqmap)
         eos = self.scfg.eos_id
         for slot, req in enumerate(self.active):
             if req is None:
@@ -1262,6 +1697,10 @@ class BatchScheduler:
             if done:
                 del gen[req["max_new"]:]
                 self._retire(slot, req)
+        # a poisoned request cannot be done (its bad rows were not kept)
+        for req in poisoned:
+            if req["_status"] not in _TERMINAL:
+                self._fault_retry(req, poisoned=True)
 
     def _retire(self, slot: int, req: dict) -> None:
         req["_status"] = "done"
@@ -1329,19 +1768,33 @@ class BatchScheduler:
             chunk[slot, 0] = self._last_tok[slot]
             chunk[slot, 1:1 + len(drafts)] = drafts
             length[slot] = 1 + len(drafts)
-        out_dev, acc_dev = self.verify(
+        fault_mask = self._fault_mask(decoding)
+        t0 = time.perf_counter()
+        self._hang()
+        out_dev, acc_dev, bad_dev = self.verify(
             _upload(chunk, self.device), _upload(self.pos, self.device),
-            _upload(length, self.device), self._tables_device(), self.rng_keys)
+            _upload(length, self.device), self._tables_device(), self.rng_keys,
+            fault_mask)
+        dispatch_s = time.perf_counter() - t0
         self.stats["decode_steps"] += 1
         self.stats["spec_dispatches"] += 1
         if self.stats["prefill_chunks"] > chunks_at_tick_start:
             self.stats["decode_after_prefill_ticks"] += 1
-        host = torch.cat([out_dev.reshape(-1), acc_dev]).cpu().numpy()
+        host = torch.cat([out_dev.reshape(-1), acc_dev,
+                          bad_dev.to(torch.int32)]).cpu().numpy()
         self.stats["readbacks"] += 1
-        out, acc = host[:B * C].reshape(B, C), host[B * C:]
+        out, acc, bad = host[:B * C].reshape(B, C), host[B * C:B * C + B], host[B * C + B:]
+        poisoned: list[dict] = []
         eos = self.scfg.eos_id
         for slot, plan in plans.items():
             req = decoding[slot]
+            if bad[slot]:
+                # a poisoned verify commits nothing for the slot (pos and
+                # replay untouched): the whole window recomputes on retry
+                self._fault_nan_inflight.discard(req["id"])
+                if not req["_cancelled"]:
+                    poisoned.append(req)
+                continue
             n_acc = int(acc[slot])
             emitted = [int(t) for t in out[slot, :n_acc + 1]]
             self.pos[slot] += n_acc + 1
@@ -1370,6 +1823,10 @@ class BatchScheduler:
                 done = True
             if done:
                 self._retire(slot, req)
+        self._watchdog(dispatch_s)
+        for req in poisoned:
+            if req["_status"] not in _TERMINAL:
+                self._fault_retry(req, poisoned=True)
 
     # -- the tick -------------------------------------------------------------
 
@@ -1379,6 +1836,8 @@ class BatchScheduler:
         chunk. Returns the number of busy slots."""
         self.stats["ticks"] += 1
         self._attach()
+        if self.faults is not None or self._spike_holds:
+            self._apply_faults()
         chunks_at_tick_start = self.stats["prefill_chunks"]
         if not self.scfg.overlap:
             while self._prefills:
@@ -1427,13 +1886,17 @@ class BatchScheduler:
                 + [t["req"] for t in self._prefills])
         # prefill chunks + decode budget per request, with headroom for
         # preemption and replay rounds (bounded: the oldest highest-priority
-        # request always makes progress)
-        rounds = len(live) + 2
+        # request always makes progress), every request's retries with
+        # their backoff, and the injector's spikes
+        rounds = len(live) + 2 + self.scfg.max_retries
         budget = 64 + rounds * sum(
             r["max_new"] + len(r["prompt"]) // self.scfg.prefill_chunk
             + len(r["prompt"]) + 1
             for r in live
         )
+        budget += len(live) * self.scfg.max_retries * (self.scfg.retry_backoff_cap + 1)
+        if self.faults is not None:
+            budget += 64 + self.faults.fcfg.spike_ticks * (self.faults.fcfg.n_alloc_spike + 1)
         ticks = 0
         while (self.queue or self._parked or self._prefills
                or any(r is not None for r in self.active)):
@@ -1448,3 +1911,9 @@ class BatchScheduler:
                     f"[kv_cache_stats: {self.kv_cache_stats()}]"
                 )
         self._flush()
+        if self._spike_holds:
+            # the work ended while a spike still held pages: give them back,
+            # so a chaos run ends with no page in use like any other
+            for _, pages in self._spike_holds:
+                self._alloc.release(pages)
+            self._spike_holds = []

@@ -18,9 +18,10 @@ workload does not slow down when the server falls behind):
 :func:`replay` drives a ``BatchScheduler`` through a workload (submits at
 arrival ticks, fires scheduled cancellations, runs to quiescence) inside
 the session's ``traffic`` region, and reports goodput, TTFT percentiles,
-queue depth and the scheduler's pressure counters under the JAX
-package's keys. ``shed`` and ``recovery`` are 0: load shedding and fault
-recovery are not ported.
+queue depth, the scheduler's pressure counters, the requests shed and the
+recovery counters under the JAX package's keys. ``replay(...,
+faults=injector)`` composes a seeded fault schedule with the seeded
+workload (chaos mode).
 """
 
 from __future__ import annotations
@@ -142,14 +143,21 @@ def _percentile(sorted_vals: list[float], q: float) -> float:
 
 
 def replay(sched, workload: list[TrafficRequest], *,
-           max_ticks: int | None = None) -> dict:
+           max_ticks: int | None = None, faults=None) -> dict:
     """Drive ``sched`` through ``workload`` and measure it.
 
     Open loop: request ``r`` is submitted at the top of tick
     ``r.arrival_tick`` however far behind the server is, and scheduled
     cancellations fire at their tick whether or not the stream attached.
     After the last arrival the scheduler runs to quiescence (``drain``).
-    Goodput counts only tokens of requests that completed."""
+    Goodput counts only tokens of requests that completed.
+
+    ``faults``: a ``serve.faults.FaultInjector`` attached to the scheduler
+    for the replay; the same (TrafficConfig, FaultConfig) pair replays the
+    same streams, and the budget grows by the retries' recompute and the
+    spikes' stalls."""
+    if faults is not None:
+        sched.faults = faults
     workload = sorted(workload, key=lambda r: (r.arrival_tick, r.request_id))
     cancels = sorted(
         (r.cancel_tick, r.request_id) for r in workload if r.cancel_tick is not None
@@ -158,6 +166,10 @@ def replay(sched, workload: list[TrafficRequest], *,
     budget = max_ticks if max_ticks is not None else (
         horizon + 64 + 4 * sum(r.max_new + len(r.prompt) for r in workload)
     )
+    if faults is not None and max_ticks is None:
+        budget += sum(
+            (r.max_new + len(r.prompt)) * sched.scfg.max_retries for r in workload
+        ) + faults.fcfg.spike_ticks * (faults.fcfg.n_alloc_spike + 1)
     submit_t: dict[int, float] = {}
     ttft: dict[int, float] = {}
     depths: list[int] = []
@@ -207,7 +219,7 @@ def replay(sched, workload: list[TrafficRequest], *,
         "completed": len(sched.completed),
         "cancelled": len(sched.cancelled),
         "failed": len(sched.failed),
-        "shed": 0,
+        "shed": len(sched.shed),
         "ticks": tick,
         "wall_s": round(wall, 4),
         "good_tokens": good_tokens,

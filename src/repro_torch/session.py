@@ -25,6 +25,7 @@ Surface:
                                   ``derive=True``) and per call: enter the
                                   region, execute, observe the step
   session.observe_step(...)       manual per-step observation
+  session.event(name, ...)        one visit of ``name`` for a sparse event
   session.finalize(out_dir)       stop, build the RunRecord, inject git
                                   metadata, save into the CI folder layout
 """
@@ -390,6 +391,15 @@ class PerfSession:
         if not self.enabled:
             return _NULL_REGION
         return _Region(self, name, sync)
+
+    def event(self, name: str, outputs: Any = None, **aux: Any) -> None:
+        """One visit of region ``name`` for a sparse host-side event (a
+        retry, a quarantine, a shed, a checksum failure): enter, record one
+        observed step carrying ``aux``, exit. A no-op when disabled."""
+        if not self.enabled:
+            return
+        with self.region(name):
+            self.observe_step(outputs, **aux)
 
     # -- per-step hooks ---------------------------------------------------
 

@@ -22,7 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import cases  # noqa: E402
+from repro_torch.kernels import cases, nan_check  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as PA  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_reference,
@@ -291,6 +291,36 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
     _flash_close(_f32(out), _f32(flash_attention_reference(q, k, v, **kw)), dtype)
     for got, want in zip(leaves, flash_attention_backward_reference(q, k, v, dout, **kw)):
         _flash_close(_f32(got.grad), _f32(want), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", cases.MAIN_FLASH_DENSE, ids=["decode", "chunk"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_dense_serving_shapes_match_plain(cuda, case, dtype):
+    """K2 forward at the dense KV layout's shapes (one query row a slot at
+    its own position, a chunk into one slot's row; keys cut by kv_len):
+    both gates, and two calls bitwise equal."""
+    (q, k, v), _, kw = _flash_args(case, dtype, cuda, seed=12)
+    with torch.no_grad():
+        out, again = FA.flash_attention(q, k, v, **kw), FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _flash_close(_f32(out), _f32(flash_attention_reference(q, k, v, **kw)), dtype)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", nan_check.KINDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_a_nan_in_the_cache_reaches_only_the_rows_that_see_it(cuda, kind, dtype):
+    """The sentinel's premise on both routes: a NaN key row or page a row
+    can see makes that row non-finite, the other rows equal the clean
+    call. Where no row may look (past kv_len, an unnamed page 0) the
+    kernels read nothing and stay finite, while the plain versions carry
+    0 * NaN into every row (ROADMAP.md Queue 3)."""
+    r = nan_check.check(kind, dtype, cuda)
+    for impl in ("kernel", "plain"):
+        assert r[impl]["seen_nonfinite"] and r[impl]["unseen_equal"], (impl, r)
+    assert r["kernel"]["past_len_finite"] and not r["plain"]["past_len_finite"], r
 
 
 @pytest.mark.cuda

@@ -435,34 +435,43 @@ def test_two_stream_async_consumers_interleave():
     assert order.index("b") < len(order) - 1 - order[::-1].index("a")  # interleaved
 
 
+# ServeConfig arguments the JAX package refuses, each with its message
+JAX_REFUSED = (
+    dict(preempt_policy="lifo"), dict(preempt_policy=""),
+    dict(spec_decode=True, spec_k=0), dict(spec_decode=True, spec_min_match=0),
+    dict(checksum_pages=True), dict(checksum_pages=True, prefix_cache=True, paged=False),
+    dict(prefix_cache=True, paged=False), dict(spec_decode=True, paged=False),
+    dict(max_retries=-1), dict(retry_backoff_base=0), dict(retry_backoff_cap=0),
+)
+
+
 def test_serve_config_refuses_what_jax_refuses():
+    """Every JAX field, in JAX's order, with JAX's default, and JAX's checks:
+    the same refusals with the same messages, the same acceptances."""
+    import dataclasses
+
     from repro.serve.serve import ServeConfig as ScfgJ
 
-    for bad in (dict(preempt_policy="lifo"), dict(preempt_policy="")):
-        with pytest.raises(ValueError, match="preempt_policy"):
-            ScfgJ(max_len=64, batch=2, **bad)
-        with pytest.raises(ValueError, match="preempt_policy"):
-            ServeConfig(max_len=64, batch=2, **bad)
-    # the JAX fields of later slices are absent, not accepted and ignored
-    for field in ("paged", "max_retries", "retry_backoff_base", "retry_backoff_cap",
-                  "watchdog_deadline_s", "checksum_pages", "shed_queue_depth"):
-        assert hasattr(ScfgJ(max_len=64, batch=2), field)
-        with pytest.raises(TypeError):
-            ServeConfig(max_len=64, batch=2, **{field: getattr(ScfgJ(max_len=64, batch=2),
-                                                               field)})
-    cfg = ServeConfig(max_len=64, batch=2, prefix_cache=True, prefix_trie_capacity=3)
-    assert (cfg.prefix_cache, cfg.prefix_trie_capacity, cfg.preempt_policy) == \
-        (True, 3, "priority")
-    # sampling and speculation: JAX's defaults and JAX's checks
-    sampling = ("greedy", "temperature", "top_k", "sample_seed", "spec_decode", "spec_k",
-                "spec_min_match")
+    names = [f.name for f in dataclasses.fields(ScfgJ)]
+    assert [f.name for f in dataclasses.fields(ServeConfig)] == names
     jx, pt = ScfgJ(max_len=64, batch=2), ServeConfig(max_len=64, batch=2)
-    assert {f: getattr(pt, f) for f in sampling} == {f: getattr(jx, f) for f in sampling}
-    for bad in (dict(spec_k=0), dict(spec_min_match=0)):
-        for cls in (ScfgJ, ServeConfig):
-            with pytest.raises(ValueError, match="spec_k"):
-                cls(max_len=64, batch=2, spec_decode=True, **bad)
-            cls(max_len=64, batch=2, **bad)  # only checked with spec_decode on
+    assert dataclasses.asdict(pt) == dataclasses.asdict(jx)
+    for bad in JAX_REFUSED:
+        with pytest.raises(ValueError) as want:
+            ScfgJ(max_len=64, batch=2, **bad)
+        with pytest.raises(ValueError) as got:
+            ServeConfig(max_len=64, batch=2, **bad)
+        assert str(got.value) == str(want.value), bad
+    # accepted by both: checks that only hold with another field set, and
+    # max_len % page_size, which the paged scheduler checks, not the config
+    for ok in (dict(spec_k=0), dict(spec_min_match=0), dict(paged=False),
+               dict(checksum_pages=True, prefix_cache=True), dict(max_retries=0),
+               dict(max_len=60), dict(max_len=60, paged=False),
+               dict(prefix_cache=True, prefix_trie_capacity=3)):
+        kw = {"max_len": 64, "batch": 2, **ok}
+        assert dataclasses.asdict(ServeConfig(**kw)) == dataclasses.asdict(ScfgJ(**kw))
+    with pytest.raises(ValueError, match="divisible"):
+        BatchScheduler(_weights()[2], ServeConfig(max_len=60, batch=2))
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,9 @@ histories; (b) the JAX ``tests/test_spec.py`` cases mirrored, greedy and
 sampled: spec on equals spec off, the copy regime (residual-zeroed
 weights, so greedy decode cycles) accepts multi-token windows across
 pages, planted rejections leak no page, a tight pool preempts and
-resumes, and a grow that runs the pool dry unwinds; each against the
-port's spec-off run and the JAX scheduler's spec-on run (tokens and the
-``speculation`` dict identical); (c) the monitored record: the ``decode``
+resumes, NaN-poisoned verifies retry, and a grow that runs the pool dry
+unwinds; each against the port's spec-off run and the JAX scheduler's
+spec-on run (tokens and the ``speculation`` dict identical); (c) the monitored record: the ``decode``
 region is visited once per verify and counts the verify's profile; the
 launcher's ``--spec``/``--sample`` flags.
 """
@@ -203,6 +203,48 @@ def test_spec_preempt_resume_identity(greedy):
     assert _tokens(tight) == _tokens(ample) == _tokens(plain)
     assert tight._alloc.used == 0, "pages leaked across preempt/resume"
     _same_as_jax(tight, _run_jax(prompts, num_pages=3, spec_decode=True, **kw))
+
+
+def _chaos_spec(impl, greedy, events):
+    """``PROMPTS`` with speculation and a ``FaultInjector`` of ``events``
+    ((kind, tick) pairs, built into ``impl``'s own classes), max_new 8."""
+    kw = {**BASE, **_mode(greedy), "spec_decode": True}
+    if impl == "jax":
+        from repro.serve import faults as FJ
+        from repro.serve.serve import BatchScheduler as SchedJ
+        from repro.serve.serve import ServeConfig as ScfgJ
+
+        inj = FJ.FaultInjector(events=[FJ.FaultEvent(kind=k, tick=t) for k, t in events])
+        cfg_j, params, _ = _weights()
+        with _mesh():
+            sched = SchedJ(cfg_j, _mesh(), ScfgJ(paged=True, **kw), params,
+                           fault_injector=inj)
+            return _submit_all(sched, PROMPTS, 8)
+    from repro_torch.serve import faults as FT
+
+    inj = FT.FaultInjector(events=[FT.FaultEvent(kind=k, tick=t) for k, t in events])
+    return _submit_all(BatchScheduler(_weights()[2], ServeConfig(**kw), fault_injector=inj),
+                       PROMPTS, 8)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_spec_fault_retry_identity(greedy):
+    """NaN-poisoned verify dispatches: the victim retries through
+    recompute-resume (its clean history replays as drafts the verify
+    accepts), every stream equals the fault-free spec run's and plain
+    decode's, and the recovery counters and tokens equal JAX's (JAX
+    ``tests/test_spec.py``)."""
+    events = (("nan", 4), ("nan", 9))
+    base = _run_port(PROMPTS, spec_decode=True, max_new=8, **_mode(greedy))
+    plain = _run_port(PROMPTS, max_new=8, **_mode(greedy))
+    chaos = _chaos_spec("port", greedy, events)
+    jx = _chaos_spec("jax", greedy, events)
+    rec = chaos.kv_cache_stats()["recovery"]
+    assert rec["retries"] >= 1 and rec["injected"]["nan_injected"] == 2, rec
+    assert _tokens(chaos) == _tokens(base) == _tokens(plain)
+    assert rec == jx.kv_cache_stats()["recovery"]
+    _same_as_jax(chaos, jx)
+    assert chaos._alloc.used == 0, "pages leaked across fault retry"
 
 
 def test_ensure_pages_unwinds_partial_alloc_on_exhaustion():

@@ -153,6 +153,58 @@ def test_shed_and_recovery_are_zero_until_fault_recovery_is_ported():
     assert m["kv"]["recovery"] == m["recovery"]
 
 
+CHAOS_TCFG = dict(n_requests=5, seed=9, arrival="burst", rate=1.0, prompt_short=(4, 8),
+                  prompt_long=(10, 14), max_new_short=(3, 5), max_new_long=(6, 8),
+                  cancel_frac=0.0)
+CHAOS_FCFG = dict(seed=2, horizon_ticks=16, n_nan=1, n_page_corrupt=0, n_alloc_spike=1,
+                  n_hang=0)
+
+
+def _chaos_port(chaos: bool):
+    from repro_torch.serve.faults import FaultConfig, FaultInjector
+    from repro_torch.serve.serve import BatchScheduler, ServeConfig
+
+    model = _weights()[2]
+    sched = BatchScheduler(model, ServeConfig(num_pages=8, **SCFG))
+    work = TR.generate_workload(TR.TrafficConfig(vocab_hi=model.cfg.vocab, **CHAOS_TCFG))
+    return sched, TR.replay(sched, work, faults=FaultInjector(FaultConfig(**CHAOS_FCFG))
+                            if chaos else None)
+
+
+@functools.cache
+def _chaos_jax(chaos: bool):
+    from repro.launch.mesh import make_host_mesh
+    from repro.serve.faults import FaultConfig, FaultInjector
+    from repro.serve.serve import BatchScheduler, ServeConfig
+
+    cfg_j, params, _ = _weights()
+    mesh = make_host_mesh()
+    with mesh:
+        sched = BatchScheduler(cfg_j, mesh, ServeConfig(paged=True, num_pages=8, **SCFG),
+                               params)
+        work = TRJ.generate_workload(TRJ.TrafficConfig(vocab_hi=cfg_j.vocab, **CHAOS_TCFG))
+        return sched, TRJ.replay(sched, work, faults=FaultInjector(FaultConfig(**CHAOS_FCFG))
+                                 if chaos else None)
+
+
+def test_chaos_replay_composes_faults_with_workload_like_jax():
+    """``replay(faults=...)``: the seeded fault schedule over the seeded
+    workload gives JAX's streams, counts and recovery counters (the
+    injector's too), replays bit for bit, and recovery never changes what a
+    surviving request computed (JAX ``tests/test_traffic.py``)."""
+    sched, m = _chaos_port(True)
+    _, want = _chaos_jax(True)
+    assert {k: m[k] for k in COUNTED + ("shed",)} == {k: want[k] for k in COUNTED + ("shed",)}
+    assert m["recovery"] == want["recovery"]
+    assert m["recovery"]["retries"] >= 1
+    assert m["recovery"]["injected"]["nan_injected"] == 1
+    assert m["recovery"]["injected"]["alloc_spikes"] == 1
+    assert m["completed"] == 5 and m["failed"] == 0 and sched._alloc.used == 0
+    assert _chaos_port(True)[1]["generated"] == m["generated"]
+    assert _chaos_port(False)[1]["generated"] == m["generated"] == _chaos_jax(False)[1][
+        "generated"]
+
+
 # ---------------------------------------------------------------------------
 # the port's launcher on the CPU
 # ---------------------------------------------------------------------------
