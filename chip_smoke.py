@@ -24,7 +24,9 @@ exit:
            16-byte loads (LDG.E.128); a kernel without fails the phase;
 2. kernels each kernel against its plain PyTorch version on the card, over
            the JAX package's case tables and the serving and training
-           paths' shapes: paged attention (both routes, with the split-K
+           paths' shapes (the other dense archs' too: head dim 256 with a
+           window of 4096 and soft-caps, GQA groups of 16 and 8, a
+           bidirectional head dim 80): paged attention (both routes, with the split-K
            cases too) and RMSNorm forward f32 within 1e-4 (the page loop
            sums in another order than the gather), bf16 within 2e-2 (RMSNorm
            also at the training shape and every model width, within
@@ -164,6 +166,26 @@ exit:
            ``post_process``'s seconds and peak ``tracemalloc`` bytes against
            ``scan`` + ``build_table`` on the monitor's record, and the
            ``ci-report`` seconds;
+9. archs   the other dense archs at full width (``ARCH_PATHS``), bf16,
+           seeded weights drawn on the card: gemma2-2b (the slice's main
+           path, 26 layers) serves 4 prompts of 4,200-6,000 tokens through
+           ``BatchScheduler`` (batch 4, max_len 8192, page 16, chunk 64), so
+           the local layers' window of 4096 cuts keys in K3 and K4, and
+           trains 5 steps at B 1, S 8192 through ``TrainLoop`` under the
+           monitor (K2 at head dim 256), its record in
+           ``results/talp_archs/gemma2-2b/train_monitor/`` passing the
+           ``talp validate`` CLI; an fp32 parity run of gemma2-2b at depth 2
+           (a 4,160-token prefill in chunks of 64, then DECODE_STEPS decode
+           steps) and of glm4-9b at depth 2 with N(0, 0.3) qkv biases, card
+           vs CPU within LOGIT_TOL and the card's RMS error against float64
+           within EXACT_RATIO of the CPU's (weights drawn on the CPU);
+           glm4-9b (full depth), command-r-35b (8 of 40 layers) and
+           llava-next-mistral-7b (full depth) serve 4 requests of 300-1,700
+           tokens; llava trains 3 steps with 1152 stub patch embeddings (8 of
+           32 layers) and hubert-xlarge 3 steps on frame batches (full
+           depth). Every request completes, logits finite, launches exact in
+           each run, every loss finite. The kernel shapes of these paths are
+           in phase 2's tables (``cases.*_ARCH_*``) and timed in phase 8;
 8. timing  each kernel, its plain version and one PyTorch library call at
            the serving and training paths' shapes, beside the bound: ``ms``
            back to back with CUDA events (what an eager caller pays, host
@@ -174,7 +196,9 @@ exit:
            K2's forward also at the dense layout's decode and chunk shapes
            (rows with ``path`` ``serve_dense``, SDPA on the same mask);
            for the K1 backward the row pass's and the combine's device times
-           apart, from the profiler's kernel names.
+           apart, from the profiler's kernel names; then each kernel at phase
+           9's shapes (rows with their ``path``; a soft-capped attention has
+           no library call: SDPA without the cap beside it).
 
 ``python3 chip_smoke.py --profile`` adds ``torch.profiler`` over the serve
 trace (after phase 4), over 40 mid-burst ticks of phase 4b's tight-pool
@@ -276,6 +300,36 @@ FAULT_DEADLINE_X, FAULT_HANG_X = 2.0, 2.0
 FAULT_QUARANTINE_N = 6
 FAULT_SHED_N, FAULT_SHED_DEPTH = 24, 4
 FAULT_SPEC_TICKS = (6, 20, 40)
+# Phase 9: the other dense archs at full width, seeded random weights drawn
+# on the card (a CPU twin only for the parity runs). gemma2-2b is the
+# slice's main path, at full depth (26 layers): serving with prompts of
+# 4,200-6,000 tokens, so the local layers' window of 4096 cuts keys in K3
+# and K4 (the pool ~3.5 GB); training at B 1, S 8192 (K2 at head dim 256,
+# the window on the local layers) under the monitor; an fp32 parity run at
+# depth 2 (one local and one global layer) whose 4,160-token prefill in
+# chunks of 64 ends past the window. glm4-9b at full depth, and an fp32
+# parity run at depth 2 with non-zero qkv biases. command-r-35b at 8 of its
+# 40 layers (all 40 would be 60.6 GB of bf16 weights). llava-next-mistral-7b
+# serves at full depth and trains at 8 of 32 layers (AdamW's fp32 master,
+# m and v and the fp32 gradients take 18 bytes a parameter: 2.0e9
+# parameters fit beside the activations, 7.24e9 do not). hubert-xlarge
+# trains at full depth on frame batches (``FrameStream``).
+ARCH_PATHS = {
+    "gemma2-2b": dict(max_len=8192, prompt_lens=(4200, 4800, 5400, 6000), max_new=32,
+                      train_batch=1, train_seq=8192, train_steps=5,
+                      parity_repeats=1, parity_prompt=4160),
+    "glm4-9b": dict(repeats=None, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
+                    max_new=16, parity_repeats=2, parity_prompt=256, parity_bias_std=0.3),
+    "command-r-35b": dict(repeats=8, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
+                          max_new=16),
+    "llava-next-mistral-7b": dict(max_len=2048, prompt_lens=(300, 700, 1100, 1500),
+                                  max_new=16, train_repeats=8, train_batch=2,
+                                  train_seq=2048, train_steps=3),
+    "hubert-xlarge": dict(train_batch=4, train_seq=1024, train_steps=3),
+}
+# phase 9's gemma2-2b training record, apart from phase 7's CI folder (whose
+# report and ``validate`` count its six runs)
+ARCH_TALP_DIR = os.path.join("results", "talp_archs")
 TALP_DIR = os.path.join(ROOT, "results", "talp")  # the CI folder: <arch>/<experiment>/
 SITE_DIR = os.path.join(ROOT, "results", "talp_site")
 ARCH = "tinyllama-1.1b"
@@ -597,7 +651,8 @@ def phase_kernels():
     absolute = cases.RMS_CASES + cases.MAIN_RMS
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for rows, d in absolute + [cases.MAIN_RMS_TRAIN] + cases.RMS_WIDTH_CASES:
+        for rows, d in (absolute + [cases.MAIN_RMS_TRAIN] + cases.RMS_WIDTH_CASES
+                        + [c[:2] for c in cases.RMS_ARCH_CASES]):
             for zc in (False, True):
                 c = cases.rms_case(rows, d, seed=13)
                 x = torch.from_numpy(c["x"]).to(DEV, dtype)
@@ -615,6 +670,9 @@ def phase_kernels():
                 if (rows, d) == cases.MAIN_RMS[0] and not zc and dtype is torch.bfloat16:
                     main_err["rmsnorm"] = e
                     main_err["l2_rel_err"]["rmsnorm"] = l2
+                key = _arch_err_key("rmsnorm", (rows, d, zc))
+                if key and dtype is torch.bfloat16:
+                    main_err[key], main_err["l2_rel_err"][key] = e, l2
     deterministic = _check_training_kernels(checks, main_err)
     _check_dense_flash(checks, main_err)
     _check_nan(checks)
@@ -683,8 +741,10 @@ def paged_case_table(kind: str) -> list:
     from repro_torch.kernels import cases
 
     if kind == "decode":
-        return cases.PAGED_CASES + cases.PAGED_SPLIT_CASES + [cases.MAIN_PAGED]
-    return cases.PREFILL_CASES + cases.PREFILL_SPLIT_CASES + [cases.MAIN_PREFILL]
+        return (cases.PAGED_CASES + cases.PAGED_SPLIT_CASES + [cases.MAIN_PAGED]
+                + cases.PAGED_ARCH_CASES)
+    return (cases.PREFILL_CASES + cases.PREFILL_SPLIT_CASES + [cases.MAIN_PREFILL]
+            + cases.PREFILL_ARCH_CASES)
 
 
 def _check_paged_kernels(checks: dict, main_err: dict) -> None:
@@ -724,6 +784,9 @@ def _check_paged_kernels(checks: dict, main_err: dict) -> None:
                 if case in (cases.MAIN_PAGED, cases.MAIN_PREFILL) and dtype is torch.bfloat16:
                     main_err[name] = errs["abs"]
                     main_err["l2_rel_err"][name] = errs["l2"]
+                key = _arch_err_key(name, case)
+                if key and dtype is torch.bfloat16:
+                    main_err[key], main_err["l2_rel_err"][key] = errs["abs"], errs["l2"]
         moved = {r: PA.ROUTE_LAUNCHES[r] - before[r] for r in before}
         want = {r: (n if r == PA.route(dtype) else 0) for r in before}
         checks["paged_routes"][dn] = moved
@@ -806,7 +869,8 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
     for k in ("flash_attention", "flash_attention_backward", "rmsnorm_backward"):
         checks[k] = []
     flash_cases = ([c + (0, None) for c in cases.FLASH_CASES] + cases.FLASH_KVLEN_CASES
-                   + [cases.MAIN_FLASH + (0, None)])
+                   + [cases.MAIN_FLASH + (0, None)]
+                   + [c + (0, None) for c in cases.FLASH_ARCH_CASES])
     deterministic = True
     checks["flash_routes"] = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -835,6 +899,11 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
                 main_err["flash_attention_backward"] = errs["bwd_max"]
                 main_err["l2_rel_err"].update({"flash_attention": errs["fwd_l2"],
                                                "flash_attention_backward": errs["bwd_l2"]})
+            for name, part in (("flash_attention", "fwd"), ("flash_attention_backward", "bwd")):
+                key = _arch_err_key(name, case)
+                if key and dtype is torch.bfloat16:
+                    main_err[key] = errs[f"{part}_max"]
+                    main_err["l2_rel_err"][key] = errs[f"{part}_l2"]
             del grads, out
             torch.cuda.empty_cache()
         # each dtype on its own route: two forwards and two backwards a case
@@ -844,7 +913,7 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
         if moved != want:
             raise AssertionError(f"flash attention {dn}: route launches {moved} != {want}")
         for rows, d in (cases.RMS_CASES + cases.MAIN_RMS + [cases.MAIN_RMS_TRAIN]
-                        + cases.RMS_WIDTH_CASES):
+                        + cases.RMS_WIDTH_CASES + [c[:2] for c in cases.RMS_ARCH_CASES]):
             for zc in (False, True):
                 c = cases.rms_case(rows, d, seed=15)
                 x, sc, dy = (torch.from_numpy(c[n]).to(DEV, dtype) for n in ("x", "scale", "dy"))
@@ -866,6 +935,9 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
                 if (rows, d) == cases.MAIN_RMS_TRAIN and not zc and dtype is torch.bfloat16:
                     main_err["rmsnorm_backward"] = e
                     main_err["l2_rel_err"]["rmsnorm_backward"] = l2
+                key = _arch_err_key("rmsnorm_backward", (rows, d, zc))
+                if key and dtype is torch.bfloat16:
+                    main_err[key], main_err["l2_rel_err"][key] = e, l2
     if not deterministic:
         raise AssertionError("flash attention backward: two calls gave different gradients")
     return deterministic
@@ -1155,17 +1227,7 @@ def phase_serve(params_f32):
     torch.cuda.reset_peak_memory_stats()  # the serve's own peak, not phase 3's
     model = Transformer(cfg, tree_map(lambda t: t.to(torch.bfloat16), params_f32), DEV)
     prompts, max_new = _serve_trace(cfg)
-    bad = torch.zeros((), dtype=torch.bool, device=DEV)
-    for name in ("decode_step", "prefill_chunk"):
-        orig = getattr(model, name)
-
-        def checked(*a, _orig=orig, **k):
-            out = _orig(*a, **k)
-            bad.logical_or_(~torch.isfinite(out).all())
-            return out
-
-        setattr(model, name, checked)
-
+    bad = _finite_guard(model)
     reset_launch_counts()
     sched, wall, ttft, n_tok = _serve_once(model, cfg, prompts, max_new, False)
     counts = launch_counts()
@@ -2667,6 +2729,628 @@ def phase_report():
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the other dense archs at full width
+# ---------------------------------------------------------------------------
+
+
+def _finite_guard(model):
+    """Wrap the model's ``decode_step`` and ``prefill_chunk`` so that a
+    non-finite logit sets the returned flag (on the device: no sync). The
+    wrappers hold the model: ``_release`` drops them."""
+    import torch
+
+    bad = torch.zeros((), dtype=torch.bool, device=DEV)
+    for name in ("decode_step", "prefill_chunk"):
+        orig = getattr(model, name)
+
+        def checked(*a, _orig=orig, **k):
+            out = _orig(*a, **k)
+            bad.logical_or_(~torch.isfinite(out).all())
+            return out
+
+        setattr(model, name, checked)
+    return bad
+
+
+def _release(*objs) -> None:
+    """Drop a phase's model and what holds it: the wrappers ``_finite_guard``
+    set on a model and any reference cycle (a scheduler, a loop's session),
+    so that the card's memory is free before the next phase draws its
+    weights."""
+    import gc
+
+    import torch
+
+    for obj in objs:
+        for name in ("decode_step", "prefill_chunk"):
+            if name in getattr(obj, "__dict__", {}):
+                delattr(obj, name)
+    del objs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _arch_cfg(arch: str, repeats: int | None = None, dtype: str = "bfloat16"):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).replace(param_dtype_name=dtype, compute_dtype_name=dtype)
+    return cfg if repeats is None else cfg.replace(repeats=repeats)
+
+
+def _card_model(cfg, seed: int):
+    """Seeded weights drawn on the card (``torch.Generator(device="cuda")``:
+    no CPU twin needs them, and a large model's weights never cross the
+    host), with the draw's seconds."""
+    import torch
+
+    from repro_torch.models.transformer import Transformer
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Transformer.from_init(cfg, seed=seed, device=DEV, draw_device="cuda")
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def phase_arch_serve(arch: str, repeats, max_len: int, prompt_lens, max_new: int,
+                     seed: int) -> dict:
+    """``BatchScheduler`` (batch 4, page 16, chunk 64, overlap) at full width
+    in bf16 on seeded card weights: every request completes with ``max_new``
+    tokens in the vocab, finite logits, launches exact (K3 one per layer a
+    decode step, K4 one per layer a chunk, K1 2L+1 a forward)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.serve import BatchScheduler, ServeConfig
+
+    cfg = _arch_cfg(arch, repeats)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _card_model(cfg, seed)
+    bad = _finite_guard(model)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(4, cfg.vocab, size=int(n)).tolist() for n in prompt_lens]
+    sched = BatchScheduler(model, ServeConfig(max_len=max_len, batch=4, prefill_chunk=64,
+                                              overlap=True, page_size=16))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        sched.submit(p, request_id=rid, max_new=max_new)
+    sched.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = sched.stats
+    L = cfg.n_layers
+    want = {k: 0 for k in counts}
+    want.update({"paged_attention": L * st["decode_steps"],
+                 "paged_prefill_attention": L * st["prefill_chunks"],
+                 "rmsnorm": (2 * L + 1) * (st["decode_steps"] + st["prefill_chunks"])})
+    gens = [r["generated"] for r in sched.completed]
+    kv = sched.kv_cache_stats()
+    n_tok = sum(len(g) for g in gens)
+    phase = f"serve_{arch}"
+    # every prompt runs past the window: each local layer's K4 launch from
+    # the first chunk past it, and each K3 launch, leaves keys out
+    emit(phase, arch=arch, dtype="bfloat16", layers=L, full_layers=_arch_cfg(arch).n_layers,
+         params=cfg.param_count(), weights_drawn_on="cuda", init_seconds=round(init_s, 3),
+         window=cfg.window, batch=4, max_len=max_len, page=16, chunk=64,
+         prompt_lens=[len(p) for p in prompts], max_new=max_new,
+         completed=len(sched.completed), ticks=st["ticks"], decode_steps=st["decode_steps"],
+         prefill_chunks=st["prefill_chunks"], launches=counts, expected_launches=want,
+         tokens_per_s=n_tok / wall, wall_s=wall, kv_bytes=kv["kv_bytes"],
+         peak_used_pages=kv["peak_used_pages"],
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if len(gens) != len(prompts) or any(len(g) != max_new for g in gens):
+        raise AssertionError(f"{phase}: {len(gens)} completed, lengths {[len(g) for g in gens]}")
+    if cfg.window and min(len(p) for p in prompts) <= cfg.window:
+        raise AssertionError(f"{phase}: a prompt within the window {cfg.window}: the local "
+                             f"layers' K3/K4 launches must cut keys")
+    if any(not 0 <= t < cfg.vocab_padded for g in gens for t in g):
+        raise AssertionError(f"{phase}: token id out of range")
+    if bool(bad):
+        raise AssertionError(f"{phase}: non-finite logits")
+    if counts != want or min(counts[k] for k in SERVE_KERNELS) <= 0:
+        raise AssertionError(f"{phase}: launches {counts} != expected {want}")
+    del sched
+    _release(model)
+    return counts
+
+
+class FrameStream:
+    """hubert-xlarge's training batches: frame embeddings (1, B, S, d) bf16,
+    N(0, 1) from a generator seeded per step, and targets drawn in the
+    vocab. The JAX package has no audio stream (its launcher feeds token
+    batches, which the audio model cannot embed), so this stands in, as
+    ``tests/test_arch_smoke.py``'s frame batch does there."""
+
+    def __init__(self, batch: int, seq_len: int, d_model: int, vocab: int, seed: int = 0):
+        self.shape, self.d, self.vocab, self.seed = (1, batch, seq_len), d_model, vocab, seed
+
+    def batch_at(self, step: int) -> dict:
+        import torch
+
+        g = torch.Generator().manual_seed(self.seed * 100_003 + step)
+        return {"frontend": torch.randn(self.shape + (self.d,), generator=g).to(torch.bfloat16),
+                "labels": torch.randint(0, self.vocab, self.shape, generator=g,
+                                        dtype=torch.int32)}
+
+
+def phase_arch_train(arch: str, repeats, data, steps: int, seed: int, backend: str = "null",
+                     record_dir: str | None = None) -> dict:
+    """``TrainLoop`` at full width in bf16 (remat full, AdamW with fp32
+    master) from seeded card weights: losses finite, launches exact; with
+    ``record_dir`` the monitor's run record there, its POP factors valid."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.factors import validate_pop
+    from repro_torch.core.records import RunRecord
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.flops import train_step_model_flops
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.train import TrainConfig, TrainState
+
+    cfg = _arch_cfg(arch, repeats)
+    tcfg = TrainConfig(total_steps=steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _card_model(cfg, seed)
+    state = TrainState(model, adamw_init(model.named_params(), tcfg.optimizer), 0)
+    loop = TrainLoop(cfg, tcfg, data, LoopConfig(steps=steps, lb_sample_every=1,
+                                                 monitor_app_name=arch,
+                                                 monitor_backend=backend), state=state)
+    if loop.session.backend != backend:
+        raise AssertionError(f"train {arch}: session backend {loop.session.backend!r}")
+    reset_launch_counts()
+    loop.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want.update(_train_expected_launches(cfg, steps, 1))
+    hist = loop.metrics_history
+    losses = [h["loss"] for h in hist]
+    secs = [h["seconds"] for h in hist]
+    median = float(np.median(secs[1:]))
+    shape = tuple(data.batch_at(0)["labels"].shape)
+    model_flops = train_step_model_flops(cfg, shape)
+    out = dict(arch=arch, dtype="bfloat16", layers=cfg.n_layers,
+               full_layers=_arch_cfg(arch).n_layers, params=cfg.param_count(),
+               weights_drawn_on="cuda", init_seconds=round(init_s, 3),
+               labels_shape=list(shape), frontend="frontend" in data.batch_at(0),
+               remat=cfg.remat, steps=steps, losses=losses, step_seconds=secs,
+               median_step_seconds=median, tokens_per_s=shape[1] * shape[2] / median,
+               model_flops_per_step=model_flops,
+               mfu=model_flops / median / PEAK_FLOPS["bfloat16"], peak_mem_bytes=peak,
+               launches=counts, expected_launches=want, backend=backend)
+    failures = []
+    if record_dir:
+        loop.finalize_run(record_dir)
+        path = loop.session.last_record_path
+        loaded = RunRecord.load(path)
+        ts = loaded.regions["train_step"]
+        pop_errors = {n: validate_pop(r.pop) for n, r in loaded.regions.items()}
+        out.update(record=os.path.relpath(path, ROOT), hardware=loaded.hardware,
+                   regions=sorted(loaded.regions), num_steps=ts.measurements.num_steps,
+                   dispatch_efficiency=ts.pop.get("dispatch_efficiency"),
+                   pop_errors=pop_errors)
+        if any(pop_errors.values()) or ts.measurements.num_steps != steps:
+            failures.append(f"record {path}: POP {pop_errors}, {ts.measurements.num_steps} steps")
+        if loaded.hardware != "h100_sxm":
+            failures.append(f"record hardware {loaded.hardware!r}")
+    emit(f"train_{arch}", **out)
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite loss in {losses}")
+    if counts != want or min(counts[k] for k in TRAIN_KERNELS) <= 0:
+        failures.append(f"launches {counts} != expected {want}")
+    if failures:
+        raise AssertionError(f"train {arch}: " + "; ".join(failures))
+    del loop, state, model
+    _release()
+    return counts
+
+
+def _chunked_run(model, prompt, page: int, chunk: int, toks=None):
+    """``prompt`` (1, n) through ``prefill_chunk`` in chunks of ``chunk``
+    (the logits at each chunk's last position), then DECODE_STEPS
+    ``decode_step``s fed ``toks`` or the run's own greedy tokens. Returns
+    the logits on the CPU in float64 (chunks + DECODE_STEPS, V) and the fed
+    tokens."""
+    import torch
+
+    dev, n = model.device, prompt.shape[1]
+    nL = -(-(n + DECODE_STEPS) // page)
+    caches = model.init_cache(1, nL * page, page_size=page, num_pages=nL)
+    tb = torch.arange(nL, dtype=torch.int32, device=dev)[None]
+    rows = []
+    for s in range(0, n, chunk):
+        part = torch.from_numpy(prompt[:, s:s + chunk]).to(dev)
+        rows.append(model.prefill_chunk(part, caches, s, part.shape[1], tb).double().cpu())
+    fed = []
+    for i in range(DECODE_STEPS):
+        fed.append(int(rows[-1][-1].argmax()) if toks is None else toks[i])
+        rows.append(model.decode_step(
+            torch.tensor([[fed[-1]]], dtype=torch.int32).to(dev),
+            torch.tensor([n + i], dtype=torch.int32).to(dev), caches,
+            block_tables=tb).double().cpu())
+    return torch.cat(rows), fed
+
+
+def phase_arch_parity(arch: str, repeats: int, prompt_len: int, seed: int,
+                      bias_std: float = 0.0) -> None:
+    """Full width, fp32, ``repeats`` repeats of the pattern: weights drawn on
+    the CPU (qkv biases, where the arch has them, redrawn as N(0,
+    ``bias_std``): the initializer zeroes them), a ``prompt_len``-token
+    prefill in chunks of 64 and DECODE_STEPS decode steps on the card
+    (kernels) and on the CPU (plain versions). Gates as phase 3's: logits
+    within LOGIT_TOL, greedy tokens equal wherever the CPU's top-2 gap
+    exceeds it, and the card's RMS logit error against a float64 CPU run
+    of the same weights within EXACT_RATIO times the CPU fp32 run's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.layers.common import tree_map
+    from repro_torch.models.transformer import Transformer
+
+    cfg = _arch_cfg(arch, repeats, "float32")
+    t0 = time.perf_counter()
+    cpu = Transformer.from_init(cfg, seed=seed, device="cpu")
+    if bias_std:
+        g = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for path, p in cpu.named_params().items():
+                if path.rsplit("/", 1)[-1] in ("bq", "bk", "bv"):
+                    p.copy_(bias_std * torch.randn(p.shape, generator=g))
+    init_s = time.perf_counter() - t0
+    page, chunk = 16, 64
+    prompt = np.random.default_rng(seed).integers(4, cfg.vocab, size=(1, prompt_len))
+    prompt = prompt.astype(np.int32)
+    t0 = time.perf_counter()
+    ref, toks = _chunked_run(cpu, prompt, page, chunk)
+    cpu_s = time.perf_counter() - t0
+    cfg64 = cfg.replace(param_dtype_name="float64", compute_dtype_name="float64")
+    exact_model = Transformer(cfg64, tree_map(lambda t: t.double(), cpu.params()), "cpu")
+    exact, _ = _chunked_run(exact_model, prompt, page, chunk, toks)
+    del exact_model
+    gpu = Transformer(cfg, cpu.params(), device=DEV)
+    t0 = time.perf_counter()
+    got, _ = _chunked_run(gpu, prompt, page, chunk, toks)
+    card_s = time.perf_counter() - t0
+    err = float((got - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
+    ok_tokens = bool((got.argmax(-1) == ref.argmax(-1))[decided].all())
+    finite = bool(torch.isfinite(got).all())
+
+    def rms_rel(a) -> float:
+        return float((a - exact).pow(2).mean().sqrt() / exact.pow(2).mean().sqrt())
+
+    card_rms, cpu_rms = rms_rel(got), rms_rel(ref)
+    n_chunks = -(-prompt_len // chunk)
+    emit(f"parity_{arch}", arch=arch, dtype="float32", layers=cfg.n_layers,
+         pattern=list(cfg.pattern), params=cfg.param_count(), window=cfg.window,
+         attn_bias=cfg.attn_bias, bias_std=bias_std, prompt_len=prompt_len, chunk=chunk,
+         chunks=n_chunks, decode_steps=DECODE_STEPS,
+         tolerance={"card_vs_cpu": LOGIT_TOL, "card_over_cpu_rms_vs_float64": EXACT_RATIO},
+         max_abs_err=err, prefill_max_abs_err=float((got - ref)[:n_chunks].abs().max()),
+         decode_max_abs_err=float((got - ref)[n_chunks:].abs().max()),
+         card_rms_rel_vs_float64=card_rms, cpu_rms_rel_vs_float64=cpu_rms,
+         card_over_cpu_rms_vs_float64=card_rms / cpu_rms,
+         logit_absmax=float(exact.abs().max()), positions_decided=int(decided.sum()),
+         greedy_equal_where_gap_exceeds_tol=ok_tokens, init_seconds=round(init_s, 3),
+         cpu_seconds=round(cpu_s, 3), card_seconds=round(card_s, 3))
+    if not (finite and err <= LOGIT_TOL and ok_tokens):
+        raise AssertionError(f"parity {arch}: card vs CPU logits err {err} (tol {LOGIT_TOL}), "
+                             f"finite {finite}, greedy equal {ok_tokens}")
+    if card_rms > EXACT_RATIO * cpu_rms:
+        raise AssertionError(f"parity {arch}: card's RMS logit error against float64 "
+                             f"{card_rms}, more than {EXACT_RATIO}x the CPU's ({cpu_rms})")
+    del cpu, gpu
+    _release()
+
+
+def phase_archs() -> dict:
+    """The other dense archs at full width (ARCH_PATHS' cuts): gemma2-2b's
+    serving, training and fp32 parity, the slice's main path; glm4-9b's
+    serving and fp32 parity with non-zero qkv biases; command-r-35b's and
+    llava-next-mistral-7b's serving; llava's training with the vlm stub and
+    hubert-xlarge's on frame batches. Returns each path's launch counts."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    counts = {}
+    g = ARCH_PATHS["gemma2-2b"]
+    counts["gemma2_serve"] = phase_arch_serve("gemma2-2b", None, g["max_len"],
+                                              g["prompt_lens"], g["max_new"], seed=51)
+    record_dir = os.path.join(ROOT, ARCH_TALP_DIR, "gemma2-2b", "train_monitor")
+    shutil.rmtree(os.path.join(ROOT, ARCH_TALP_DIR), ignore_errors=True)
+    cfg = _arch_cfg("gemma2-2b")
+    data = SyntheticLM(DataConfig(global_batch=g["train_batch"], seq_len=g["train_seq"],
+                                  vocab=cfg.vocab, pad_fraction=0.05))
+    counts["gemma2_train"] = phase_arch_train("gemma2-2b", None, data, g["train_steps"],
+                                              seed=52, backend="monitor",
+                                              record_dir=record_dir)
+    cli = _talp_cli("validate", "-i", ARCH_TALP_DIR)
+    m = re.search(r"(\d+) runs checked, (\d+) violations", cli["stdout"])
+    RESULT["train_gemma2-2b"]["talp_validate"] = cli
+    if cli["rc"] != 0 or not m or m.groups() != ("1", "0"):
+        raise AssertionError(f"talp validate {ARCH_TALP_DIR}: {cli}")
+    phase_arch_parity("gemma2-2b", g["parity_repeats"], g["parity_prompt"], seed=53)
+    gl = ARCH_PATHS["glm4-9b"]
+    counts["glm4_serve"] = phase_arch_serve("glm4-9b", gl["repeats"], gl["max_len"],
+                                            gl["prompt_lens"], gl["max_new"], seed=54)
+    phase_arch_parity("glm4-9b", gl["parity_repeats"], gl["parity_prompt"], seed=55,
+                      bias_std=gl["parity_bias_std"])
+    c = ARCH_PATHS["command-r-35b"]
+    counts["command_r_serve"] = phase_arch_serve("command-r-35b", c["repeats"], c["max_len"],
+                                                 c["prompt_lens"], c["max_new"], seed=56)
+    lv = ARCH_PATHS["llava-next-mistral-7b"]
+    counts["llava_serve"] = phase_arch_serve("llava-next-mistral-7b", None, lv["max_len"],
+                                             lv["prompt_lens"], lv["max_new"], seed=57)
+    cfg = _arch_cfg("llava-next-mistral-7b")
+    data = SyntheticLM(DataConfig(global_batch=lv["train_batch"], seq_len=lv["train_seq"],
+                                  vocab=cfg.vocab, pad_fraction=0.05,
+                                  frontend_tokens=cfg.n_frontend_tokens, d_model=cfg.d_model))
+    counts["llava_train"] = phase_arch_train("llava-next-mistral-7b", lv["train_repeats"], data,
+                                             lv["train_steps"], seed=58)
+    h = ARCH_PATHS["hubert-xlarge"]
+    cfg = _arch_cfg("hubert-xlarge")
+    data = FrameStream(h["train_batch"], h["train_seq"], cfg.d_model, cfg.vocab, seed=59)
+    counts["hubert_train"] = phase_arch_train("hubert-xlarge", None, data, h["train_steps"],
+                                              seed=59)
+    return counts
+
+
+def _arch_kernel_rows() -> list:
+    """(kernel, label, path, case) of each kernel shape the other dense
+    archs' paths run: phase 2 keeps its bf16 errors under
+    ``f"{kernel}@{label}"`` and phase 8 times it, with the path's
+    launches. A path's count covers both of gemma2's layer kinds (local and
+    global rows share it)."""
+    from repro_torch.kernels import cases
+
+    rows = []
+    for name in ("flash_attention", "flash_attention_backward"):
+        rows += [(name, "gemma2_local", "gemma2_train", cases.MAIN_FLASH_GEMMA2),
+                 (name, "gemma2_global", "gemma2_train", cases.MAIN_FLASH_GEMMA2_GLOBAL),
+                 (name, "llava", "llava_train", cases.MAIN_FLASH_LLAVA),
+                 (name, "hubert", "hubert_train", cases.MAIN_FLASH_HUBERT)]
+    rows += [("paged_attention", "gemma2_local", "gemma2_serve", cases.MAIN_PAGED_GEMMA2),
+             ("paged_attention", "gemma2_global", "gemma2_serve",
+              cases.MAIN_PAGED_GEMMA2_GLOBAL),
+             ("paged_attention", "glm4", "glm4_serve", cases.PAGED_GLM4),
+             ("paged_attention", "command_r", "command_r_serve", cases.PAGED_COMMAND_R),
+             ("paged_prefill_attention", "gemma2_local", "gemma2_serve",
+              cases.MAIN_PREFILL_GEMMA2),
+             ("paged_prefill_attention", "gemma2_global", "gemma2_serve",
+              cases.MAIN_PREFILL_GEMMA2_GLOBAL),
+             ("paged_prefill_attention", "glm4", "glm4_serve", cases.PREFILL_GLM4)]
+    by_case = {c[:2]: c for c in cases.RMS_ARCH_CASES}
+    rows += [("rmsnorm", "gemma2_decode", "gemma2_serve", by_case[(4, 2304)]),
+             ("rmsnorm", "gemma2_train", "gemma2_train", by_case[(8192, 2304)]),
+             ("rmsnorm_backward", "gemma2_train", "gemma2_train", by_case[(8192, 2304)]),
+             ("rmsnorm", "glm4_decode", "glm4_serve", by_case[(4, 4096)]),
+             ("rmsnorm", "command_r_decode", "command_r_serve", by_case[(4, 8192)]),
+             ("rmsnorm", "hubert_train", "hubert_train", by_case[(4096, 1280)]),
+             ("rmsnorm_backward", "hubert_train", "hubert_train", by_case[(4096, 1280)])]
+    return rows
+
+
+def _arch_err_key(name: str, case) -> str | None:
+    """``f"{name}@{label}"`` where (name, case) is one of
+    ``_arch_kernel_rows``' (flash cases compared on their first 9 fields),
+    else None."""
+    for n, label, _, c in _arch_kernel_rows():
+        if n == name and tuple(c) == tuple(case)[:len(c)]:
+            return f"{name}@{label}"
+    return None
+
+
+_SOURCES = {
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_tc.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:35"),
+    "paged_attention": ("src/repro_torch/csrc/paged_attention_tc.cu",
+                        "src/repro/kernels/paged_attention/kernel.py:43"),
+    "paged_prefill_attention": ("src/repro_torch/csrc/paged_attention_tc.cu",
+                                "src/repro/kernels/paged_attention/kernel.py:99"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:22"),
+}
+_SOURCES["flash_attention_backward"] = _SOURCES["flash_attention"]
+_SOURCES["rmsnorm_backward"] = _SOURCES["rmsnorm"]
+NO_SOFTCAP_LIBRARY = ("none: no PyTorch call computes a soft-capped attention "
+                      "(library_without_softcap_ms: SDPA on the same mask without it)")
+
+
+def _arch_timing() -> list:
+    """Each row of ``_arch_kernel_rows`` timed as phase 8 times the
+    tinyllama rows (bf16), with its path and error key."""
+    rows = []
+    for name, label, path, case in _arch_kernel_rows():
+        if name.startswith("flash"):
+            row = _flash_arch_timing(case, backward=name.endswith("backward"), seed=63)
+        elif name == "paged_attention":
+            row = _decode_timing(case, seed=61)
+        elif name == "paged_prefill_attention":
+            row = _prefill_timing(case, seed=62)
+        else:
+            row = _rms_arch_timing(*case, backward=name.endswith("backward"), seed=64)
+        source, replaces = _SOURCES[name]
+        rows.append(dict(name=name, route="cuda", path=path, err_key=f"{name}@{label}",
+                         source=source, replaces=replaces, **row))
+    return rows
+
+
+def _sdpa_mask(qpos, kpos, causal: bool, window, kv_len=None):
+    """The boolean (B, 1, Sq, Sk) mask of these positions, for SDPA."""
+    import torch
+
+    q, k = qpos[:, None, :, None], kpos[:, None, None, :]
+    m = (k <= q) if causal else torch.ones_like(k <= q)
+    if window:
+        m = m & (k > q - window)
+    if kv_len is not None:
+        m = m & (k < kv_len[:, None, None, None])
+    return m
+
+
+def _flash_arch_timing(case, backward: bool, seed: int, ms_iters=(20, 3), dev_iters=10,
+                       plain_iters=None) -> dict:
+    """K2's forward or backward at one training shape (index positions), bf16:
+    the kernel, its plain version and, without a soft-cap, SDPA on the same
+    mask (k/v repeated to the q heads outside the timing; the backward's
+    library call is the autograd of one saved SDPA output). ``ms_iters``
+    (iterations, warmup) and ``dev_iters`` time the kernel, ``plain_iters``
+    the plain version (default (3, 1) forward, (2, 1) backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_backward_reference,
+        flash_attention_reference,
+    )
+
+    bf = torch.bfloat16
+    B, S, _, Hq, Hkv, D, causal, win, cap = case
+    c = cases.flash_case(B, S, S, Hq, Hkv, D, seed=seed)
+    q, k, v, do = (torch.from_numpy(c[n]).to(DEV, bf) for n in ("q", "k", "v", "dout"))
+    pos = FA.positions_rows(None, B, S, DEV)
+    G = Hq // Hkv
+    qt, dot = q.transpose(1, 2).contiguous(), do.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for t in (k, v))
+    sdpa_kw = (dict(attn_mask=_sdpa_mask(pos, pos, causal, win)) if win
+               else dict(is_causal=causal))
+    kw = dict(causal=causal, window=win, softcap=cap)
+    flops, nbytes = FA.launch_costs(q, k, causal, win, backward)
+    bound, by = _bound_ms(nbytes, flops, "bfloat16")
+    shape = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} " + ("causal" if causal else "bidirectional")
+             + (f" window={win}" if win else "") + (f" softcap={cap}" if cap else "") + " bf16")
+    if not backward:
+        kernel = lambda: FA.flash_forward(q, k, v, pos, pos, None, causal, win, cap)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)  # noqa: E731
+        plain = lambda: flash_attention_reference(q, k, v, **kw)  # noqa: E731
+        lib_ms, lib_dev = cuda_ms(lib, iters=20, warmup=3), graph_ms(lib, iters=10)
+        plain_ms, via = cuda_ms(plain, *(plain_iters or (3, 1))), "cuda graph"
+    else:
+        o, lse = FA.flash_forward(q, k, v, pos, pos, None, causal, win, cap)
+        kernel = lambda: FA.flash_backward(q, k, v, o, lse, do, pos, pos, None,  # noqa: E731
+                                           causal, win, cap)
+        leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+        out_lib = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out_lib, leaves, dot, retain_graph=True),
+                         iters=10, warmup=2)
+        lib_dev, via = autograd_device_ms(
+            lambda: F.scaled_dot_product_attention(*leaves, **sdpa_kw), leaves, dot)
+        plain_ms = cuda_ms(lambda: flash_attention_backward_reference(q, k, v, do, **kw),
+                           *(plain_iters or (2, 1)))
+    dev = graph_ms(kernel, iters=dev_iters)
+    out = dict(variant=FA.route(bf), shape=shape, ms=cuda_ms(kernel, *ms_iters),
+               device_ms=dev, tflops=flops / dev / 1e9, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+    if cap:
+        out.update(library_ms=None, library_device_ms=None, library=NO_SOFTCAP_LIBRARY,
+                   library_without_softcap_ms=lib_ms, library_without_softcap_device_ms=lib_dev)
+    else:
+        out.update(library_ms=lib_ms, library_device_ms=lib_dev, library_device_via=via,
+                   library=("autograd of one saved " if backward else "")
+                   + "F.scaled_dot_product_attention, k/v repeated, the same mask")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _decode_timing(case, seed: int) -> dict:
+    """K3 at one ``PAGED_*`` case, bf16: the kernel (also L2 cold), its plain
+    version and, without a soft-cap, SDPA over the pre-gathered dense view
+    on the same mask, beside the bound from ``launch_costs``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.paged_attention import ops as PA
+    from repro_torch.kernels.paged_attention import ref as PR
+
+    B, Hq, Hkv, D, ps, nL, P, lens, win, cap = case
+    t = _tensors(cases.paged_case(B, Hq, Hkv, D, ps, nL, P, lens, seed=seed), torch.bfloat16,
+                 ("q", "k_pages", "v_pages"))
+    args = (t["q"], t["k_pages"], t["v_pages"], t["block_tables"])
+    kw = dict(q_position=t["q_position"], cache_len=t["cache_len"], window=win, softcap=cap)
+    flops, nbytes = PA.launch_costs(t["q"], t["k_pages"], nL, lens, [n - 1 for n in lens],
+                                    causal=False, window=win)
+    bound, by = _bound_ms(nbytes, flops, "bfloat16")
+    kd = PR.gather_pages(t["k_pages"], t["block_tables"]).permute(0, 2, 1, 3)
+    vd = PR.gather_pages(t["v_pages"], t["block_tables"]).permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+    vd = vd.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+    qd = t["q"].permute(0, 2, 1, 3).contiguous()
+    kpos = torch.arange(nL * ps, device=DEV, dtype=torch.int32).expand(B, nL * ps)
+    mask = _sdpa_mask(t["q_position"][:, None], kpos, True, win, t["cache_len"])
+    kernel = lambda: PA.paged_attention(*args, **kw)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)  # noqa: E731
+    out = dict(variant=PA.route(torch.bfloat16),
+               shape=(f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={ps} lens={list(lens)}"
+                      + (f" window={win}" if win else "") + (f" softcap={cap}" if cap else "")
+                      + " bf16"),
+               ms=cuda_ms(kernel), device_ms=graph_ms(kernel),
+               cold_device_ms=cold_graph_ms(kernel),
+               plain_ms=cuda_ms(lambda: PR.paged_attention_reference(*args, **kw), iters=50),
+               bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+    lib = dict(library_ms=cuda_ms(sdpa), library_device_ms=graph_ms(sdpa),
+               library_cold_device_ms=cold_graph_ms(sdpa))
+    if cap:  # SDPA computes the same function only without the soft-cap
+        out.update(library_ms=None, library_device_ms=None, library=NO_SOFTCAP_LIBRARY,
+                   **{k.replace("library", "library_without_softcap"): v for k, v in lib.items()})
+    else:
+        out.update(lib, library="F.scaled_dot_product_attention on the pre-gathered dense view")
+    return out
+
+
+def _rms_arch_timing(r: int, d: int, zc: bool, backward: bool, seed: int) -> dict:
+    """K1's forward or backward at (r, d), bf16, zero-centred or not; the
+    library call ``F.rms_norm`` (its autograd for the backward) with weight
+    ``1 + scale`` where zero-centred (formed outside the timing)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.rmsnorm import ops as RMS
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_reference, rmsnorm_reference
+
+    bf = torch.bfloat16
+    c = cases.rms_case(r, d, seed=seed)
+    x, sc, dy = (torch.from_numpy(c[n]).to(DEV, bf) for n in ("x", "scale", "dy"))
+    w = (1 + sc) if zc else sc
+    shape = f"rows={r} d={d}" + (" zero-centred" if zc else "") + " bf16"
+    if not backward:
+        nbytes, flops = (2 * r * d + d) * 2, 4 * r * d
+        kernel = lambda: RMS.rmsnorm(x, sc, 1e-6, zc)  # noqa: E731
+        lib = lambda: F.rms_norm(x, (d,), w, 1e-6)  # noqa: E731
+        lib_ms, lib_dev = cuda_ms(lib), graph_ms(lib)
+        plain_ms = cuda_ms(lambda: rmsnorm_reference(x, sc, 1e-6, zc), iters=50)
+        label = "F.rms_norm" + (" with weight 1 + scale" if zc else "")
+    else:
+        nbytes, flops = 3 * r * d * 2 + 2 * d * 2, 8 * r * d
+        kernel = lambda: RMS.launch_backward(x, sc, dy, 1e-6, zc)  # noqa: E731
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y_lib = F.rms_norm(xl, (d,), wl, 1e-6)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(y_lib, (xl, wl), dy, retain_graph=True))
+        lib_dev, via = autograd_device_ms(lambda: F.rms_norm(xl, (d,), wl, 1e-6), (xl, wl),
+                                          dy, iters=20)
+        plain_ms = cuda_ms(lambda: rmsnorm_backward_reference(x, sc, dy, 1e-6, zc), iters=20)
+        label = "autograd of F.rms_norm" + (" with weight 1 + scale" if zc else "")
+    bound, by = _bound_ms(nbytes, flops, "bfloat16")
+    out = dict(shape=shape, ms=cuda_ms(kernel), device_ms=graph_ms(kernel), plain_ms=plain_ms,
+               library_ms=lib_ms, library_device_ms=lib_dev, library=label,
+               bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+    if backward:
+        out["library_device_via"] = via
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: timing beside the bound
 # ---------------------------------------------------------------------------
 
@@ -2679,51 +3363,19 @@ def _bound_ms(nbytes: float, flops: float, dtype: str):
 
 def phase_timing(main_err, counts):
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import cases
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.paged_attention import ops as PA
-    from repro_torch.kernels.paged_attention import ref as PR
-    from repro_torch.kernels.rmsnorm import ops as RMS
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
 
     bf = torch.bfloat16
-    es = 2  # bf16 bytes
-    fl = ("q", "k_pages", "v_pages")
     rows = []
 
     # K3: paged decode at the serving shape
-    B, Hq, Hkv, D, ps, nL, P, lens, _, _ = cases.MAIN_PAGED
-    t = _tensors(cases.paged_case(B, Hq, Hkv, D, ps, nL, P, lens, seed=41), bf, fl)
-    args = (t["q"], t["k_pages"], t["v_pages"], t["block_tables"])
-    kw = dict(q_position=t["q_position"], cache_len=t["cache_len"])
-    flops, nbytes = PA.launch_costs(t["q"], t["k_pages"], nL, lens, [n - 1 for n in lens],
-                                    causal=False)
-    bound, by = _bound_ms(nbytes, flops, "bfloat16")
-    S = nL * ps
-    kd = PR.gather_pages(t["k_pages"], t["block_tables"]).permute(0, 2, 1, 3)
-    vd = PR.gather_pages(t["v_pages"], t["block_tables"]).permute(0, 2, 1, 3)
-    kd = kd.repeat_interleave(Hq // Hkv, dim=1).contiguous()
-    vd = vd.repeat_interleave(Hq // Hkv, dim=1).contiguous()
-    qd = t["q"].permute(0, 2, 1, 3).contiguous()
-    mask = (torch.arange(S, device=DEV)[None, :] < t["cache_len"][:, None])[:, None, None]
-    rows.append(dict(
-        name="paged_attention", route="cuda", variant=PA.route(bf),
-        source="src/repro_torch/csrc/paged_attention_tc.cu",
-        replaces="src/repro/kernels/paged_attention/kernel.py:43",
-        shape=f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={ps} lens={list(lens)} bf16",
-        ms=cuda_ms(lambda: PA.paged_attention(*args, **kw)),
-        device_ms=graph_ms(lambda: PA.paged_attention(*args, **kw)),
-        library_device_ms=graph_ms(
-            lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
-        cold_device_ms=cold_graph_ms(lambda: PA.paged_attention(*args, **kw)),
-        library_cold_device_ms=cold_graph_ms(
-            lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
-        plain_ms=cuda_ms(lambda: PR.paged_attention_reference(*args, **kw), iters=50),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
-        library="F.scaled_dot_product_attention on the pre-gathered dense view",
-        bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops))
+    rows.append(dict(name="paged_attention", route="cuda",
+                     source="src/repro_torch/csrc/paged_attention_tc.cu",
+                     replaces="src/repro/kernels/paged_attention/kernel.py:43",
+                     **_decode_timing(cases.MAIN_PAGED, seed=41)))
 
     # K4: paged prefill at the serving shape, and at the speculative
     # verify's (PREFILL_SPLIT_CASES' ragged row)
@@ -2738,29 +3390,13 @@ def phase_timing(main_err, counts):
     # K1: RMSNorm at the decode shape (4 rows), and the prefill-chunk shape;
     # no operand requires grad, so the wrapper launches the forward directly
     # as under the serving path's inference mode
-    extra = {}
-    for r, d in cases.MAIN_RMS:
-        c = cases.rms_case(r, d, seed=43)
-        x = torch.from_numpy(c["x"]).to(DEV, bf)
-        s = torch.from_numpy(c["scale"]).to(DEV, bf)
-        nbytes = (2 * r * d + d) * es
-        bound, by = _bound_ms(nbytes, 4 * r * d, "bfloat16")
-        lib = (cuda_ms(lambda: F.rms_norm(x, (d,), s, 1e-6))
-               if hasattr(F, "rms_norm") else None)
-        extra[r] = dict(
-            shape=f"rows={r} d={d} bf16",
-            ms=cuda_ms(lambda: RMS.rmsnorm(x, s)),
-            device_ms=graph_ms(lambda: RMS.rmsnorm(x, s)),
-            library_device_ms=(graph_ms(lambda: F.rms_norm(x, (d,), s, 1e-6))
-                               if lib is not None else None),
-            plain_ms=cuda_ms(lambda: rmsnorm_reference(x, s)),
-            library_ms=lib, library="F.rms_norm" if lib is not None else None,
-            bound_ms=bound, bound_by=by, bytes=nbytes, flops=4 * r * d)
+    extra = {r: _rms_arch_timing(r, d, False, False, seed=43) for r, d in cases.MAIN_RMS}
     r0 = cases.MAIN_RMS[0][0]
     rows.append(dict(name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
                      replaces="src/repro/kernels/rmsnorm/kernel.py:22",
                      **extra[r0], chunk_shape=extra[cases.MAIN_RMS[1][0]],
-                     train_shape=_rms_train_timing()))
+                     train_shape=_rms_arch_timing(*cases.MAIN_RMS_TRAIN, False, False,
+                                                  seed=45)))
     rows += _training_timing()
     for name, case in zip(("decode", "chunk"), cases.MAIN_FLASH_DENSE):
         rows.append(dict(name="flash_attention", route="cuda", path="serve_dense",
@@ -2768,6 +3404,7 @@ def phase_timing(main_err, counts):
                          source="src/repro_torch/csrc/flash_attention_tc.cu",
                          replaces="src/repro/kernels/flash_attention/kernel.py:35",
                          **_dense_flash_timing(case, seed=47)))
+    rows += _arch_timing()
     for row in rows:
         path = row.get("path")
         row["launches"] = (counts[path][row["name"]] if path else
@@ -2802,8 +3439,7 @@ def _dense_flash_timing(case, seed: int) -> dict:
     G = Hq // Hkv
     qd = q.transpose(1, 2).contiguous()
     kd, vd = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for t in (k, v))
-    mask = ((kpos[:, None, None, :] <= qpos[:, None, :, None])
-            & (kpos[:, None, None, :] < lens[:, None, None, None]))
+    mask = _sdpa_mask(qpos, kpos, True, None, lens)
     kernel = lambda: FA.flash_forward(q, k, v, qpos, kpos, lens, causal, None, None)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)  # noqa: E731
     plain = lambda: flash_attention_reference(q, k, v, q_positions=qpos,  # noqa: E731
@@ -2827,13 +3463,14 @@ def _prefill_timing(case, seed: int) -> dict:
     from repro_torch.kernels.paged_attention import ops as PA
     from repro_torch.kernels.paged_attention import ref as PR
 
-    B, C, Hq, Hkv, D, ps, nL, P, starts, _, _, lengths = cases.prefill_row(case)
+    B, C, Hq, Hkv, D, ps, nL, P, starts, win, cap, lengths = cases.prefill_row(case)
     t = _tensors(cases.prefill_case(B, C, Hq, Hkv, D, ps, nL, P, starts, seed=seed,
                                     lengths=lengths), torch.bfloat16, ("q", "k_pages", "v_pages"))
     args = (t["q"], t["k_pages"], t["v_pages"], t["block_tables"])
-    kw = dict(q_positions=t["q_positions"], cache_len=t["cache_len"], causal=True)
+    kw = dict(q_positions=t["q_positions"], cache_len=t["cache_len"], causal=True,
+              window=win, softcap=cap)
     flops, nbytes = PA.launch_costs(t["q"], t["k_pages"], nL, t["cache_len"].tolist(),
-                                    list(starts), causal=True)
+                                    list(starts), causal=True, window=win)
     bound, by = _bound_ms(nbytes, flops, "bfloat16")
     S = nL * ps
     kd = PR.gather_pages(t["k_pages"], t["block_tables"]).permute(0, 2, 1, 3)
@@ -2841,21 +3478,25 @@ def _prefill_timing(case, seed: int) -> dict:
     kd = kd.repeat_interleave(Hq // Hkv, dim=1).contiguous()
     vd = vd.repeat_interleave(Hq // Hkv, dim=1).contiguous()
     qd = t["q"].permute(0, 2, 1, 3).contiguous()
-    kpos = torch.arange(S, device=DEV)
-    mask = ((kpos[None, None, :] <= t["q_positions"][:, :, None])
-            & (kpos[None, None, :] < t["cache_len"][:, None, None]))[:, None]
+    kpos = torch.arange(S, device=DEV).expand(B, S)
+    mask = _sdpa_mask(t["q_positions"], kpos, True, win, t["cache_len"])
     kernel = lambda: PA.paged_prefill_attention(*args, **kw)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)  # noqa: E731
-    return dict(
+    out = dict(
         shape=(f"B={B} C={C} Hq={Hq} Hkv={Hkv} D={D} page={ps} start={list(starts)}"
-               + (f" length={list(lengths)}" if lengths else "") + " bf16"),
-        ms=cuda_ms(kernel), device_ms=graph_ms(kernel),
-        library_device_ms=graph_ms(sdpa), cold_device_ms=cold_graph_ms(kernel),
-        library_cold_device_ms=cold_graph_ms(sdpa),
+               + (f" length={list(lengths)}" if lengths else "")
+               + (f" window={win}" if win else "") + (f" softcap={cap}" if cap else "") + " bf16"),
+        ms=cuda_ms(kernel), device_ms=graph_ms(kernel), cold_device_ms=cold_graph_ms(kernel),
         plain_ms=cuda_ms(lambda: PR.paged_prefill_attention_reference(*args, **kw), iters=50),
-        library_ms=cuda_ms(sdpa),
-        library="F.scaled_dot_product_attention on the pre-gathered dense view",
         bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+    lib = dict(library_ms=cuda_ms(sdpa), library_device_ms=graph_ms(sdpa),
+               library_cold_device_ms=cold_graph_ms(sdpa))
+    if cap:  # SDPA computes the same function only without the soft-cap
+        out.update(library_ms=None, library_device_ms=None, library=NO_SOFTCAP_LIBRARY,
+                   **{k.replace("library", "library_without_softcap"): v for k, v in lib.items()})
+    else:
+        out.update(lib, library="F.scaled_dot_product_attention on the pre-gathered dense view")
+    return out
 
 
 def _kernel_split_ms(fn, parts: dict, iters: int = 20) -> dict:
@@ -2881,128 +3522,44 @@ def _kernel_split_ms(fn, parts: dict, iters: int = 20) -> dict:
     return out
 
 
-def _rms_train_timing() -> dict:
-    """The RMSNorm forward at the training shape (B*S rows of 2048)."""
-    import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import cases
-    from repro_torch.kernels.rmsnorm import ops as RMS
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
-
-    r, d = cases.MAIN_RMS_TRAIN
-    c = cases.rms_case(r, d, seed=45)
-    x = torch.from_numpy(c["x"]).to(DEV, torch.bfloat16)
-    s = torch.from_numpy(c["scale"]).to(DEV, torch.bfloat16)
-    nbytes = (2 * r * d + d) * 2
-    bound, by = _bound_ms(nbytes, 4 * r * d, "bfloat16")
-    return dict(shape=f"rows={r} d={d} bf16", ms=cuda_ms(lambda: RMS.rmsnorm(x, s)),
-                device_ms=graph_ms(lambda: RMS.rmsnorm(x, s)),
-                plain_ms=cuda_ms(lambda: rmsnorm_reference(x, s), iters=50),
-                library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), s, 1e-6)),
-                library_device_ms=graph_ms(lambda: F.rms_norm(x, (d,), s, 1e-6)),
-                library="F.rms_norm", bound_ms=bound, bound_by=by, bytes=nbytes,
-                flops=4 * r * d)
-
-
 def _training_timing() -> list:
     """K2 forward and backward and the K1 backward at the training path's
-    shapes (B=4, S=2048, Hq=32, Hkv=4, D=64, causal; 8192 x 2048), bf16.
-    The library calls: SDPA (causal; k/v repeated to the q heads, prepared
-    outside the timing), its backward alone (autograd of one saved SDPA
-    output; its dk/dv are per q head, so the GQA sum is not in it), and
-    the autograd of ``F.rms_norm``; the two backwards' device times from
-    ``autograd_device_ms``. K2 is the bf16 route (``tensor_cores``), with
-    its achieved TFLOP/s over the counted FLOPs (``launch_costs``)."""
+    shapes (B=4, S=2048, Hq=32, Hkv=4, D=64, causal; 8192 x 2048), bf16,
+    through ``_flash_arch_timing`` and ``_rms_arch_timing`` (K2 at the
+    iteration counts its rows were first timed with: the forward 50 calls
+    after 5, 20 on the graph, its plain version 5; the backward's plain
+    version 3); the K1 backward also with its row pass's and combine's
+    device times apart
+    (``_kernel_split_ms``) and its plan."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import cases
-    from repro_torch.kernels.flash_attention import ops as FA
-    from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_backward_reference,
-        flash_attention_reference,
-    )
     from repro_torch.kernels.rmsnorm import ops as RMS
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_reference
 
-    bf = torch.bfloat16
-    rows = []
-    B, S, _, Hq, Hkv, D, causal, _, _ = cases.MAIN_FLASH
-    c = cases.flash_case(B, S, S, Hq, Hkv, D, seed=44)
-    q, k, v, do = (torch.from_numpy(c[n]).to(DEV, bf) for n in ("q", "k", "v", "dout"))
-    pos = FA.positions_rows(None, B, S, DEV)
-    o, lse = FA.flash_forward(q, k, v, pos, pos, None, causal, None, None)
-    G = Hq // Hkv
-    qt = q.transpose(1, 2).contiguous()
-    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for t in (k, v))
-    dot = do.transpose(1, 2).contiguous()
-    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
-    out_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16"
-    common = dict(route="cuda", variant=FA.route(bf),
-                  source="src/repro_torch/csrc/flash_attention_tc.cu",
-                  replaces="src/repro/kernels/flash_attention/kernel.py:35", shape=shape)
-    fwd = lambda: FA.flash_forward(q, k, v, pos, pos, None, causal, None, None)  # noqa: E731
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
-    flops, nbytes = FA.launch_costs(q, k, causal, None, False)
-    bound, by = _bound_ms(nbytes, flops, "bfloat16")
-    dev = graph_ms(fwd, iters=20)
-    rows.append(dict(name="flash_attention", **common,
-                     ms=cuda_ms(fwd, iters=50, warmup=5), device_ms=dev,
-                     tflops=flops / dev / 1e9,
-                     plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v), 5, 1),
-                     library_ms=cuda_ms(sdpa, iters=20, warmup=3),
-                     library_device_ms=graph_ms(sdpa, iters=10),
-                     library_device_via="cuda graph",
-                     library="F.scaled_dot_product_attention(is_causal=True), k/v repeated",
-                     bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops))
-    bwd = lambda: FA.flash_backward(q, k, v, o, lse, do, pos, pos, None,  # noqa: E731
-                                    causal, None, None)
-    flops, nbytes = FA.launch_costs(q, k, causal, None, True)
-    bound, by = _bound_ms(nbytes, flops, "bfloat16")
-    dev = graph_ms(bwd, iters=10)
-    lib_dev, via = autograd_device_ms(
-        lambda: F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, dot)
-    rows.append(dict(name="flash_attention_backward", **common,
-                     note="the backward of K2: no Pallas counterpart",
-                     ms=cuda_ms(bwd, iters=20, warmup=3), device_ms=dev,
-                     tflops=flops / dev / 1e9,
-                     plain_ms=cuda_ms(lambda: flash_attention_backward_reference(q, k, v, do),
-                                      3, 1),
-                     library_ms=cuda_ms(lambda: torch.autograd.grad(
-                         out_lib, leaves, dot, retain_graph=True), iters=10, warmup=2),
-                     library_device_ms=lib_dev, library_device_via=via,
-                     library="autograd of one saved F.scaled_dot_product_attention output",
-                     bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops))
-    del out_lib
+    common = dict(route="cuda", source="src/repro_torch/csrc/flash_attention_tc.cu",
+                  replaces="src/repro/kernels/flash_attention/kernel.py:35")
+    rows = [dict(name="flash_attention", **common,
+                 **_flash_arch_timing(cases.MAIN_FLASH, backward=False, seed=44,
+                                      ms_iters=(50, 5), dev_iters=20, plain_iters=(5, 1))),
+            dict(name="flash_attention_backward", **common,
+                 note="the backward of K2: no Pallas counterpart",
+                 **_flash_arch_timing(cases.MAIN_FLASH, backward=True, seed=44,
+                                      plain_iters=(3, 1)))]
     r, d = cases.MAIN_RMS_TRAIN
     rc = cases.rms_case(r, d, seed=46)
-    x, sc, dy = (torch.from_numpy(rc[n]).to(DEV, bf) for n in ("x", "scale", "dy"))
-    xl, sl = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
-    y_lib = F.rms_norm(xl, (d,), sl, 1e-6)
+    x, sc, dy = (torch.from_numpy(rc[n]).to(DEV, torch.bfloat16) for n in ("x", "scale", "dy"))
     kb = lambda: RMS.launch_backward(x, sc, dy, 1e-6, False)  # noqa: E731
-    nbytes = 3 * r * d * 2 + 2 * d * 2  # x, dy read, dx written; scale, dscale
-    bound, by = _bound_ms(nbytes, 8 * r * d, "bfloat16")
-    lib_dev, via = autograd_device_ms(lambda: F.rms_norm(xl, (d,), sl, 1e-6), (xl, sl), dy,
-                                      iters=20)
     split = _kernel_split_ms(kb, {"row_pass": "rmsnorm_bwd", "combine": "rmsnorm_dscale"})
     rows.append(dict(name="rmsnorm_backward", route="cuda",
                      source="src/repro_torch/csrc/rmsnorm.cu",
                      replaces="src/repro/kernels/rmsnorm/kernel.py:22",
                      note="the backward of K1: no Pallas counterpart",
-                     shape=f"rows={r} d={d} bf16", ms=cuda_ms(kb), device_ms=graph_ms(kb),
+                     **_rms_arch_timing(r, d, False, True, seed=46),
                      row_pass_device_ms=split["row_pass"], combine_device_ms=split["combine"],
                      profiled_launches=[split["row_pass_launches_seen"],
                                         split["combine_launches_seen"]],
                      plan=RMS.plan(r, d, 2, torch.cuda.get_device_properties(0)
-                                   .multi_processor_count, True)._asdict(),
-                     plain_ms=cuda_ms(lambda: rmsnorm_backward_reference(x, sc, dy), iters=20),
-                     library_ms=cuda_ms(lambda: torch.autograd.grad(
-                         y_lib, (xl, sl), dy, retain_graph=True)),
-                     library_device_ms=lib_dev, library_device_via=via,
-                     library="autograd of F.rms_norm",
-                     bound_ms=bound, bound_by=by, bytes=nbytes, flops=8 * r * d))
+                                   .multi_processor_count, True)._asdict()))
     return rows
 
 
@@ -3038,9 +3595,11 @@ def main() -> int:
     del params
     train_counts = phase_train(profile)
     phase_report()
+    arch_counts = phase_archs()
     rows = phase_timing(main_err, {"serve": serve_counts, "serve_dense": dense_counts,
                                    "serve_load": load_counts, "serve_spec": spec_counts,
-                                   "serve_fault": fault_counts, "train": train_counts})
+                                   "serve_fault": fault_counts, "train": train_counts,
+                                   **arch_counts})
     emit("timing", rows=len(rows))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,8 +1,10 @@
 """The JAX package's architectures, copied as data, plus the smoke variants.
 
-Only ``tinyllama-1.1b`` runs through the port's model in this slice; the
-others are here so configs can be read and compared, and the model raises
-``NotImplementedError`` for the parts it lacks.
+The dense archs (tinyllama-1.1b, gemma2-2b, glm4-9b, command-r-35b,
+llava-next-mistral-7b and hubert-xlarge) run through the port's model;
+the others are here so configs can be read and compared, and the model
+raises ``NotImplementedError`` for the parts it lacks (MoE, recurrent
+blocks, qk-norm).
 """
 
 from __future__ import annotations

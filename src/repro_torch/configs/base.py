@@ -1,9 +1,11 @@
 """Model configuration schema, field for field the JAX ``ModelConfig``.
 
 The layer stack is ``pattern`` repeated ``repeats`` times. The port runs
-the ``attn`` block kind; the other kinds, MoE, SSM, xLSTM and the stub
-frontends are carried as data so that every arch's config can be read,
-and the model raises ``NotImplementedError`` for them.
+the dense block kinds (``attn``, ``local_attn``), the qkv bias, the stub
+frontends (``vlm`` patch embeddings, ``audio`` frame embeddings) and
+encoder-only models; MoE, SSM, xLSTM and qk-norm are carried as data so
+that every arch's config can be read, and the model raises
+``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 import torch
 
 BLOCK_KINDS = ("attn", "local_attn", "moe", "mamba2", "mlstm", "slstm")
+PORTED_KINDS = ("attn", "local_attn")
 
 # float64 runs only on the CPU (the kernels take bf16/f32): a reference
 # for the fp32 paths' rounding
@@ -46,6 +49,12 @@ class SSMConfig:
     n_groups: int = 1
     chunk: int = 256
 
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
 
 @dataclasses.dataclass(frozen=True)
 class XLSTMConfig:
@@ -53,6 +62,9 @@ class XLSTMConfig:
     d_conv: int = 4
     chunk: int = 256
     slstm_ff_factor: float = 4.0 / 3.0
+
+    def d_inner(self, d_model: int) -> int:
+        return int(self.proj_factor * d_model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,19 +173,22 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice of the port lacks."""
-    kinds = sorted(set(cfg.pattern) - {"attn"})
+    """Raise ``NotImplementedError`` for what the port lacks: the ``moe``,
+    ``mamba2``, ``mlstm`` and ``slstm`` block kinds and their configs, and
+    qk-norm. The dense kinds (``attn``, ``local_attn``), the qkv bias, the
+    ``vlm`` and ``audio`` frontend stubs and encoder-only models run."""
+    kinds = sorted(set(cfg.pattern) - set(PORTED_KINDS))
     if kinds:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {kinds} are not ported yet (only 'attn')"
+            f"{cfg.name}: block kinds {kinds} are not ported yet (only {PORTED_KINDS})"
         )
-    for field in ("frontend", "moe", "ssm", "xlstm"):
+    for field in ("moe", "ssm", "xlstm"):
         if getattr(cfg, field):
             raise NotImplementedError(f"{cfg.name}: {field} is not ported yet")
-    if cfg.attn_bias or cfg.qk_norm:
-        raise NotImplementedError(
-            f"{cfg.name}: attention bias / qk-norm are not ported yet"
-        )
+    if cfg.frontend not in (None, "vlm", "audio"):
+        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} is not ported")
+    if cfg.qk_norm:
+        raise NotImplementedError(f"{cfg.name}: qk-norm is not ported yet")
     if cfg.paged_attn_impl != "auto":
         raise NotImplementedError(
             f"paged_attn_impl={cfg.paged_attn_impl!r}: the port routes by "

@@ -5,10 +5,11 @@ as numpy arrays, into the port's model.
 initializes in JAX, converts the leaves to numpy (``np.asarray``) on the
 JAX side, and hands the tree here. The tree is the one
 ``repro.layers.common.init_params(T.model_params(cfg), ...)`` returns:
-``embed``, ``norm_f/scale``, ``head`` and
-``slots/slot{i}_{kind}/{norm_in, attn/{wq,wk,wv,wo}, norm_mlp,
-mlp/{wi_gate,wi_up,wo}}`` stacked over ``repeats``. This module imports
-no JAX: it sees only numpy.
+``embed`` (none for the audio model), ``norm_f/scale``, ``head`` (none
+with tied embeddings) and ``slots/slot{i}_{kind}/{norm_in,
+attn/{wq,wk,wv,wo[,bq,bk,bv]}, norm_mlp, mlp/{wi_gate,wi_up,wo | wi,wo}}``
+stacked over ``repeats`` (``kind`` ``attn`` or ``local_attn``). This
+module imports no JAX: it sees only numpy.
 """
 
 from __future__ import annotations

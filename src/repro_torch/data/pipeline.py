@@ -22,12 +22,8 @@ class DataConfig:
     accum_steps: int = 1
     seed: int = 0
     pad_fraction: float = 0.0   # expected fraction of padded tail per sample
-    frontend_tokens: int = 0    # stub patch/frame embeddings (not ported)
-    d_model: int = 0
-
-    def __post_init__(self):
-        if self.frontend_tokens:
-            raise NotImplementedError("frontend stubs (vlm/audio) are not ported yet")
+    frontend_tokens: int = 0    # stub patch embeddings prepended (vlm)
+    d_model: int = 0            # for frontend stubs
 
 
 class SyntheticLM:
@@ -37,22 +33,36 @@ class SyntheticLM:
         self.cfg = cfg
 
     def batch_at(self, step: int) -> dict:
-        """{"tokens", "labels"}: (accum_steps, global_batch, seq_len) int32."""
+        """{"tokens", "labels"}: (accum_steps, global_batch, seq_len) int32.
+        With ``frontend_tokens`` F (the vlm stub) the text is ``seq_len - F``
+        tokens, ``"frontend"`` (A, B, F, d_model) bf16 patch embeddings
+        (N(0, 1) * 0.02) come first, and the labels are -1 over them."""
         c = self.cfg
         rng = np.random.default_rng((c.seed, step))
-        shape = (c.accum_steps, c.global_batch, c.seq_len)
+        text_len = c.seq_len - c.frontend_tokens
+        shape = (c.accum_steps, c.global_batch, text_len)
         toks = rng.integers(4, c.vocab, size=shape, dtype=np.int32)
         labels = np.roll(toks, -1, axis=-1).astype(np.int32)
         labels[..., -1] = -1
         if c.pad_fraction > 0:
             # random tail padding per sample -> real-token imbalance
             lens = rng.integers(
-                int(c.seq_len * (1 - 2 * c.pad_fraction)), c.seq_len + 1,
+                int(text_len * (1 - 2 * c.pad_fraction)), text_len + 1,
                 size=shape[:2],
             )
-            idx = np.arange(c.seq_len)[None, None, :]
+            idx = np.arange(text_len)[None, None, :]
             pad_mask = idx >= lens[..., None]
             toks = np.where(pad_mask, 0, toks)
             labels = np.where(pad_mask, -1, labels)
-        return {"tokens": torch.from_numpy(np.ascontiguousarray(toks, np.int32)),
-                "labels": torch.from_numpy(np.ascontiguousarray(labels, np.int32))}
+        out = {"tokens": torch.from_numpy(np.ascontiguousarray(toks, np.int32))}
+        if c.frontend_tokens:
+            fe = rng.standard_normal(
+                (c.accum_steps, c.global_batch, c.frontend_tokens, c.d_model),
+                dtype=np.float32,
+            ) * 0.02
+            out["frontend"] = torch.from_numpy(fe).to(torch.bfloat16)
+            # frontend positions carry no labels
+            pad = np.full((c.accum_steps, c.global_batch, c.frontend_tokens), -1, np.int32)
+            labels = np.concatenate([pad, labels], axis=-1)
+        out["labels"] = torch.from_numpy(np.ascontiguousarray(labels, np.int32))
+        return out

@@ -10,7 +10,8 @@ and for block tables that share pages across rows, as the prefix cache
 makes them;
 the functions below make the inputs with numpy from a seed, so the JAX
 functions and the port's kernels and plain versions see the same numbers. ``MAIN_*`` are the shapes the serving
-and training paths give the kernels at tinyllama-1.1b's full width.
+and training paths give the kernels at tinyllama-1.1b's full width, and
+``*_ARCH_*`` those of the other dense archs.
 """
 
 from __future__ import annotations
@@ -119,6 +120,72 @@ MAIN_FLASH_DECODE = (4, 1, 512, 32, 4, 64, True, None, None, (96, 159, 222, 287)
                      (97, 160, 223, 288))
 MAIN_FLASH_CHUNK = (1, 64, 512, 32, 4, 64, True, None, None, 192, (256,))
 MAIN_FLASH_DENSE = [MAIN_FLASH_DECODE, MAIN_FLASH_CHUNK]
+
+# The other dense archs (gemma2-2b, glm4-9b, command-r-35b,
+# llava-next-mistral-7b, hubert-xlarge) give the kernels new shapes: head
+# dim 256 (gemma2: the tensor-core K2 at DP = 256 with one stage, the fp32
+# K2 at D = 256, the tensor-core K3/K4 at 32-key tiles), a sliding window
+# of 4096 that cuts keys, GQA groups of 16 (glm4, 2 kv heads) and 8
+# (command-r), a bidirectional K2 at D = 80 (hubert). The ``*_ARCH_SMALL``
+# rows carry those shapes at small sequence lengths, for the CPU tests
+# against the JAX functions; the others are the paths' own shapes.
+#
+# K2 (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap)
+FLASH_ARCH_SMALL = [
+    (1, 96, 96, 8, 4, 256, True, 32, 50.0),       # gemma2 local: window cuts keys
+    (1, 80, 80, 8, 4, 256, True, None, 50.0),     # gemma2 global
+    (1, 64, 64, 32, 2, 128, True, None, None),    # glm4: G = 16
+    (2, 48, 48, 16, 16, 80, False, None, None),   # hubert: bidirectional
+]
+# gemma2-2b training (B 1, S 8192): the local layers (window 4096) and the
+# global ones, softcap 50
+MAIN_FLASH_GEMMA2 = (1, 8192, 8192, 8, 4, 256, True, 4096, 50.0)
+MAIN_FLASH_GEMMA2_GLOBAL = (1, 8192, 8192, 8, 4, 256, True, None, 50.0)
+FLASH_GLM4 = (1, 2048, 2048, 32, 2, 128, True, None, None)
+# llava-next-mistral-7b training (B 2, S 2048: 1152 patch embeddings, 896
+# text tokens) and hubert-xlarge training (B 4, 1024 frames)
+MAIN_FLASH_LLAVA = (2, 2048, 2048, 32, 8, 128, True, None, None)
+MAIN_FLASH_HUBERT = (4, 1024, 1024, 16, 16, 80, False, None, None)
+FLASH_ARCH_CASES = FLASH_ARCH_SMALL + [MAIN_FLASH_GEMMA2, MAIN_FLASH_GEMMA2_GLOBAL,
+                                       FLASH_GLM4, MAIN_FLASH_LLAVA, MAIN_FLASH_HUBERT]
+
+# K3 (B, Hq, Hkv, D, psize, nL, P, lens, window, softcap)
+PAGED_ARCH_SMALL = [
+    (2, 8, 4, 256, 8, 8, 20, (50, 29), 16, 50.0),    # gemma2: window crosses pages
+    (2, 8, 4, 256, 8, 8, 20, (61, 7), None, 50.0),
+    (2, 32, 2, 128, 8, 4, 10, (30, 17), None, None),  # glm4: G = 16
+    (2, 64, 8, 128, 8, 4, 10, (25, 9), None, None),   # command-r: G = 8
+]
+# gemma2-2b serving (batch 4, max_len 8192: 512 logical pages of 16) with
+# prompts of 4,300-6,100 tokens: the local layers' window 4096 cuts keys,
+# the global layers read every page
+MAIN_PAGED_GEMMA2 = (4, 8, 4, 256, 16, 512, 1400, (4300, 4913, 5507, 6100), 4096, 50.0)
+MAIN_PAGED_GEMMA2_GLOBAL = (4, 8, 4, 256, 16, 512, 1400, (4300, 4913, 5507, 6100),
+                            None, 50.0)
+PAGED_GLM4 = (4, 32, 2, 128, 16, 128, 520, (700, 1500, 2047, 333), None, None)
+PAGED_COMMAND_R = (4, 64, 8, 128, 16, 128, 520, (700, 1500, 2047, 333), None, None)
+PAGED_ARCH_CASES = PAGED_ARCH_SMALL + [MAIN_PAGED_GEMMA2, MAIN_PAGED_GEMMA2_GLOBAL,
+                                       PAGED_GLM4, PAGED_COMMAND_R]
+
+# K4 (B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap)
+PREFILL_ARCH_SMALL = [
+    (1, 16, 8, 4, 256, 8, 12, 14, (40,), 16, 50.0),     # gemma2: the window splits
+    (2, 8, 32, 2, 128, 4, 6, 14, (0, 8), None, None),   # glm4: G = 16
+    (1, 8, 64, 8, 128, 4, 6, 8, (12,), None, None),     # command-r: G = 8
+]
+# a gemma2-2b chunk of 64 past 4096: the window's first key (405..468)
+# lies inside a page, so the window crosses and splits pages
+MAIN_PREFILL_GEMMA2 = (1, 64, 8, 4, 256, 16, 512, 400, (4500,), 4096, 50.0)
+MAIN_PREFILL_GEMMA2_GLOBAL = (1, 64, 8, 4, 256, 16, 512, 400, (4500,), None, 50.0)
+PREFILL_GLM4 = (1, 64, 32, 2, 128, 16, 128, 140, (1000,), None, None)
+PREFILL_ARCH_CASES = PREFILL_ARCH_SMALL + [MAIN_PREFILL_GEMMA2, MAIN_PREFILL_GEMMA2_GLOBAL,
+                                           PREFILL_GLM4]
+
+# K1 (rows, d, zero_centred) on the new paths: gemma2's zero-centred norm
+# at 2304 (a decode step, a chunk, the training step's 8192 rows), glm4 and
+# llava at 4096, command-r at 8192, hubert's training rows at 1280
+RMS_ARCH_CASES = [(4, 2304, True), (64, 2304, True), (8192, 2304, True), (4, 4096, False),
+                  (4, 8192, False), (4096, 1280, False)]
 
 
 # Gates of a kernel against its plain version, by dtype. TOL_MAX bounds the

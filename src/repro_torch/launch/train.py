@@ -9,6 +9,15 @@ none; ``--device cpu`` runs the plain PyTorch versions of the kernels.
 Weights are the port's seeded initializer's. It prints the first and last
 loss, each kernel's launch count, and where the TALP run record (schema
 v3, regions ``initialize`` and ``train_step``) was written.
+
+``--arch`` takes every arch the port runs. The vlm (llava-next-mistral-7b)
+trains on the synthetic stream with its stub patch embeddings ahead of
+the text, as the JAX launcher feeds it. The audio model (hubert-xlarge)
+is refused: the synthetic stream is a token stream and the audio model
+takes frame embeddings and has no token embedding. The JAX launcher
+feeds it tokens and fails with ``KeyError: 'embed'``. Train it through
+``train.loop.TrainLoop`` with a data source whose batches carry
+``frontend`` (``chip_smoke.py`` does).
 """
 
 from __future__ import annotations
@@ -41,9 +50,17 @@ def main(argv=None) -> int:
     from repro_torch.train.train import TrainConfig
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.frontend == "audio":
+        raise SystemExit(
+            f"{args.arch} takes audio frame embeddings (batch['frontend']) and has no "
+            f"token embedding; the synthetic stream has no audio frames (nor has the "
+            f"JAX package's), so this launcher cannot train it. Drive "
+            f"train.loop.TrainLoop with a data source of frontend batches instead.")
     data = SyntheticLM(DataConfig(
         global_batch=args.global_batch, seq_len=args.seq_len, vocab=cfg.vocab,
-        accum_steps=args.accum, pad_fraction=0.05, d_model=cfg.d_model,
+        accum_steps=args.accum, pad_fraction=0.05,
+        frontend_tokens=cfg.n_frontend_tokens if cfg.frontend == "vlm" else 0,
+        d_model=cfg.d_model,
     ))
     loop = TrainLoop(
         cfg, TrainConfig(optimizer=AdamWConfig(lr=args.lr), total_steps=args.steps),

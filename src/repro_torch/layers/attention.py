@@ -133,8 +133,11 @@ def key_positions(B: int, Smax: int, device: torch.device) -> torch.Tensor:
 
 
 def attention_params(cfg) -> dict:
+    """Projections; with ``attn_bias`` the q/k/v biases (zeros), with
+    ``qk_norm`` its scales (declared for the count; the port refuses
+    qk-norm)."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    return {
+    p = {
         "wq": ParamSpec((d, hq * hd)),
         "wk": ParamSpec((d, hkv * hd)),
         "wv": ParamSpec((d, hkv * hd)),
@@ -143,6 +146,14 @@ def attention_params(cfg) -> dict:
             scale=1.0 / (math.sqrt(hq * hd) * math.sqrt(2 * cfg.n_layers)),
         ),
     }
+    if cfg.attn_bias:
+        p["bq"] = ParamSpec((hq * hd,), init="zeros")
+        p["bk"] = ParamSpec((hkv * hd,), init="zeros")
+        p["bv"] = ParamSpec((hkv * hd,), init="zeros")
+    if cfg.qk_norm:
+        p["q_norm"] = ParamSpec((hd,), init="ones")
+        p["k_norm"] = ParamSpec((hd,), init="ones")
+    return p
 
 
 def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
@@ -169,6 +180,10 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
     q = (x @ params["wq"].to(compute)).reshape(B, S, hq, hd)
     k = (x @ params["wk"].to(compute)).reshape(B, S, hkv, hd)
     v = (x @ params["wv"].to(compute)).reshape(B, S, hkv, hd)
+    if cfg.attn_bias:  # after the projections, before RoPE
+        q = q + params["bq"].reshape(1, 1, hq, hd).to(compute)
+        k = k + params["bk"].reshape(1, 1, hkv, hd).to(compute)
+        v = v + params["bv"].reshape(1, 1, hkv, hd).to(compute)
     if cfg.rope_theta:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary)

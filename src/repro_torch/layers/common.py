@@ -55,7 +55,10 @@ def init_params(tree, generator: torch.Generator,
     ``jax.random``'s; parity tests convert JAX weights instead.
 
     Draws come from ``generator`` on its own device and are then moved to
-    ``device``, so a CPU generator gives the same weights on every device.
+    ``device``, so a CPU generator gives the same weights on every device;
+    a CUDA generator draws on the card (a large model's weights then never
+    cross the host). A leaf is scaled in place and cast, so a draw holds
+    its fp32 leaf and the cast copy at once, never a second fp32 copy.
     """
     out = {}
 
@@ -69,7 +72,7 @@ def init_params(tree, generator: torch.Generator,
         scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
         w = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
-        return (w * scale).to(dtype=dtype, device=device)
+        return w.mul_(scale).to(dtype=dtype, device=device)
 
     for path, spec in tree_leaves(tree):
         out[path] = make(spec)

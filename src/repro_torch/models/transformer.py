@@ -3,8 +3,13 @@
 The layer stack is ``cfg.pattern`` repeated ``cfg.repeats`` times; the
 parameter tree is the JAX package's, stacked over repeats, and a Python
 loop over repeats takes the place of the ``scan``. The port runs the
-``attn`` block kind, cache-less for training and over the paged KV pool
-or the dense KV cache for serving:
+dense block kinds, ``attn`` and ``local_attn`` (attention over the last
+``cfg.window`` keys), cache-less for training and over the paged KV pool
+or the dense KV cache for serving. Inputs are token ids, stub frontend
+embeddings (``batch["frontend"]`` (B,P,d): the vlm's patches ahead of the
+text, or the audio model's frames with no tokens and no ``embed``), or
+both. An encoder-only model (bidirectional attention) has ``forward`` and
+``apply_logits`` and no cache:
 
   model_params(cfg)                      ParamSpec tree
   Transformer.from_init(cfg, seed)       seeded weights (port's initializer)
@@ -29,6 +34,7 @@ from repro_torch.configs.base import check_supported
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as A
 from repro_torch.layers import ffn as FFN
+from repro_torch.layers import recurrent as R
 from repro_torch.layers.common import (
     ParamSpec,
     init_params,
@@ -45,14 +51,29 @@ from repro_torch.layers.norms import rmsnorm, rmsnorm_params
 
 
 def _slot_params(cfg, kind: str) -> dict:
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    return {
-        "norm_in": rmsnorm_params(cfg.d_model),
-        "attn": A.attention_params(cfg),
-        "norm_mlp": rmsnorm_params(cfg.d_model),
-        "mlp": FFN.mlp_params(cfg),
-    }
+    """The JAX package's slot tree for every block kind. Only the dense
+    kinds run (``check_supported``); the others are declared so that the
+    parameter count, and with it ``models.flops``, is the JAX one for
+    every arch."""
+    p: dict = {"norm_in": rmsnorm_params(cfg.d_model)}
+    if kind in ("attn", "local_attn", "moe"):
+        p["attn"] = A.attention_params(cfg)
+        p["norm_mlp"] = rmsnorm_params(cfg.d_model)
+        if kind == "moe":
+            p["moe"] = FFN.moe_params(cfg)
+        else:
+            p["mlp"] = FFN.mlp_params(cfg)
+    elif kind == "mamba2":
+        p["mamba"] = R.mamba2_params(cfg)
+    elif kind == "mlstm":
+        p["mlstm"] = R.mlstm_params(cfg)
+    elif kind == "slstm":
+        p["slstm"] = R.slstm_params(cfg)
+        p["norm_mlp"] = rmsnorm_params(cfg.d_model)
+        p["mlp"] = FFN.mlp_params(cfg, d_ff=int(cfg.d_model * cfg.xlstm.slstm_ff_factor))
+    else:
+        raise ValueError(f"unknown block kind {kind}")
+    return p
 
 
 def _stack(tree, n: int):
@@ -62,9 +83,12 @@ def _stack(tree, n: int):
 
 
 def model_params(cfg) -> dict:
-    check_supported(cfg)
+    """The ParamSpec tree of every arch (the parameter count reads it);
+    ``Transformer`` refuses what the port cannot run."""
     d, v = cfg.d_model, cfg.vocab_padded
-    params: dict = {"embed": ParamSpec((v, d), scale=0.02)}
+    params: dict = {}
+    if cfg.frontend != "audio":  # the audio stub feeds frame embeddings directly
+        params["embed"] = ParamSpec((v, d), scale=0.02)
     params["slots"] = {
         f"slot{i}_{kind}": _stack(_slot_params(cfg, kind), cfg.repeats)
         for i, kind in enumerate(cfg.pattern)
@@ -85,17 +109,16 @@ def _attr_name(path: str) -> str:
 
 
 class Transformer(nn.Module):
-    """Decoder-only transformer. Weights are ``nn.Parameter``s named after
-    their path in the JAX parameter tree (``slots/slot0_attn/attn/wq`` ->
-    ``slots__slot0_attn__attn__wq``), stacked over repeats as in JAX, so
-    autograd has one leaf per tree leaf. A tensor handed in on the target
+    """Decoder (with ``cfg.encoder_only``, encoder) transformer. Weights
+    are ``nn.Parameter``s named after their path in the JAX parameter tree
+    (``slots/slot0_attn/attn/wq`` -> ``slots__slot0_attn__attn__wq``),
+    stacked over repeats as in JAX, so autograd has one leaf per tree
+    leaf. A tensor handed in on the target
     device is used as it is, not copied."""
 
     def __init__(self, cfg, params: dict, device=None):
         super().__init__()
         check_supported(cfg)
-        if cfg.encoder_only:
-            raise NotImplementedError(f"{cfg.name} is encoder-only: no decode path")
         self.cfg = cfg
         dev = resolve_device(device)
         expected = {p: s.shape for p, s in tree_leaves(model_params(cfg))}
@@ -113,17 +136,27 @@ class Transformer(nn.Module):
             self.register_parameter(_attr_name(path), nn.Parameter(t.detach().to(dev)))
 
     @classmethod
-    def from_init(cls, cfg, seed: int = 0, device=None) -> "Transformer":
-        """Seeded weights from the port's initializer, drawn on the CPU (the
-        same weights on every device), stored in the config's param dtype."""
+    def from_init(cls, cfg, seed: int = 0, device=None,
+                  draw_device: str = "cpu") -> "Transformer":
+        """Seeded weights from the port's initializer, stored in the
+        config's param dtype. Drawn on the CPU by default (the same weights
+        on every device); ``draw_device="cuda"`` draws them on the card
+        with a CUDA generator (other numbers, no host round trip)."""
+        check_supported(cfg)  # before the draw
         dev = resolve_device(device)
-        gen = torch.Generator(device="cpu").manual_seed(seed)
+        gen = torch.Generator(device=draw_device).manual_seed(seed)
         params = init_params(model_params(cfg), gen, cfg.param_dtype, dev)
         return cls(cfg, params, dev)
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.norm_f__scale.device
+
+    def _no_cache(self, what: str) -> None:
+        if self.cfg.encoder_only:
+            raise NotImplementedError(
+                f"{self.cfg.name} is encoder-only: bidirectional attention has no KV "
+                f"cache, so there is no {what} (use forward or apply_logits)")
 
     def named_params(self) -> dict[str, nn.Parameter]:
         """``{path: parameter}`` in sorted path order (the JAX leaf order)."""
@@ -143,6 +176,7 @@ class Transformer(nn.Module):
         capacity, ``ceil(batch*max_len/page_size)``. ``paged=False``: dense
         ``(R, batch+1, max_len, Hkv, hd)``, a row a slot plus the spare row
         (see ``layers.attention``)."""
+        self._no_cache("init_cache")
         cfg = self.cfg
         dtype = dtype or cfg.compute_dtype
         if paged:
@@ -162,9 +196,18 @@ class Transformer(nn.Module):
 
     # -- pieces ---------------------------------------------------------
 
-    def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_inputs(self, tokens, frontend=None) -> torch.Tensor:
+        """Stub frontend embeddings (B,P,d) first, then the tokens' (B,S)
+        embeddings, concatenated along the sequence; ``embed_scale`` after
+        the concatenation, as in the JAX package."""
         cfg = self.cfg
-        x = self.embed[tokens.long()].to(cfg.compute_dtype)
+        parts = []
+        if frontend is not None:
+            parts.append(frontend.to(self.device, cfg.compute_dtype, non_blocking=True))
+        if tokens is not None:
+            tokens = tokens.to(self.device, non_blocking=True)
+            parts.append(self.embed[tokens.long()].to(cfg.compute_dtype))
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
         return x
@@ -181,16 +224,19 @@ class Transformer(nn.Module):
         cfg = self.cfg
         return rmsnorm(x, self.norm_f__scale, cfg.norm_eps, cfg.zero_centered_norm)
 
-    def _apply_slot(self, sp: dict, x, *, positions, cache, cache_len, seq_mask,
+    def _apply_slot(self, sp: dict, x, *, kind, positions, cache, cache_len, seq_mask,
                     block_tables, cache_row0=0):
-        """One ``attn`` block: pre-norm attention + pre-norm MLP, residuals."""
+        """One ``attn`` or ``local_attn`` block: pre-norm attention (over the
+        last ``cfg.window`` keys for ``local_attn``; bidirectional for an
+        encoder-only model) + pre-norm MLP, residuals."""
         cfg = self.cfg
         h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         x = x + A.attention_block(
             sp["attn"], h, cfg, positions=positions,
             cache=None if cache is None else cache["attn"],
             cache_len=cache_len, block_tables=block_tables, seq_mask=seq_mask,
-            causal=True, cache_row0=cache_row0,
+            causal=not cfg.encoder_only,
+            window=cfg.window if kind == "local_attn" else None, cache_row0=cache_row0,
         )
         h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         return x + FFN.mlp_block(sp["mlp"], h2, cfg)
@@ -213,7 +259,8 @@ class Transformer(nn.Module):
             for name, sp in slots.items():
                 layer = tree_map(lambda t: t[r], sp)
                 cache = None if caches is None else tree_map(lambda t: t[r], caches[name])
-                kw = dict(positions=positions, cache=cache, cache_len=cache_len,
+                kw = dict(kind=name.split("_", 1)[1], positions=positions, cache=cache,
+                          cache_len=cache_len,
                           seq_mask=seq_mask, block_tables=block_tables,
                           cache_row0=cache_row0)
                 if remat:
@@ -266,9 +313,9 @@ class Transformer(nn.Module):
             loss_sum, w_sum = loss_sum + ls, w_sum + ws
         return loss_sum, w_sum
 
-    def _full_sequence(self, tokens) -> torch.Tensor:
+    def _full_sequence(self, batch: dict) -> torch.Tensor:
         """Embed, run the stack cache-less at positions 0..S-1, final norm."""
-        x = self._embed_inputs(tokens.to(self.device, non_blocking=True))
+        x = self._embed_inputs(batch.get("tokens"), batch.get("frontend"))
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
         x = self._run_stack(x, None, positions=positions, cache_len=None,
@@ -278,10 +325,12 @@ class Transformer(nn.Module):
     # -- entry points -----------------------------------------------------
 
     def forward(self, batch: dict):
-        """Training/eval forward: ``batch`` {"tokens": (B,S), "labels": (B,S)}
-        (moved to the model's device). Returns (loss, aux): the mean CE
-        plus z-loss over labelled tokens, and aux {"tokens": their count}."""
-        x = self._full_sequence(batch["tokens"])
+        """Training/eval forward: ``batch`` {"tokens": (B,S), "labels": (B,S)},
+        with stub embeddings ``"frontend"`` (B,P,d) ahead of the tokens, or
+        in their place (labels then cover P + S positions; moved to the
+        model's device). Returns (loss, aux): the mean CE plus z-loss over
+        labelled tokens, and aux {"tokens": their count}."""
+        x = self._full_sequence(batch)
         labels = batch["labels"].to(self.device, non_blocking=True)
         loss_sum, w_sum = self.cross_entropy(x, labels)
         return loss_sum / torch.clamp(w_sum, min=1.0), {"tokens": w_sum}
@@ -289,7 +338,7 @@ class Transformer(nn.Module):
     def apply_logits(self, batch: dict):
         """Full-sequence logits (B,S,V) (small-model/eval path; materializes
         them). Returns (logits, aux)."""
-        return self._logits(self._full_sequence(batch["tokens"])), {}
+        return self._logits(self._full_sequence(batch)), {}
 
     @torch.inference_mode()
     def prefill_chunk(self, tokens, caches, start, length, block_tables=None,
@@ -301,6 +350,7 @@ class Transformer(nn.Module):
         on the paged layout, or, on the dense layout (``block_tables``
         None), in cache rows ``slot .. slot+B-1``. Returns logits (B,V) at
         each row's last valid position, or (B,C,V) with ``all_logits``."""
+        self._no_cache("prefill_chunk")
         x = self._embed_inputs(tokens)
         B, C, _ = x.shape
         start = self._per_row(start, B)
@@ -323,6 +373,7 @@ class Transformer(nn.Module):
         ``active`` (B,) bool: inactive slots write nothing. ``block_tables``
         (B,nL) on the paged layout, None on the dense one (cache rows
         0..B-1). Returns (B,V)."""
+        self._no_cache("decode_step")
         x = self._embed_inputs(tokens)
         B = x.shape[0]
         pos = self._per_row(pos, B)

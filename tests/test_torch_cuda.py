@@ -7,7 +7,8 @@ imports no JAX, so it runs on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Cases are the JAX package's kernel case tables plus the serving and
-training paths' shapes at tinyllama-1.1b's full width. Tolerances: paged
+training paths' shapes at tinyllama-1.1b's full width and at the other
+dense archs' (``cases.*_ARCH_*``). Tolerances: paged
 attention and forwards f32 1e-4 (the kernels sum in another order than the
 plain versions), bf16 2e-2; the training kernels' outputs and gradients
 f32 1e-4 and bf16 2e-2 of the largest |value| (at least of 1): bf16 keeps
@@ -65,8 +66,10 @@ def cuda():
     return torch.device("cuda")
 
 
-PAGED_ALL = cases.PAGED_CASES + cases.PAGED_SPLIT_CASES + [cases.MAIN_PAGED]
-PREFILL_ALL = cases.PREFILL_CASES + cases.PREFILL_SPLIT_CASES + [cases.MAIN_PREFILL]
+PAGED_ALL = (cases.PAGED_CASES + cases.PAGED_SPLIT_CASES + [cases.MAIN_PAGED]
+             + cases.PAGED_ARCH_CASES)
+PREFILL_ALL = (cases.PREFILL_CASES + cases.PREFILL_SPLIT_CASES + [cases.MAIN_PREFILL]
+               + cases.PREFILL_ARCH_CASES)
 
 
 def _paged_args(case, dtype, cuda, seed):
@@ -230,8 +233,11 @@ def test_paged_launches_report_their_cost_to_a_listening_sink(cuda, kind):
     assert got == [(name, float(want[0]), float(want[1]))] and want[0] > 0
 
 
+RMS_ARCH = [c[:2] for c in cases.RMS_ARCH_CASES]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", cases.RMS_CASES + cases.MAIN_RMS)
+@pytest.mark.parametrize("rows,d", cases.RMS_CASES + cases.MAIN_RMS + RMS_ARCH)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("zero_centered", [False, True])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, zero_centered):
@@ -249,7 +255,8 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, zero_centered):
 # backward
 # ---------------------------------------------------------------------------
 
-FLASH_ALL = [c + (0, None) for c in cases.FLASH_CASES] + cases.FLASH_KVLEN_CASES
+FLASH_ALL = ([c + (0, None) for c in cases.FLASH_CASES] + cases.FLASH_KVLEN_CASES
+             + [c + (0, None) for c in cases.FLASH_ARCH_CASES])
 
 
 def _rel_close(got, want, dtype):
@@ -398,7 +405,8 @@ def test_tensor_core_route_raises_past_its_sequence_limit(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", cases.RMS_CASES + cases.MAIN_RMS + [cases.MAIN_RMS_TRAIN])
+@pytest.mark.parametrize("rows,d",
+                         cases.RMS_CASES + cases.MAIN_RMS + [cases.MAIN_RMS_TRAIN] + RMS_ARCH)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("zero_centered", [False, True])
 def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d, dtype, zero_centered):

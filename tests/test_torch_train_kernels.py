@@ -4,7 +4,9 @@ Flash attention (K2), forward and gradients, against the jnp
 ``layers.attention.flash_attention`` the JAX training step runs (the
 Pallas flash kernel cannot run on the installed JAX: ROADMAP.md, Queue 2),
 and the RMSNorm backward (K1) against ``jax.vjp`` of the JAX ``rmsnorm``,
-over the JAX case tables plus position and ``kv_len`` cases, on numpy
+over the JAX case tables plus position and ``kv_len`` cases and the
+other dense archs' shapes at small lengths (head dim 256 with a window
+that cuts keys, GQA group 16, bidirectional at head dim 80), on numpy
 inputs from a seed. The kernels against these plain versions on the card
 are in ``test_torch_cuda.py``.
 """
@@ -40,7 +42,8 @@ def _f32(t):
     return t.detach().float().cpu().numpy()
 
 
-_FLASH_ALL = ([c + (0, None) for c in cases.FLASH_CASES] + cases.FLASH_KVLEN_CASES)
+_FLASH_ALL = ([c + (0, None) for c in cases.FLASH_CASES] + cases.FLASH_KVLEN_CASES
+              + [c + (0, None) for c in cases.FLASH_ARCH_SMALL])
 
 
 def _flash_inputs(case, seed):
@@ -106,7 +109,7 @@ def test_flash_plain_gradients_match_jax_grad(case):
         np.testing.assert_allclose(_f32(gt), gj, atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("rows,d", cases.RMS_CASES)
+@pytest.mark.parametrize("rows,d", cases.RMS_CASES + cases.RMS_WIDTH_CASES)
 @pytest.mark.parametrize("zero_centered", [False, True])
 def test_rmsnorm_plain_backward_matches_jax_grad(rows, d, zero_centered):
     """(dx, dscale) of the plain version against jax.vjp of the JAX
