@@ -135,7 +135,7 @@ exit:
            their RMS error against float64 within EXACT_RATIO times the
            CPU fp32 run's;
 5. train-parity  tinyllama-1.1b at full width in fp32, phase 3's weights:
-           the loss and gradients of one batch (B=1, S=256, remat full) on
+           the loss and gradients of one batch (B=1, S=TRAIN_PARITY_S, remat full) on
            the card (kernels), on the CPU (plain versions) and on the card
            with the plain versions (the kernels' own share), each against a
            float64 CPU run of the same weights: the card's loss within
@@ -186,6 +186,24 @@ exit:
            depth). Every request completes, logits finite, launches exact in
            each run, every loss finite. The kernel shapes of these paths are
            in phase 2's tables (``cases.*_ARCH_*``) and timed in phase 8;
+10. moe    the MoE archs at full width (``MOE_PATHS``), bf16, seeded weights
+           drawn on the card (slice by slice for a stacked expert leaf),
+           after every earlier model is freed: qwen3-moe-30b-a3b (48 layers,
+           qk-norm) and dbrx-132b (8 of 40 layers, GQA group 6) serve
+           phase 9's glm4 traffic through ``BatchScheduler`` (every request
+           completes, logits finite, launches exact: K1 4L+1 a forward with
+           qk-norm; tokens/s, TTFT, peak memory, and one decode step's time
+           beside the bound of reading every expert once); qwen3 trains 3
+           steps at 5 of 48 layers (B 1, S 4096, remat full) through
+           ``wrap_step`` in a session opened by ``repro_torch.start(...,
+           backend="monitor")``: losses finite, launches exact, the record
+           in ``results/talp_moe/`` passing ``talp validate`` with an
+           ``expert_load_balance`` in (0, 1) read from the router's counts;
+           an fp32 parity run of qwen3 at depth 2 (a 512-token prefill in
+           chunks of 64, DECODE_STEPS decode steps) held as phase 9's, its
+           routing decisions that differ between card and CPU counted and
+           allowed only where the CPU's K-th and (K+1)-th router logits lie
+           within ROUTE_TIE;
 8. timing  each kernel, its plain version and one PyTorch library call at
            the serving and training paths' shapes, beside the bound: ``ms``
            back to back with CUDA events (what an eager caller pays, host
@@ -198,7 +216,8 @@ exit:
            for the K1 backward the row pass's and the combine's device times
            apart, from the profiler's kernel names; then each kernel at phase
            9's shapes (rows with their ``path``; a soft-capped attention has
-           no library call: SDPA without the cap beside it).
+           no library call: SDPA without the cap beside it), and at phase
+           10's (G 6 and G 8 at head dim 128, qk-norm rows of 128).
 
 ``python3 chip_smoke.py --profile`` adds ``torch.profiler`` over the serve
 trace (after phase 4), over 40 mid-burst ticks of phase 4b's tight-pool
@@ -213,6 +232,7 @@ to ``results/chip_smoke.json``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -250,6 +270,10 @@ DECODE_STEPS = 8
 # versions and CPU alike: PERF.md), so only the float64 witness can tell
 # the kernels' error from fp32 rounding.
 TRAIN_TOL = 1e-4
+# Phase 5's sequence length: its CPU fp32 and float64 runs of 1.1e9
+# parameters dominate the phase, and S 128 keeps the script within its
+# time (PERF.md)
+TRAIN_PARITY_S = 128
 TRAIN_STEPS = 10
 TRAIN_B, TRAIN_S, TRAIN_A = 4, 2048, 1
 # Phase 7 runs the training configuration REPORT_STEPS steps more under the
@@ -327,6 +351,27 @@ ARCH_PATHS = {
                                   train_seq=2048, train_steps=3),
     "hubert-xlarge": dict(train_batch=4, train_seq=1024, train_steps=3),
 }
+# Phase 10: the MoE archs at full width, bf16, seeded weights drawn on the
+# card (a CPU twin only for the parity run). qwen3-moe-30b-a3b (qk-norm,
+# 128 experts, top 8; 30.5e9 parameters, 61.0 GB of bf16) serves at full
+# depth (48 layers) with glm4's traffic; dbrx-132b (16 experts, top 4, G =
+# 6) at 8 of 40 layers (40 would be 263 GB: 8 are 55 GB); qwen3 trains at
+# 5 of 48 layers, the deepest that leaves a tenth of the card free (AdamW's
+# state and the fp32 gradients take 18 bytes a parameter: 3.7e9 of them at
+# 5 layers; the peak read 74.8e9 of 85.0e9 bytes on an H100, PERF.md) in a
+# session opened by ``repro_torch.start``; an fp32 parity run of qwen3 at depth 2 (a 512-token
+# prefill in chunks of 64) counts the routing decisions that differ between
+# the card and the CPU, each allowed only at a CPU near tie (its K-th and
+# (K+1)-th router logits within ROUTE_TIE).
+MOE_PATHS = {
+    "qwen3-moe-30b-a3b": dict(repeats=None, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
+                              max_new=16, train_repeats=5, train_batch=1, train_seq=4096,
+                              train_steps=3, parity_repeats=2, parity_prompt=512),
+    "dbrx-132b": dict(repeats=8, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
+                      max_new=16),
+}
+ROUTE_TIE = 1e-4
+MOE_TALP_DIR = os.path.join("results", "talp_moe")
 # phase 9's gemma2-2b training record, apart from phase 7's CI folder (whose
 # report and ``validate`` count its six runs)
 ARCH_TALP_DIR = os.path.join("results", "talp_archs")
@@ -1023,7 +1068,7 @@ def _greedy_run(model, prompt, page: int, toks=None, dense: bool = False):
 
     def recording(*a, **k):
         out = inner(*a, **k)
-        resid.append(out[0].double().cpu())
+        resid.append(out[0][0].double().cpu())  # (x, aux): the batch's one row
         return out
 
     model._apply_slot = recording
@@ -2350,7 +2395,7 @@ def phase_train_parity(params_f32):
     cfg = _config().replace(param_dtype_name="float32", compute_dtype_name="float32",
                             remat="full")
     batch = {k: v[0] for k, v in SyntheticLM(DataConfig(
-        global_batch=1, seq_len=256, vocab=cfg.vocab, pad_fraction=0.05,
+        global_batch=1, seq_len=TRAIN_PARITY_S, vocab=cfg.vocab, pad_fraction=0.05,
         seed=7)).batch_at(0).items()}
     runs = {"cpu": _loss_and_grads(Transformer(cfg, params_f32, "cpu"), batch)}
     # the same weights (fp32 values, exact in float64) in float64: the
@@ -2379,7 +2424,8 @@ def phase_train_parity(params_f32):
     finite = all(torch.isfinite(g).all() for g in runs["card"][1].values())
     grad_norm = {k: float(sum(g.pow(2).sum() for g in v[1].values()) ** 0.5)
                  for k, v in {**runs, "float64": exact}.items()}
-    emit("train_parity", arch=ARCH, dtype="float32", batch=1, seq_len=256, remat="full",
+    emit("train_parity", arch=ARCH, dtype="float32", batch=1, seq_len=TRAIN_PARITY_S,
+         remat="full",
          tolerance={"card_over_cpu_rms_vs_float64": EXACT_RATIO, "loss_rel": TRAIN_TOL},
          loss={**{k: v[0] for k, v in runs.items()}, "float64": exact[0]},
          grad_norm=grad_norm, vs_float64=errs,
@@ -2401,16 +2447,23 @@ def phase_train_parity(params_f32):
 # ---------------------------------------------------------------------------
 
 
+def _norms_per_layer(cfg) -> int:
+    """K1 launches a layer a forward: the block's two norms, and with
+    qk-norm the query and key norms."""
+    return 4 if cfg.qk_norm else 2
+
+
 def _train_expected_launches(cfg, steps: int, accum: int) -> dict:
-    """Per microbatch, L layers, remat full: the forward runs 2 RMSNorms and
-    one attention per layer plus the final norm (2L+1, L); the backward
-    recomputes every layer once (2L RMSNorms and L attentions more: the
-    final norm sits outside the checkpointed layers) and then launches one
-    flash backward per layer and one RMSNorm backward per norm (L, 2L+1)."""
-    L = cfg.n_layers
+    """Per microbatch, L layers of n norms (``_norms_per_layer``), remat
+    full: the forward runs n RMSNorms and one attention per layer plus the
+    final norm (nL+1, L); the backward recomputes every layer once (nL
+    RMSNorms and L attentions more: the final norm sits outside the
+    checkpointed layers) and then launches one flash backward per layer and
+    one RMSNorm backward per norm (L, nL+1)."""
+    L, n = cfg.n_layers, _norms_per_layer(cfg)
     assert cfg.remat == "full"
     per = {"flash_attention": 2 * L, "flash_attention_backward": L,
-           "rmsnorm": 4 * L + 1, "rmsnorm_backward": 2 * L + 1}
+           "rmsnorm": 2 * n * L + 1, "rmsnorm_backward": n * L + 1}
     return {k: v * steps * accum for k, v in per.items()}
 
 
@@ -2797,7 +2850,11 @@ def phase_arch_serve(arch: str, repeats, max_len: int, prompt_lens, max_new: int
     """``BatchScheduler`` (batch 4, page 16, chunk 64, overlap) at full width
     in bf16 on seeded card weights: every request completes with ``max_new``
     tokens in the vocab, finite logits, launches exact (K3 one per layer a
-    decode step, K4 one per layer a chunk, K1 2L+1 a forward)."""
+    decode step, K4 one per layer a chunk, K1 nL+1 a forward, n the norms
+    of a layer). For an MoE arch also one decode step's time on a fresh
+    pool at the trace's positions (events, after two warm-up steps) beside
+    the bound of reading every expert's weights once, and the kernels and
+    copies a step puts on the card (``torch.profiler``)."""
     import numpy as np
     import torch
 
@@ -2827,11 +2884,14 @@ def phase_arch_serve(arch: str, repeats, max_len: int, prompt_lens, max_new: int
     want = {k: 0 for k in counts}
     want.update({"paged_attention": L * st["decode_steps"],
                  "paged_prefill_attention": L * st["prefill_chunks"],
-                 "rmsnorm": (2 * L + 1) * (st["decode_steps"] + st["prefill_chunks"])})
+                 "rmsnorm": (_norms_per_layer(cfg) * L + 1)
+                 * (st["decode_steps"] + st["prefill_chunks"])})
     gens = [r["generated"] for r in sched.completed]
+    ttft = sorted(r["t_first_token"] - r["t_submit"] for r in sched.completed)
     kv = sched.kv_cache_stats()
     n_tok = sum(len(g) for g in gens)
     phase = f"serve_{arch}"
+    moe = _moe_decode(model, cfg, [len(p) for p in prompts], max_len) if cfg.moe else {}
     # every prompt runs past the window: each local layer's K4 launch from
     # the first chunk past it, and each K3 launch, leaves keys out
     emit(phase, arch=arch, dtype="bfloat16", layers=L, full_layers=_arch_cfg(arch).n_layers,
@@ -2840,9 +2900,10 @@ def phase_arch_serve(arch: str, repeats, max_len: int, prompt_lens, max_new: int
          prompt_lens=[len(p) for p in prompts], max_new=max_new,
          completed=len(sched.completed), ticks=st["ticks"], decode_steps=st["decode_steps"],
          prefill_chunks=st["prefill_chunks"], launches=counts, expected_launches=want,
-         tokens_per_s=n_tok / wall, wall_s=wall, kv_bytes=kv["kv_bytes"],
-         peak_used_pages=kv["peak_used_pages"],
-         peak_mem_bytes=torch.cuda.max_memory_allocated())
+         tokens_per_s=n_tok / wall, wall_s=wall,
+         ttft_deferred_s={"p50": ttft[len(ttft) // 2], "max": ttft[-1]},
+         kv_bytes=kv["kv_bytes"], peak_used_pages=kv["peak_used_pages"],
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), **moe)
     if len(gens) != len(prompts) or any(len(g) != max_new for g in gens):
         raise AssertionError(f"{phase}: {len(gens)} completed, lengths {[len(g) for g in gens]}")
     if cfg.window and min(len(p) for p in prompts) <= cfg.window:
@@ -2989,7 +3050,10 @@ def phase_arch_parity(arch: str, repeats: int, prompt_len: int, seed: int,
     (kernels) and on the CPU (plain versions). Gates as phase 3's: logits
     within LOGIT_TOL, greedy tokens equal wherever the CPU's top-2 gap
     exceeds it, and the card's RMS logit error against a float64 CPU run
-    of the same weights within EXACT_RATIO times the CPU fp32 run's."""
+    of the same weights within EXACT_RATIO times the CPU fp32 run's. For an
+    MoE arch the routing decisions that differ between the card and the
+    CPU are counted, and each must lie at a CPU near tie (its K-th and
+    (K+1)-th router logits within ROUTE_TIE)."""
     import numpy as np
     import torch
 
@@ -2997,6 +3061,7 @@ def phase_arch_parity(arch: str, repeats: int, prompt_len: int, seed: int,
     from repro_torch.models.transformer import Transformer
 
     cfg = _arch_cfg(arch, repeats, "float32")
+    routed = _routing_recorded if cfg.moe else (lambda: contextlib.nullcontext([]))
     t0 = time.perf_counter()
     cpu = Transformer.from_init(cfg, seed=seed, device="cpu")
     if bias_std:
@@ -3010,7 +3075,8 @@ def phase_arch_parity(arch: str, repeats: int, prompt_len: int, seed: int,
     prompt = np.random.default_rng(seed).integers(4, cfg.vocab, size=(1, prompt_len))
     prompt = prompt.astype(np.int32)
     t0 = time.perf_counter()
-    ref, toks = _chunked_run(cpu, prompt, page, chunk)
+    with routed() as cpu_routes:
+        ref, toks = _chunked_run(cpu, prompt, page, chunk)
     cpu_s = time.perf_counter() - t0
     cfg64 = cfg.replace(param_dtype_name="float64", compute_dtype_name="float64")
     exact_model = Transformer(cfg64, tree_map(lambda t: t.double(), cpu.params()), "cpu")
@@ -3018,8 +3084,10 @@ def phase_arch_parity(arch: str, repeats: int, prompt_len: int, seed: int,
     del exact_model
     gpu = Transformer(cfg, cpu.params(), device=DEV)
     t0 = time.perf_counter()
-    got, _ = _chunked_run(gpu, prompt, page, chunk, toks)
+    with routed() as card_routes:
+        got, _ = _chunked_run(gpu, prompt, page, chunk, toks)
     card_s = time.perf_counter() - t0
+    routing = _routing_flips(card_routes, cpu_routes, cfg.moe.top_k) if cfg.moe else {}
     err = float((got - ref).abs().max())
     top2 = ref.topk(2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
@@ -3042,13 +3110,16 @@ def phase_arch_parity(arch: str, repeats: int, prompt_len: int, seed: int,
          card_over_cpu_rms_vs_float64=card_rms / cpu_rms,
          logit_absmax=float(exact.abs().max()), positions_decided=int(decided.sum()),
          greedy_equal_where_gap_exceeds_tol=ok_tokens, init_seconds=round(init_s, 3),
-         cpu_seconds=round(cpu_s, 3), card_seconds=round(card_s, 3))
+         cpu_seconds=round(cpu_s, 3), card_seconds=round(card_s, 3),
+         **({"routing": dict(routing, tie_tolerance=ROUTE_TIE)} if routing else {}))
     if not (finite and err <= LOGIT_TOL and ok_tokens):
         raise AssertionError(f"parity {arch}: card vs CPU logits err {err} (tol {LOGIT_TOL}), "
                              f"finite {finite}, greedy equal {ok_tokens}")
     if card_rms > EXACT_RATIO * cpu_rms:
         raise AssertionError(f"parity {arch}: card's RMS logit error against float64 "
                              f"{card_rms}, more than {EXACT_RATIO}x the CPU's ({cpu_rms})")
+    if routing and not all(g <= ROUTE_TIE for g in routing["flip_cpu_gaps"]):
+        raise AssertionError(f"parity {arch}: routing flips away from a near tie: {routing}")
     del cpu, gpu
     _release()
 
@@ -3104,6 +3175,199 @@ def phase_archs() -> dict:
     return counts
 
 
+def phase_moe_train(arch: str, repeats: int, batch: int, seq: int, steps: int,
+                    seed: int) -> dict:
+    """The train step at full width in bf16 (remat full, AdamW with fp32
+    master) on seeded card weights, through a session opened by
+    ``repro_torch.start(..., backend="monitor")`` and ``wrap_step``, as a
+    user integrates it: losses finite, launches exact, the record in
+    ``MOE_TALP_DIR`` passing ``validate_pop`` and the ``talp validate``
+    CLI, its ``expert_load_balance`` in (0, 1] and not the default 1.0."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.core.factors import validate_pop
+    from repro_torch.core.records import ResourceConfig, RunRecord
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.flops import train_step_model_flops
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.train import TrainConfig, TrainState, make_train_step
+
+    cfg = _arch_cfg(arch, repeats)
+    tcfg = TrainConfig(total_steps=steps)
+    data = SyntheticLM(DataConfig(global_batch=batch, seq_len=seq, vocab=cfg.vocab,
+                                  pad_fraction=0.05))
+    shape = tuple(data.batch_at(0)["labels"].shape)
+    record_dir = os.path.join(ROOT, MOE_TALP_DIR, arch, "train_monitor")
+    shutil.rmtree(os.path.join(ROOT, MOE_TALP_DIR), ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _card_model(cfg, seed)
+    state = TrainState(model, adamw_init(model.named_params(), tcfg.optimizer), 0)
+    session = repro_torch.start(arch, backend="monitor", lb_sample_every=1,
+                                resources=ResourceConfig(num_hosts=1, devices_per_host=1,
+                                                         mesh={"data": 1, "model": 1},
+                                                         num_pods=1))
+    if session.backend != "monitor":
+        raise AssertionError(f"train {arch}: session backend {session.backend!r}")
+    step = session.wrap_step(make_train_step(cfg, tcfg), region="train_step", derive=True,
+                             model_flops=train_step_model_flops(cfg, shape))
+    reset_launch_counts()
+    losses, secs, loads = [], [], []
+    with session:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, data.batch_at(i))
+            losses.append(float(metrics["loss"]))
+            secs.append(time.perf_counter() - t0)
+            loads.append(metrics["expert_load"].tolist())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    session.finalize(record_dir)
+    path = session.last_record_path
+    loaded = RunRecord.load(path)
+    ts = loaded.regions["train_step"]
+    pop_errors = {n: validate_pop(r.pop) for n, r in loaded.regions.items()}
+    cli = _talp_cli("validate", "-i", MOE_TALP_DIR)
+    m = re.search(r"(\d+) runs checked, (\d+) violations", cli["stdout"])
+    want = {k: 0 for k in counts}
+    want.update(_train_expected_launches(cfg, steps, 1))
+    median = float(np.median(secs[1:]))
+    model_flops = train_step_model_flops(cfg, shape)
+    factor = ts.pop.get("expert_load_balance")
+    emit(f"train_{arch}", arch=arch, dtype="bfloat16", layers=cfg.n_layers,
+         full_layers=_arch_cfg(arch).n_layers, params=cfg.param_count(),
+         active_params=cfg.active_param_count(), weights_drawn_on="cuda",
+         init_seconds=round(init_s, 3), labels_shape=list(shape), remat=cfg.remat,
+         session="repro_torch.start(backend='monitor')", steps=steps, losses=losses,
+         step_seconds=secs, median_step_seconds=median, tokens_per_s=shape[1] * shape[2] / median,
+         model_flops_per_step=model_flops, mfu=model_flops / median / PEAK_FLOPS["bfloat16"],
+         peak_mem_bytes=peak, card_bytes=torch.cuda.get_device_properties(0).total_memory,
+         expert_load_per_step=loads, expert_lb=ts.measurements.expert_lb,
+         expert_load_balance=factor, launches=counts, expected_launches=want,
+         record=os.path.relpath(path, ROOT), regions=sorted(loaded.regions),
+         num_steps=ts.measurements.num_steps, pop_errors=pop_errors, talp_validate=cli)
+    failures = []
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite loss in {losses}")
+    if counts != want or min(counts[k] for k in TRAIN_KERNELS) <= 0:
+        failures.append(f"launches {counts} != expected {want}")
+    if any(pop_errors.values()) or ts.measurements.num_steps != steps:
+        failures.append(f"record {path}: POP {pop_errors}, {ts.measurements.num_steps} steps")
+    if cli["rc"] != 0 or not m or m.groups() != ("1", "0"):
+        failures.append(f"talp validate {MOE_TALP_DIR}: {cli}")
+    if factor is None or not 0.0 < factor <= 1.0 or factor == 1.0:
+        failures.append(f"expert_load_balance {factor}: not in (0, 1) from the router")
+    if failures:
+        raise AssertionError(f"train {arch}: " + "; ".join(failures))
+    del step, session, state, model
+    _release()
+    return counts
+
+
+def phase_moe() -> dict:
+    """The MoE archs at full width (MOE_PATHS' cuts): qwen3-moe-30b-a3b's
+    serving at full depth, training in a ``repro_torch.start`` session and
+    fp32 parity with its routing flips counted; dbrx-132b's serving (G 6).
+    Runs after every earlier model is freed. Returns each path's launch
+    counts."""
+    import torch
+
+    _release()
+    counts = {}
+    q = MOE_PATHS["qwen3-moe-30b-a3b"]
+    RESULT["moe_allocated_before_bytes"] = torch.cuda.memory_allocated()
+    counts["qwen3_serve"] = phase_arch_serve("qwen3-moe-30b-a3b", q["repeats"], q["max_len"],
+                                             q["prompt_lens"], q["max_new"], seed=71)
+    d = MOE_PATHS["dbrx-132b"]
+    counts["dbrx_serve"] = phase_arch_serve("dbrx-132b", d["repeats"], d["max_len"],
+                                            d["prompt_lens"], d["max_new"], seed=72)
+    counts["qwen3_train"] = phase_moe_train("qwen3-moe-30b-a3b", q["train_repeats"],
+                                            q["train_batch"], q["train_seq"],
+                                            q["train_steps"], seed=73)
+    phase_arch_parity("qwen3-moe-30b-a3b", q["parity_repeats"], q["parity_prompt"], seed=74)
+    return counts
+
+
+def _moe_decode(model, cfg, lens, max_len: int, warmup: int = 2, iters: int = 5) -> dict:
+    """One decode step of batch 4 at positions ``lens`` on a fresh paged
+    pool (CUDA events, after ``warmup`` steps), beside the bound of its
+    expert weights read once: the JAX formulation multiplies every
+    expert's capacity buffer, so a decode step reads all E experts of
+    every layer however few tokens it routes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    m, B, page = cfg.moe, len(lens), 16
+    nL = max_len // page
+    caches = model.init_cache(B, max_len, page_size=page)
+    tb = torch.arange(B * nL, dtype=torch.int32, device=DEV).reshape(B, nL)
+    pos = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    toks = torch.full((B, 1), 7, dtype=torch.int32, device=DEV)
+    for _ in range(warmup):
+        model.decode_step(toks, pos, caches, block_tables=tb)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        model.decode_step(toks, pos, caches, block_tables=tb)
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.decode_step(toks, pos, caches, block_tables=tb)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in _device_events(prof))
+    n_moe = sum(k == "moe" for k in cfg.pattern) * cfg.repeats
+    nbytes = n_moe * (3 if m.gated else 2) * m.n_experts * cfg.d_model * m.d_ff * 2
+    del caches
+    return dict(experts=m.n_experts, top_k=m.top_k, capacity_decode=m.capacity(B),
+                decode_step_ms=start.elapsed_time(end) / iters,
+                decode_step_kernels=kernels,
+                expert_weight_bytes_per_step=nbytes,
+                expert_read_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+@contextlib.contextmanager
+def _routing_recorded():
+    """Within the block, ``layers.ffn.router_topk`` (looked up by name on
+    each call) keeps each call's router logits (float64, CPU) and chosen
+    experts in the list it yields."""
+    from repro_torch.layers import ffn as FFN
+
+    calls, inner = [], FFN.router_topk
+
+    def recording(logits, k, normalize):
+        w, e = inner(logits, k, normalize)
+        calls.append((logits.detach().double().cpu(), e.cpu()))
+        return w, e
+
+    FFN.router_topk = recording
+    try:
+        yield calls
+    finally:
+        FFN.router_topk = inner
+
+
+def _routing_flips(card: list, cpu: list, k: int) -> dict:
+    """Routing decisions (a token's set of K experts in one layer of one
+    forward) that differ between the card and the CPU, and each one's CPU
+    gap between its K-th and (K+1)-th router logit."""
+    import torch
+
+    if len(card) != len(cpu):
+        raise AssertionError(f"routing: {len(card)} router calls on the card, {len(cpu)} on "
+                             f"the CPU")
+    gaps, n = [], 0
+    for (_, e_card), (logits, e_cpu) in zip(card, cpu):
+        differ = (e_card.sort(-1).values != e_cpu.sort(-1).values).any(-1)
+        n += int(differ.numel())
+        top = logits.sort(-1, descending=True).values
+        gaps += (top[:, k - 1] - top[:, k])[differ].tolist()
+    return {"decisions": n, "flips": len(gaps), "flip_cpu_gaps": gaps}
+
+
 def _arch_kernel_rows() -> list:
     """(kernel, label, path, case) of each kernel shape the other dense
     archs' paths run: phase 2 keeps its bf16 errors under
@@ -3136,6 +3400,21 @@ def _arch_kernel_rows() -> list:
              ("rmsnorm", "command_r_decode", "command_r_serve", by_case[(4, 8192)]),
              ("rmsnorm", "hubert_train", "hubert_train", by_case[(4096, 1280)]),
              ("rmsnorm_backward", "hubert_train", "hubert_train", by_case[(4096, 1280)])]
+    # the MoE archs (phase 10): qwen3 at G 8 and dbrx at G 6, qk-norm at
+    # head dim 128
+    rows += [(name, "qwen3", "qwen3_train", cases.MAIN_FLASH_QWEN3)
+             for name in ("flash_attention", "flash_attention_backward")]
+    rows += [("paged_attention", "qwen3", "qwen3_serve", cases.PAGED_QWEN3),
+             ("paged_attention", "dbrx", "dbrx_serve", cases.PAGED_DBRX),
+             ("paged_prefill_attention", "qwen3", "qwen3_serve", cases.PREFILL_QWEN3),
+             ("paged_prefill_attention", "dbrx", "dbrx_serve", cases.PREFILL_DBRX),
+             ("rmsnorm", "qwen3_qk_decode", "qwen3_serve", by_case[(128, 128)]),
+             ("rmsnorm", "dbrx_decode", "dbrx_serve", by_case[(4, 6144)])]
+    for label, shape in (("qwen3_q_norm_train", (131072, 128)),
+                         ("qwen3_k_norm_train", (16384, 128)),
+                         ("qwen3_train", (4096, 2048))):
+        rows += [(name, label, "qwen3_train", by_case[shape])
+                 for name in ("rmsnorm", "rmsnorm_backward")]
     return rows
 
 
@@ -3596,10 +3875,11 @@ def main() -> int:
     train_counts = phase_train(profile)
     phase_report()
     arch_counts = phase_archs()
+    moe_counts = phase_moe()
     rows = phase_timing(main_err, {"serve": serve_counts, "serve_dense": dense_counts,
                                    "serve_load": load_counts, "serve_spec": spec_counts,
                                    "serve_fault": fault_counts, "train": train_counts,
-                                   **arch_counts})
+                                   **arch_counts, **moe_counts})
     emit("timing", rows=len(rows))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

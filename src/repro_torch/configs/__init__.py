@@ -8,7 +8,12 @@ from repro_torch.configs.base import (
     torch_dtype,
 )
 
+
+def list_archs() -> list[str]:
+    return sorted(ARCHS)
+
+
 __all__ = [
     "ARCHS", "ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig",
-    "check_supported", "get_config", "smoke_config", "torch_dtype",
+    "check_supported", "get_config", "list_archs", "smoke_config", "torch_dtype",
 ]

@@ -1,21 +1,22 @@
 """Model configuration schema, field for field the JAX ``ModelConfig``.
 
 The layer stack is ``pattern`` repeated ``repeats`` times. The port runs
-the dense block kinds (``attn``, ``local_attn``), the qkv bias, the stub
-frontends (``vlm`` patch embeddings, ``audio`` frame embeddings) and
-encoder-only models; MoE, SSM, xLSTM and qk-norm are carried as data so
-that every arch's config can be read, and the model raises
+the attention block kinds (``attn``, ``local_attn``, ``moe``), the qkv
+bias, qk-norm, the stub frontends (``vlm`` patch embeddings, ``audio``
+frame embeddings) and encoder-only models; SSM and xLSTM are carried as
+data so that every arch's config can be read, and the model raises
 ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 BLOCK_KINDS = ("attn", "local_attn", "moe", "mamba2", "mlstm", "slstm")
-PORTED_KINDS = ("attn", "local_attn")
+PORTED_KINDS = ("attn", "local_attn", "moe")
 
 # float64 runs only on the CPU (the kernels take bf16/f32): a reference
 # for the fp32 paths' rounding
@@ -38,6 +39,14 @@ class MoEConfig:
     capacity_factor: float = 1.25
     normalize_topk: bool = True
     gated: bool = True
+
+    def capacity(self, n_tokens: int) -> int:
+        """Slots per expert for a group of ``n_tokens``: ``top_k *
+        capacity_factor`` times the even share, rounded up to a multiple of
+        128, at least 128, never above ``n_tokens`` (a token's experts are
+        distinct, so no expert sees more)."""
+        c = math.ceil(n_tokens * self.top_k * self.capacity_factor / self.n_experts)
+        return min(max(128, -(-c // 128) * 128), n_tokens)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,22 +182,21 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port lacks: the ``moe``,
-    ``mamba2``, ``mlstm`` and ``slstm`` block kinds and their configs, and
-    qk-norm. The dense kinds (``attn``, ``local_attn``), the qkv bias, the
-    ``vlm`` and ``audio`` frontend stubs and encoder-only models run."""
+    """Raise ``NotImplementedError`` for what the port lacks: the
+    ``mamba2``, ``mlstm`` and ``slstm`` block kinds and their configs. The
+    attention kinds (``attn``, ``local_attn``, ``moe`` with its config),
+    the qkv bias, qk-norm, the ``vlm`` and ``audio`` frontend stubs and
+    encoder-only models run."""
     kinds = sorted(set(cfg.pattern) - set(PORTED_KINDS))
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {kinds} are not ported yet (only {PORTED_KINDS})"
         )
-    for field in ("moe", "ssm", "xlstm"):
+    for field in ("ssm", "xlstm"):
         if getattr(cfg, field):
             raise NotImplementedError(f"{cfg.name}: {field} is not ported yet")
     if cfg.frontend not in (None, "vlm", "audio"):
         raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} is not ported")
-    if cfg.qk_norm:
-        raise NotImplementedError(f"{cfg.name}: qk-norm is not ported yet")
     if cfg.paged_attn_impl != "auto":
         raise NotImplementedError(
             f"paged_attn_impl={cfg.paged_attn_impl!r}: the port routes by "

@@ -7,9 +7,12 @@ JAX side, and hands the tree here. The tree is the one
 ``repro.layers.common.init_params(T.model_params(cfg), ...)`` returns:
 ``embed`` (none for the audio model), ``norm_f/scale``, ``head`` (none
 with tied embeddings) and ``slots/slot{i}_{kind}/{norm_in,
-attn/{wq,wk,wv,wo[,bq,bk,bv]}, norm_mlp, mlp/{wi_gate,wi_up,wo | wi,wo}}``
-stacked over ``repeats`` (``kind`` ``attn`` or ``local_attn``). This
-module imports no JAX: it sees only numpy.
+attn/{wq,wk,wv,wo[,bq,bk,bv][,q_norm,k_norm]}, norm_mlp, mlp/{wi_gate,
+wi_up,wo | wi,wo} | moe/{router, wi_gate, wi_up, wo[, shared/...]}}``
+stacked over ``repeats`` (``kind`` ``attn``, ``local_attn`` or ``moe``;
+the experts at (L, E, d, f) and (L, E, f, d)). The AdamW state's trees
+(``m``, ``v``, ``master``) carry the same leaves. This module imports no
+JAX: it sees only numpy.
 """
 
 from __future__ import annotations

@@ -14,35 +14,28 @@ behind ``repro_torch.session.PerfSession``: select one with
 ``SessionConfig(backend="monitor"|"tracer")`` or ``TALP_ENABLE=1
 TALP_BACKEND=...``. The report side renders the records of both packages;
 ``python -m repro_torch.core.pages`` is its ``talp`` CLI.
+
+The names below resolve lazily, so that the report side (the ``talp``
+CLI) imports no torch: only the collectors and the step profile need it.
 """
 
-from repro_torch.core.factors import compute_pop, validate_pop
-from repro_torch.core.folder import Experiment, git_metadata, merge_history, scan
-from repro_torch.core.hardware import (
-    DEFAULT_TARGET,
-    H100_SXM,
-    TPU_V5E,
-    TPU_V5P,
-    ChipSpec,
-    get_target,
-)
-from repro_torch.core.monitor import MonitorConfig
-from repro_torch.core.profile import StepProfile
-from repro_torch.core.records import (
-    GLOBAL_REGION,
-    SCHEMA_VERSION,
-    ComputationCounters,
-    RegionCounters,
-    RegionMeasurements,
-    RegionRecord,
-    ResourceConfig,
-    RunRecord,
-)
-from repro_torch.core.regression import ComputationShift, Finding, detect, explain_computations
-from repro_torch.core.report import badge_svg, generate_report
-from repro_torch.core.scaling import ScalingTable, build_table, latest_per_config, render_text
-from repro_torch.core.timeseries import build_series
-from repro_torch.core.tracer import post_process, trace_storage_bytes
+import importlib
+
+_EXPORTS = {
+    "factors": ("compute_pop", "validate_pop"),
+    "folder": ("Experiment", "git_metadata", "merge_history", "scan"),
+    "hardware": ("DEFAULT_TARGET", "H100_SXM", "TPU_V5E", "TPU_V5P", "ChipSpec", "get_target"),
+    "monitor": ("MonitorConfig",),
+    "profile": ("StepProfile",),
+    "records": ("GLOBAL_REGION", "SCHEMA_VERSION", "ComputationCounters", "RegionCounters",
+                "RegionMeasurements", "RegionRecord", "ResourceConfig", "RunRecord"),
+    "regression": ("ComputationShift", "Finding", "detect", "explain_computations"),
+    "report": ("badge_svg", "generate_report"),
+    "scaling": ("ScalingTable", "build_table", "latest_per_config", "render_text"),
+    "timeseries": ("build_series",),
+    "tracer": ("post_process", "trace_storage_bytes"),
+}
+_MODULE_OF = {name: mod for mod, names in _EXPORTS.items() for name in names}
 
 __all__ = [
     "MonitorConfig", "StepProfile", "RunRecord", "RegionRecord",
@@ -55,3 +48,13 @@ __all__ = [
     "scan", "merge_history", "git_metadata", "Experiment",
     "post_process", "trace_storage_bytes",
 ]
+
+
+def __getattr__(name: str):
+    if name in _MODULE_OF:
+        return getattr(importlib.import_module(f"repro_torch.core.{_MODULE_OF[name]}"), name)
+    raise AttributeError(f"module 'repro_torch.core' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

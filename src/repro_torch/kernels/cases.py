@@ -11,7 +11,8 @@ makes them;
 the functions below make the inputs with numpy from a seed, so the JAX
 functions and the port's kernels and plain versions see the same numbers. ``MAIN_*`` are the shapes the serving
 and training paths give the kernels at tinyllama-1.1b's full width, and
-``*_ARCH_*`` those of the other dense archs.
+``*_ARCH_*`` those of the other archs (the MoE ones' rows named
+``*_QWEN3``, ``*_DBRX``).
 """
 
 from __future__ import annotations
@@ -136,6 +137,7 @@ FLASH_ARCH_SMALL = [
     (1, 80, 80, 8, 4, 256, True, None, 50.0),     # gemma2 global
     (1, 64, 64, 32, 2, 128, True, None, None),    # glm4: G = 16
     (2, 48, 48, 16, 16, 80, False, None, None),   # hubert: bidirectional
+    (1, 64, 64, 32, 4, 128, True, None, None),    # qwen3: G = 8, D = 128
 ]
 # gemma2-2b training (B 1, S 8192): the local layers (window 4096) and the
 # global ones, softcap 50
@@ -146,8 +148,11 @@ FLASH_GLM4 = (1, 2048, 2048, 32, 2, 128, True, None, None)
 # text tokens) and hubert-xlarge training (B 4, 1024 frames)
 MAIN_FLASH_LLAVA = (2, 2048, 2048, 32, 8, 128, True, None, None)
 MAIN_FLASH_HUBERT = (4, 1024, 1024, 16, 16, 80, False, None, None)
+# qwen3-moe-30b-a3b training (B 1, S 4096: 32/4 heads, head dim 128)
+MAIN_FLASH_QWEN3 = (1, 4096, 4096, 32, 4, 128, True, None, None)
 FLASH_ARCH_CASES = FLASH_ARCH_SMALL + [MAIN_FLASH_GEMMA2, MAIN_FLASH_GEMMA2_GLOBAL,
-                                       FLASH_GLM4, MAIN_FLASH_LLAVA, MAIN_FLASH_HUBERT]
+                                       FLASH_GLM4, MAIN_FLASH_LLAVA, MAIN_FLASH_HUBERT,
+                                       MAIN_FLASH_QWEN3]
 
 # K3 (B, Hq, Hkv, D, psize, nL, P, lens, window, softcap)
 PAGED_ARCH_SMALL = [
@@ -155,6 +160,8 @@ PAGED_ARCH_SMALL = [
     (2, 8, 4, 256, 8, 8, 20, (61, 7), None, 50.0),
     (2, 32, 2, 128, 8, 4, 10, (30, 17), None, None),  # glm4: G = 16
     (2, 64, 8, 128, 8, 4, 10, (25, 9), None, None),   # command-r: G = 8
+    (2, 32, 4, 128, 8, 4, 10, (30, 17), None, None),  # qwen3: G = 8
+    (3, 48, 8, 128, 8, 4, 12, (27, 11, 1), None, None),  # dbrx: G = 6
 ]
 # gemma2-2b serving (batch 4, max_len 8192: 512 logical pages of 16) with
 # prompts of 4,300-6,100 tokens: the local layers' window 4096 cuts keys,
@@ -164,28 +171,44 @@ MAIN_PAGED_GEMMA2_GLOBAL = (4, 8, 4, 256, 16, 512, 1400, (4300, 4913, 5507, 6100
                             None, 50.0)
 PAGED_GLM4 = (4, 32, 2, 128, 16, 128, 520, (700, 1500, 2047, 333), None, None)
 PAGED_COMMAND_R = (4, 64, 8, 128, 16, 128, 520, (700, 1500, 2047, 333), None, None)
+# the MoE archs' serving (batch 4, max_len 2048): qwen3 at G 8, dbrx at
+# G 6 (a 16-row tile of the tensor-core kernel spans 2 2/3 query heads'
+# groups)
+PAGED_QWEN3 = (4, 32, 4, 128, 16, 128, 520, (700, 1500, 2047, 333), None, None)
+PAGED_DBRX = (4, 48, 8, 128, 16, 128, 520, (700, 1500, 2047, 333), None, None)
 PAGED_ARCH_CASES = PAGED_ARCH_SMALL + [MAIN_PAGED_GEMMA2, MAIN_PAGED_GEMMA2_GLOBAL,
-                                       PAGED_GLM4, PAGED_COMMAND_R]
+                                       PAGED_GLM4, PAGED_COMMAND_R, PAGED_QWEN3, PAGED_DBRX]
 
 # K4 (B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap)
 PREFILL_ARCH_SMALL = [
     (1, 16, 8, 4, 256, 8, 12, 14, (40,), 16, 50.0),     # gemma2: the window splits
     (2, 8, 32, 2, 128, 4, 6, 14, (0, 8), None, None),   # glm4: G = 16
     (1, 8, 64, 8, 128, 4, 6, 8, (12,), None, None),     # command-r: G = 8
+    (2, 8, 32, 4, 128, 4, 6, 14, (0, 8), None, None),   # qwen3: G = 8
+    (1, 8, 48, 8, 128, 4, 6, 8, (10,), None, None),     # dbrx: G = 6, mid-page
+    (2, 5, 48, 8, 128, 4, 6, 14, (3, 9), None, None),   # dbrx: 30 rows, ragged tile
 ]
 # a gemma2-2b chunk of 64 past 4096: the window's first key (405..468)
 # lies inside a page, so the window crosses and splits pages
 MAIN_PREFILL_GEMMA2 = (1, 64, 8, 4, 256, 16, 512, 400, (4500,), 4096, 50.0)
 MAIN_PREFILL_GEMMA2_GLOBAL = (1, 64, 8, 4, 256, 16, 512, 400, (4500,), None, 50.0)
 PREFILL_GLM4 = (1, 64, 32, 2, 128, 16, 128, 140, (1000,), None, None)
+# the MoE archs' 64-token chunks at 1000, which starts mid-page (62 * 16 + 8)
+PREFILL_QWEN3 = (1, 64, 32, 4, 128, 16, 128, 140, (1000,), None, None)
+PREFILL_DBRX = (1, 64, 48, 8, 128, 16, 128, 140, (1000,), None, None)
 PREFILL_ARCH_CASES = PREFILL_ARCH_SMALL + [MAIN_PREFILL_GEMMA2, MAIN_PREFILL_GEMMA2_GLOBAL,
-                                           PREFILL_GLM4]
+                                           PREFILL_GLM4, PREFILL_QWEN3, PREFILL_DBRX]
 
 # K1 (rows, d, zero_centred) on the new paths: gemma2's zero-centred norm
 # at 2304 (a decode step, a chunk, the training step's 8192 rows), glm4 and
-# llava at 4096, command-r at 8192, hubert's training rows at 1280
+# llava at 4096, command-r at 8192, hubert's training rows at 1280; the MoE
+# archs: qwen3's qk-norm over head dim 128 (a decode step's 4 x 32 query
+# rows, the training step's 4096 x 32 query and 4096 x 4 key rows), its
+# training block norm (4096 x 2048), dbrx's decode at 6144
 RMS_ARCH_CASES = [(4, 2304, True), (64, 2304, True), (8192, 2304, True), (4, 4096, False),
-                  (4, 8192, False), (4096, 1280, False)]
+                  (4, 8192, False), (4096, 1280, False), (128, 128, False),
+                  (131072, 128, False), (16384, 128, False), (4096, 2048, False),
+                  (4, 6144, False)]
 
 
 # Gates of a kernel against its plain version, by dtype. TOL_MAX bounds the

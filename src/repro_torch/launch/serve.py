@@ -23,8 +23,9 @@ for the recovery layer:
         --smoke --device cpu --arrival burst --rate 0.8 --requests 16 \\
         --num-pages 8 --page-size 8 --cancel-frac 0.2 --talp-out /tmp/talp_serve
 
-Without ``--device`` it runs on the card (``cuda``) and raises if there
-is none. Weights are the port's seeded initializer's, seed 0. It prints
+``--arch`` takes every decoder arch the port runs, the MoE ones
+(qwen3-moe-30b-a3b, dbrx-132b) too. Without ``--device`` it runs on the
+card (``cuda``) and raises if there is none. Weights are the port's seeded initializer's, seed 0. It prints
 the completed count, ticks, decode steps, prefill chunks, the traffic,
 KV, prefix-cache, pressure, speculation and recovery lines, each
 kernel's launch count, and where the TALP run record (regions ``decode``, ``prefill``,

@@ -10,7 +10,9 @@ Weights are the port's seeded initializer's. It prints the first and last
 loss, each kernel's launch count, and where the TALP run record (schema
 v3, regions ``initialize`` and ``train_step``) was written.
 
-``--arch`` takes every arch the port runs. The vlm (llava-next-mistral-7b)
+``--arch`` takes every arch the port runs, the MoE ones (qwen3-moe-30b-a3b,
+dbrx-132b) too: their record's ``expert_load_balance`` reads the router's
+per-expert counts. The vlm (llava-next-mistral-7b)
 trains on the synthetic stream with its stub patch embeddings ahead of
 the text, as the JAX launcher feeds it. The audio model (hubert-xlarge)
 is refused: the synthetic stream is a token stream and the audio model

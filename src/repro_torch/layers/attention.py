@@ -33,6 +33,7 @@ from repro_torch.kernels.paged_attention.ops import (
     paged_prefill_attention,
 )
 from repro_torch.layers.common import ParamSpec
+from repro_torch.layers.norms import rmsnorm
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +135,7 @@ def key_positions(B: int, Smax: int, device: torch.device) -> torch.Tensor:
 
 def attention_params(cfg) -> dict:
     """Projections; with ``attn_bias`` the q/k/v biases (zeros), with
-    ``qk_norm`` its scales (declared for the count; the port refuses
-    qk-norm)."""
+    ``qk_norm`` the per-head RMSNorm scales over ``head_dim`` (ones)."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     p = {
         "wq": ParamSpec((d, hq * hd)),
@@ -184,6 +184,9 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
         q = q + params["bq"].reshape(1, 1, hq, hd).to(compute)
         k = k + params["bk"].reshape(1, 1, hkv, hd).to(compute)
         v = v + params["bv"].reshape(1, 1, hkv, hd).to(compute)
+    if cfg.qk_norm:  # per head over head_dim, after the biases, before RoPE
+        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
     if cfg.rope_theta:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary)

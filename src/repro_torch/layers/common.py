@@ -40,6 +40,15 @@ def tree_leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix, tree)]
 
 
+# A leaf of more elements than DRAW_SLICE_ELEMENTS is drawn in slices along
+# its leading axis (qwen3-moe-30b-a3b's stacked experts: 9.66e9 elements,
+# 38.7 GB of fp32 whole), as many rows a slice as keep it within
+# DRAW_CHUNK_ELEMENTS (one row at least); every leaf of the dense archs
+# lies below the threshold and draws as one call.
+DRAW_SLICE_ELEMENTS = 2**32
+DRAW_CHUNK_ELEMENTS = 2**28
+
+
 def init_params(tree, generator: torch.Generator,
                 param_dtype: torch.dtype = torch.float32, device=None):
     """Materialize a ParamSpec tree, one draw per leaf in sorted-key order.
@@ -58,7 +67,10 @@ def init_params(tree, generator: torch.Generator,
     ``device``, so a CPU generator gives the same weights on every device;
     a CUDA generator draws on the card (a large model's weights then never
     cross the host). A leaf is scaled in place and cast, so a draw holds
-    its fp32 leaf and the cast copy at once, never a second fp32 copy.
+    its fp32 leaf and the cast copy at once, never a second fp32 copy. A
+    leaf of more than ``DRAW_SLICE_ELEMENTS`` elements is drawn slice by slice
+    along its leading axis into the cast leaf (``DRAW_CHUNK_ELEMENTS`` a
+    slice, one row at least), so at most one slice is ever held in fp32.
     """
     out = {}
 
@@ -70,6 +82,16 @@ def init_params(tree, generator: torch.Generator,
             return torch.ones(spec.shape, dtype=dtype, device=device)
         fan_in = spec.shape[0] if spec.shape else 1
         scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        if math.prod(spec.shape) > DRAW_SLICE_ELEMENTS:
+            leaf = torch.empty(spec.shape, dtype=dtype, device=device)
+            n = spec.shape[0]
+            rows = max(1, DRAW_CHUNK_ELEMENTS // (math.prod(spec.shape) // n))
+            for i in range(0, n, rows):
+                w = torch.randn((min(rows, n - i),) + spec.shape[1:], generator=generator,
+                                dtype=torch.float32, device=generator.device)
+                leaf[i:i + rows].copy_(w.mul_(scale))
+                del w
+            return leaf
         w = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
         return w.mul_(scale).to(dtype=dtype, device=device)

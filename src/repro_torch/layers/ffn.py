@@ -1,9 +1,22 @@
-"""Dense feed-forward layers (``repro.layers.ffn`` ``mlp_block``).
+"""Feed-forward layers (``repro.layers.ffn``): dense and Mixture-of-Experts.
 
-SwiGLU, GeGLU and GELU, with GELU's tanh approximation as in the JAX
-package. The MoE block waits for a later slice (ROADMAP.md Queue 1, item
-5); ``moe_params`` declares its tree so that the parameter count is the
-JAX one.
+Dense: SwiGLU, GeGLU and GELU, with GELU's tanh approximation as in the
+JAX package.
+
+MoE: the JAX package's sort-based capacity dispatch on one group (the JAX
+``group_count`` is 1 without a mesh): router top-k -> (token, expert)
+pairs sorted by expert (stable) -> a capacity buffer (E, C, d), pairs past
+an expert's C dropped (they fall through the residual) -> batched expert
+products -> combine with the routing weights. Every position is routed,
+padding included (the JAX block takes no mask). The router's per-expert
+pair counts (``aux["expert_load"]``) feed the monitor's expert
+load-balance factor.
+
+Determinism on the card: no step sums through atomics in the forward.
+The dispatch writes each buffer slot at most once; each token's K expert
+outputs are gathered as (n, K, d) and summed in ascending expert order,
+the order of the JAX scatter-add. The backward's gathers have distinct
+indices except the spare row that dropped pairs use, which is discarded.
 """
 
 from __future__ import annotations
@@ -26,8 +39,8 @@ def mlp_params(cfg, d_ff: int | None = None) -> dict:
 
 
 def moe_params(cfg) -> dict:
-    """The JAX ``moe_params`` tree (router, stacked experts, shared
-    experts): declared, not run."""
+    """The JAX ``moe_params`` tree: router, experts stacked (E, d, f) /
+    (E, f, d), and the shared experts' dense MLP."""
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff, m.n_experts
     p = {
@@ -60,3 +73,106 @@ def mlp_block(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         h = act(x @ params["wi"].to(compute))
     return h @ params["wo"].to(compute)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def router_topk(logits: torch.Tensor, k: int, normalize: bool):
+    """logits: (N, E) fp32. Returns (weights (N, k), experts (N, k)), the
+    experts in descending logit order with ties lowest index first, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order among
+    ties): a stable descending sort, sliced. ``normalize``: softmax over the
+    k chosen logits; else the full softmax's weights of the k chosen."""
+    vals, experts = torch.sort(logits, dim=-1, descending=True, stable=True)
+    vals, experts = vals[..., :k], experts[..., :k]
+    if normalize:
+        return torch.softmax(vals, dim=-1), experts
+    return torch.gather(torch.softmax(logits, dim=-1), -1, experts), experts
+
+
+def _dispatch_group(xt: torch.Tensor, logits: torch.Tensor, E: int, K: int, C: int,
+                    normalize: bool, compute):
+    """Dispatch one token group, as the JAX ``_dispatch_group``.
+
+    xt: (n, d); logits: (n, E) fp32. Returns ``(xbuf (E, C, d), st, sw,
+    keep, slot, expert_counts)`` with the JAX meanings, over the n*K pairs
+    in expert-sorted order: each pair's token, routing weight, whether it
+    fits its expert's capacity, its buffer slot (``expert*C + position``,
+    ``expert*C`` when dropped), and the pairs per expert (dropped ones
+    counted). The pairs are sorted by expert with a stable sort, so an
+    expert's slots go to its tokens in token order and the last ones past
+    C drop.
+    """
+    n, d = xt.shape
+    weights, experts = router_topk(logits, K, normalize)           # (n, K)
+    pair_expert = experts.reshape(-1)                              # token-major
+    order = torch.argsort(pair_expert, stable=True)
+    se, sw = pair_expert[order], weights.reshape(-1)[order]
+    st = torch.div(order, K, rounding_mode="floor")
+    # a scatter of ones, not ``bincount``, which reads its size back to the
+    # host on CUDA
+    expert_counts = torch.zeros(E, dtype=torch.int64, device=xt.device).scatter_add_(
+        0, pair_expert, torch.ones_like(pair_expert))
+    first_idx = torch.cumsum(expert_counts, 0) - expert_counts
+    pos = torch.arange(n * K, device=xt.device) - first_idx[se]
+    keep = pos < C
+    slot = se * C + torch.where(keep, pos, 0)
+    # the pairs' rows in sorted order, gathered through the (n, K) expansion
+    # so that the backward sums a token's K rows without atomics; dropped
+    # pairs write the spare row E*C, which is cut off
+    src = xt.to(compute)[:, None, :].expand(n, K, d).reshape(n * K, d)[order]
+    dest = torch.where(keep, slot, E * C)
+    xbuf = torch.zeros((E * C + 1, d), dtype=compute, device=xt.device).index_put(
+        (dest,), src)
+    return xbuf[:E * C].reshape(E, C, d), st, sw, keep, slot, expert_counts
+
+
+def moe_block(params: dict, x: torch.Tensor, cfg):
+    """x: (B, S, d). Returns (out (B, S, d), aux): ``expert_load`` (E,) fp32
+    pair counts, ``moe_lb_loss`` (switch-style: E * sum(mean router prob *
+    load share)) and ``moe_z_loss`` (mean squared log-sum-exp of the router
+    logits). One group: the JAX ``group_count`` without a mesh."""
+    m = cfg.moe
+    B, S, d = x.shape
+    N = B * S
+    E, K = m.n_experts, m.top_k
+    compute = cfg.compute_dtype
+    C = m.capacity(N)
+
+    xt = x.reshape(N, d)
+    logits = (xt @ params["router"].to(compute)).to(torch.float32)     # (N, E)
+    xbuf, st, sw, keep, slot, counts = _dispatch_group(
+        xt, logits, E, K, C, m.normalize_topk, compute)
+
+    act = _act("swiglu" if m.gated else "gelu")
+    g = torch.bmm(xbuf, params["wi_gate"].to(compute))                 # (E, C, f)
+    if m.gated:
+        h = act(g) * torch.bmm(xbuf, params["wi_up"].to(compute))
+    else:
+        h = act(g)
+    ybuf = torch.bmm(h, params["wo"].to(compute))                      # (E, C, d)
+
+    # combine: each pair's expert output (0 for a dropped pair: the spare
+    # row), times its weight, then each token's K rows in expert order
+    ypad = torch.cat([ybuf.reshape(E * C, d), ybuf.new_zeros((1, d))])
+    y = ypad[torch.where(keep, slot, E * C)] * (sw * keep).to(compute)[:, None]
+    # a token's sorted pairs in ascending order are its experts in ascending
+    # order: the JAX scatter-add's order, kept by a sequential sum
+    y = y[torch.argsort(st, stable=True)].reshape(N, K, d)
+    out = y[:, 0]
+    for j in range(1, K):
+        out = out + y[:, j]
+
+    if m.n_shared_experts:
+        out = out + mlp_block(params["shared"], xt, cfg)
+
+    expert_load = counts.to(torch.float32)
+    me = torch.softmax(logits, dim=-1).mean(dim=0)
+    ce = expert_load / torch.clamp(expert_load.sum(), min=1.0)
+    aux = {"expert_load": expert_load,
+           "moe_lb_loss": E * torch.sum(me * ce),
+           "moe_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2)}
+    return out.reshape(B, S, d), aux

@@ -3,9 +3,10 @@
 The layer stack is ``cfg.pattern`` repeated ``cfg.repeats`` times; the
 parameter tree is the JAX package's, stacked over repeats, and a Python
 loop over repeats takes the place of the ``scan``. The port runs the
-dense block kinds, ``attn`` and ``local_attn`` (attention over the last
-``cfg.window`` keys), cache-less for training and over the paged KV pool
-or the dense KV cache for serving. Inputs are token ids, stub frontend
+attention block kinds, ``attn``, ``local_attn`` (attention over the last
+``cfg.window`` keys) and ``moe`` (attention, then the Mixture-of-Experts
+FFN), cache-less for training and over the paged KV pool or the dense KV
+cache for serving. Inputs are token ids, stub frontend
 embeddings (``batch["frontend"]`` (B,P,d): the vlm's patches ahead of the
 text, or the audio model's frames with no tokens and no ``embed``), or
 both. An encoder-only model (bidirectional attention) has ``forward`` and
@@ -16,6 +17,7 @@ both. An encoder-only model (bidirectional attention) has ``forward`` and
   Transformer(cfg, params)               weights from a tree of tensors
   model.forward(batch)                   (loss, aux): training/eval loss
   model.apply_logits(batch)              (logits, aux): full-sequence logits
+                                         (aux: the MoE router's totals)
   model.init_cache(batch, max_len, ...)  paged pools (R, P+1, page, Hkv, hd), or
                                          with paged=False dense (R, B+1, max_len, Hkv, hd)
   model.prefill_chunk(tokens, ...)       incremental prefill at per-row offsets
@@ -51,10 +53,10 @@ from repro_torch.layers.norms import rmsnorm, rmsnorm_params
 
 
 def _slot_params(cfg, kind: str) -> dict:
-    """The JAX package's slot tree for every block kind. Only the dense
-    kinds run (``check_supported``); the others are declared so that the
-    parameter count, and with it ``models.flops``, is the JAX one for
-    every arch."""
+    """The JAX package's slot tree for every block kind. The attention
+    kinds (``attn``, ``local_attn``, ``moe``) run (``check_supported``);
+    the recurrent ones are declared so that the parameter count, and with
+    it ``models.flops``, is the JAX one for every arch."""
     p: dict = {"norm_in": rmsnorm_params(cfg.d_model)}
     if kind in ("attn", "local_attn", "moe"):
         p["attn"] = A.attention_params(cfg)
@@ -226,9 +228,11 @@ class Transformer(nn.Module):
 
     def _apply_slot(self, sp: dict, x, *, kind, positions, cache, cache_len, seq_mask,
                     block_tables, cache_row0=0):
-        """One ``attn`` or ``local_attn`` block: pre-norm attention (over the
-        last ``cfg.window`` keys for ``local_attn``; bidirectional for an
-        encoder-only model) + pre-norm MLP, residuals."""
+        """One ``attn``, ``local_attn`` or ``moe`` block: pre-norm attention
+        (over the last ``cfg.window`` keys for ``local_attn``; bidirectional
+        for an encoder-only model) + pre-norm MLP (the MoE FFN for ``moe``),
+        residuals. Returns (x, aux): the MoE block's aux, else {}. Every
+        position is routed, padding included, as in the JAX block."""
         cfg = self.cfg
         h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         x = x + A.attention_block(
@@ -239,7 +243,10 @@ class Transformer(nn.Module):
             window=cfg.window if kind == "local_attn" else None, cache_row0=cache_row0,
         )
         h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
-        return x + FFN.mlp_block(sp["mlp"], h2, cfg)
+        if kind == "moe":
+            o, aux = FFN.moe_block(sp["moe"], h2, cfg)
+            return x + o, aux
+        return x + FFN.mlp_block(sp["mlp"], h2, cfg), {}
 
     def _run_stack(self, x, caches, *, positions, cache_len, seq_mask,
                    block_tables, cache_row0=0):
@@ -248,13 +255,16 @@ class Transformer(nn.Module):
         rather than scattering into the stacked leaf once per layer). With
         ``caches`` None and ``cfg.remat == "full"``, every layer runs under
         ``torch.utils.checkpoint`` (non-reentrant) while autograd records,
-        as ``jax.checkpoint`` wraps the scanned layer body."""
+        as ``jax.checkpoint`` wraps the scanned layer body. Returns (x, aux):
+        each aux entry summed over layers (``expert_load`` stays per
+        expert), as the JAX ``_run_stack`` reduces the scan's."""
         cfg = self.cfg
         if cfg.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.remat!r}: the port has 'none' and 'full'")
         remat = caches is None and cfg.remat == "full" and torch.is_grad_enabled()
         slots = {name: tree_map(lambda t: t.unbind(0), sp)
                  for name, sp in self.params()["slots"].items()}
+        totals: dict = {}
         for r in range(cfg.repeats):
             for name, sp in slots.items():
                 layer = tree_map(lambda t: t[r], sp)
@@ -264,10 +274,12 @@ class Transformer(nn.Module):
                           seq_mask=seq_mask, block_tables=block_tables,
                           cache_row0=cache_row0)
                 if remat:
-                    x = checkpoint(self._apply_slot, layer, x, use_reentrant=False, **kw)
+                    x, aux = checkpoint(self._apply_slot, layer, x, use_reentrant=False, **kw)
                 else:
-                    x = self._apply_slot(layer, x, **kw)
-        return x
+                    x, aux = self._apply_slot(layer, x, **kw)
+                for k, v in aux.items():
+                    totals[k] = v if k not in totals else totals[k] + v
+        return x, totals
 
     def _per_row(self, x, B: int) -> torch.Tensor:
         """() or (B,) ints -> (B,) int32 on the model's device. Host values
@@ -313,14 +325,15 @@ class Transformer(nn.Module):
             loss_sum, w_sum = loss_sum + ls, w_sum + ws
         return loss_sum, w_sum
 
-    def _full_sequence(self, batch: dict) -> torch.Tensor:
-        """Embed, run the stack cache-less at positions 0..S-1, final norm."""
+    def _full_sequence(self, batch: dict):
+        """Embed, run the stack cache-less at positions 0..S-1, final norm.
+        Returns (x, aux)."""
         x = self._embed_inputs(batch.get("tokens"), batch.get("frontend"))
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
-        x = self._run_stack(x, None, positions=positions, cache_len=None,
-                            seq_mask=None, block_tables=None)
-        return self._final_norm(x)
+        x, aux = self._run_stack(x, None, positions=positions, cache_len=None,
+                                 seq_mask=None, block_tables=None)
+        return self._final_norm(x), aux
 
     # -- entry points -----------------------------------------------------
 
@@ -329,16 +342,26 @@ class Transformer(nn.Module):
         with stub embeddings ``"frontend"`` (B,P,d) ahead of the tokens, or
         in their place (labels then cover P + S positions; moved to the
         model's device). Returns (loss, aux): the mean CE plus z-loss over
-        labelled tokens, and aux {"tokens": their count}."""
-        x = self._full_sequence(batch)
+        labelled tokens, plus for an MoE model ``moe_lb_coef`` and
+        ``moe_z_coef`` times the router's losses averaged over layers; aux
+        {"tokens": their count} and the router's totals (``expert_load``,
+        ``moe_lb_loss``, ``moe_z_loss``)."""
+        cfg = self.cfg
+        x, aux = self._full_sequence(batch)
         labels = batch["labels"].to(self.device, non_blocking=True)
         loss_sum, w_sum = self.cross_entropy(x, labels)
-        return loss_sum / torch.clamp(w_sum, min=1.0), {"tokens": w_sum}
+        loss = loss_sum / torch.clamp(w_sum, min=1.0)
+        if "moe_lb_loss" in aux:
+            loss = loss + cfg.moe_lb_coef * aux["moe_lb_loss"] / cfg.n_layers
+            loss = loss + cfg.moe_z_coef * aux["moe_z_loss"] / cfg.n_layers
+        aux["tokens"] = w_sum
+        return loss, aux
 
     def apply_logits(self, batch: dict):
         """Full-sequence logits (B,S,V) (small-model/eval path; materializes
         them). Returns (logits, aux)."""
-        return self._logits(self._full_sequence(batch)), {}
+        x, aux = self._full_sequence(batch)
+        return self._logits(x), aux
 
     @torch.inference_mode()
     def prefill_chunk(self, tokens, caches, start, length, block_tables=None,
@@ -358,9 +381,9 @@ class Transformer(nn.Module):
         offs = torch.arange(C, dtype=torch.int32, device=self.device)[None, :]
         seq_mask = offs < length[:, None]
         positions = start[:, None] + offs
-        x = self._run_stack(x, caches, positions=positions, cache_len=start + length,
-                            seq_mask=seq_mask, block_tables=block_tables,
-                            cache_row0=slot)
+        x, _ = self._run_stack(x, caches, positions=positions, cache_len=start + length,
+                               seq_mask=seq_mask, block_tables=block_tables,
+                               cache_row0=slot)
         x = self._final_norm(x)
         if all_logits:
             return self._logits(x)
@@ -380,6 +403,6 @@ class Transformer(nn.Module):
         positions = pos.reshape(B, 1)
         seq_mask = None if active is None else active.to(
             self.device, non_blocking=True).reshape(B, 1)
-        x = self._run_stack(x, caches, positions=positions, cache_len=pos + 1,
-                            seq_mask=seq_mask, block_tables=block_tables)
+        x, _ = self._run_stack(x, caches, positions=positions, cache_len=pos + 1,
+                               seq_mask=seq_mask, block_tables=block_tables)
         return self._logits(self._final_norm(x))[:, 0]

@@ -6,7 +6,11 @@ the parameters re-cast from the master. The JAX update is functional; the
 port updates the optimizer state and the parameters in place (a second
 copy of a full-width state would double its memory), under ``no_grad``.
 Parameters, gradients and state are flat ``{path: tensor}`` dicts keyed by
-the JAX tree's paths, in sorted order.
+the JAX tree's paths, in sorted order. A leaf above ``UPDATE_SLICE_ELEMENTS``
+is updated in slices along its leading axis (as many rows a slice as keep
+it within that size, one row at least), so that the update's fp32
+temporaries are a slice's; the update is elementwise, so the result is
+bitwise the whole leaf's.
 """
 
 from __future__ import annotations
@@ -14,6 +18,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+# qwen3-moe-30b-a3b's stacked experts at 5 layers hold 1.0e9 elements: their
+# update's temporaries would take 4.0 GB of fp32 each
+UPDATE_SLICE_ELEMENTS = 2**27
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,18 +76,29 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     b1c = float(1.0 - _f32(cfg.b1) ** _f32(step))
     b2c = float(1.0 - _f32(cfg.b2) ** _f32(step))
     masters = state.get("master")
-    for k in sorted(params):
-        p, m, v = params[k], state["m"][k], state["v"][k]
-        g32 = grads[k].to(torch.float32)
+
+    def update(p, g, m, v, master):
+        g32 = g.to(torch.float32)
         if clip is not None:
             g32 = g32 * clip
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g32)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * g32 * g32)
-        base = masters[k] if masters is not None else p.to(torch.float32)
+        base = master if master is not None else p.to(torch.float32)
         new = base - lr * ((m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
                            + cfg.weight_decay * base)
-        if masters is not None:
-            masters[k].copy_(new)
+        if master is not None:
+            master.copy_(new)
         p.copy_(new.to(p.dtype))
+
+    for k in sorted(params):
+        leaf = (params[k], grads[k], state["m"][k], state["v"][k],
+                masters[k] if masters is not None else None)
+        p = leaf[0]
+        if p.numel() > UPDATE_SLICE_ELEMENTS and p.dim() > 1:
+            rows = max(1, UPDATE_SLICE_ELEMENTS // (p.numel() // p.shape[0]))
+            for i in range(0, p.shape[0], rows):
+                update(*(t if t is None else t[i:i + rows] for t in leaf))
+        else:
+            update(*leaf)
     state["step"] = step
     return {"grad_norm": gnorm, "lr": lr}

@@ -28,6 +28,10 @@ Surface:
   session.event(name, ...)        one visit of ``name`` for a sparse event
   session.finalize(out_dir)       stop, build the RunRecord, inject git
                                   metadata, save into the CI folder layout
+
+  start(app_name, backend, ...)   a started session in one call (off unless
+                                  ``backend`` or the environment enables it)
+  null_session()                  the shared disabled session
 """
 
 from __future__ import annotations
@@ -493,3 +497,28 @@ class PerfSession:
             run.save(path)
             self.last_record_path = path
         return run
+
+
+_NULL_SESSION: PerfSession | None = None
+
+
+def null_session() -> PerfSession:
+    """A shared always-disabled session (for default arguments)."""
+    global _NULL_SESSION
+    if _NULL_SESSION is None:
+        _NULL_SESSION = PerfSession(SessionConfig(backend="null", respect_env=False))
+    return _NULL_SESSION
+
+
+def start(app_name: str = "app", backend: str | None = None, *,
+          resources: ResourceConfig | None = None, metadata: dict[str, Any] | None = None,
+          **config_kw: Any) -> PerfSession:
+    """Create and start a session in one call: ``repro_torch.start()``.
+
+    ``backend=None`` means "off unless the environment says otherwise": an
+    entry point calling ``repro_torch.start()`` unconditionally costs
+    nothing by default and gains full monitoring from ``TALP_ENABLE=1``
+    alone. ``config_kw`` are ``SessionConfig`` fields.
+    """
+    cfg = SessionConfig(app_name=app_name, backend=backend or "null", **config_kw)
+    return PerfSession(cfg, resources=resources, metadata=metadata).start()

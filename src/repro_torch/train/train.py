@@ -8,7 +8,10 @@ observables (real-token counts per data shard).
 microbatch's gradients (in the parameter dtype, as ``jax.grad`` gives
 them) are summed in fp32, then loss and gradients are scaled by 1/A.
 Metrics: ``loss``, ``grad_norm``, ``lr``, ``tokens``,
-``tokens_per_shard``. The state is updated in place and returned.
+``tokens_per_shard``, and for an MoE model ``expert_load`` (pairs per
+expert, summed over layers) and ``moe_lb_loss``, each summed over the
+microbatches as the JAX step's scan sums them. The state is updated in
+place and returned.
 """
 
 from __future__ import annotations
@@ -74,6 +77,7 @@ def make_train_step(cfg, tcfg: TrainConfig):
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         tokens = torch.zeros((), dtype=torch.float32, device=dev)
         tps = None
+        kept: dict = {}  # the router's totals, summed over microbatches
         for a in range(A):
             mb = {k: v[a] for k, v in batch.items()}
             loss, aux = model(mb)
@@ -86,6 +90,10 @@ def make_train_step(cfg, tcfg: TrainConfig):
             del grads
             loss_sum = loss_sum + loss.detach()
             tokens = tokens + aux["tokens"].detach()
+            for k in ("expert_load", "moe_lb_loss"):
+                if k in aux:
+                    v = aux[k].detach()
+                    kept[k] = v if k not in kept else kept[k] + v
             t = tokens_per_shard(mb["labels"])
             tps = t if tps is None else tps + t
         inv = 1.0 / A
@@ -96,7 +104,7 @@ def make_train_step(cfg, tcfg: TrainConfig):
         stats = adamw_update(params, gsum, state.opt_state, tcfg.optimizer, lr_scale)
         state.step += 1
         metrics = {"loss": loss_sum * inv, "grad_norm": stats["grad_norm"],
-                   "lr": stats["lr"], "tokens": tokens, "tokens_per_shard": tps}
+                   "lr": stats["lr"], "tokens": tokens, "tokens_per_shard": tps, **kept}
         return state, metrics
 
     return train_step

@@ -3,7 +3,8 @@
 On the CPU: the port's plain versions of paged decode attention, paged
 prefill attention and RMSNorm against the JAX Pallas kernels run in
 interpret mode, over the case tables of ``tests/test_kernels.py`` and the
-other dense archs' shapes at small lengths (``cases.*_ARCH_SMALL``); RoPE
+other archs' shapes at small lengths (``cases.*_ARCH_SMALL``, dbrx's GQA
+group of 6 among them, and ``G6_*`` below); RoPE
 and the paged write/read round trip against JAX. The hand-written kernels
 against their plain versions on the card are in ``test_torch_cuda.py``.
 Inputs are made with numpy from a seed and fed to both sides.
@@ -60,8 +61,14 @@ def _f32(t):
 # ---------------------------------------------------------------------------
 
 
-PAGED_JAX = cases.PAGED_CASES + cases.PAGED_SPLIT_CASES + cases.PAGED_ARCH_SMALL
-PREFILL_JAX = cases.PREFILL_CASES + cases.PREFILL_SPLIT_CASES + cases.PREFILL_ARCH_SMALL
+# dbrx-132b's GQA group of 6 (48 query heads on 8 kv heads, head dim 128)
+# beyond the ``*_ARCH_SMALL`` rows: an idle slot and a full table; ragged
+# chunk lengths (a 12th field) that start mid-page
+G6_DECODE = [(3, 48, 8, 128, 8, 4, 12, (0, 19, 32), None, None)]
+G6_PREFILL = [(2, 5, 48, 8, 128, 4, 8, 16, (6, 13), None, None, (5, 2))]
+PAGED_JAX = cases.PAGED_CASES + cases.PAGED_SPLIT_CASES + cases.PAGED_ARCH_SMALL + G6_DECODE
+PREFILL_JAX = (cases.PREFILL_CASES + cases.PREFILL_SPLIT_CASES + cases.PREFILL_ARCH_SMALL
+               + G6_PREFILL)
 
 
 @pytest.mark.parametrize("case", PAGED_JAX, ids=[str(c[:8]) for c in PAGED_JAX])
