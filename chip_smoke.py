@@ -134,7 +134,8 @@ exit:
            phase 3's fp32 dense logits within LOGIT_TOL of the CPU's and
            their RMS error against float64 within EXACT_RATIO times the
            CPU fp32 run's;
-5. train-parity  tinyllama-1.1b at full width in fp32, phase 3's weights:
+5. train-parity  tinyllama-1.1b at full width in fp32, phase 3's weights
+           at TRAIN_PARITY_REPEATS of its 22 layers:
            the loss and gradients of one batch (B=1, S=TRAIN_PARITY_S, remat full) on
            the card (kernels), on the CPU (plain versions) and on the card
            with the plain versions (the kernels' own share), each against a
@@ -175,12 +176,14 @@ exit:
            monitor (K2 at head dim 256), its record in
            ``results/talp_archs/gemma2-2b/train_monitor/`` passing the
            ``talp validate`` CLI; an fp32 parity run of gemma2-2b at depth 2
-           (a 4,160-token prefill in chunks of 64, then DECODE_STEPS decode
-           steps) and of glm4-9b at depth 2 with N(0, 0.3) qkv biases, card
-           vs CPU within LOGIT_TOL and the card's RMS error against float64
-           within EXACT_RATIO of the CPU's (weights drawn on the CPU);
-           glm4-9b (full depth), command-r-35b (8 of 40 layers) and
-           llava-next-mistral-7b (full depth) serve 4 requests of 300-1,700
+           with its window cut to 1024 (a 1,088-token prefill in chunks of
+           64, past the window, then DECODE_STEPS decode steps) and of
+           glm4-9b at depth 1 with N(0, 0.3) qkv biases, card vs CPU within
+           LOGIT_TOL and the card's RMS error against float64 within
+           EXACT_RATIO of the CPU's (weights drawn on the card and copied
+           to the host);
+           glm4-9b (20 of 40 layers), command-r-35b (8 of 40) and
+           llava-next-mistral-7b (16 of 32) serve 4 requests of 300-1,700
            tokens; llava trains 3 steps with 1152 stub patch embeddings (8 of
            32 layers) and hubert-xlarge 3 steps on frame batches (full
            depth). Every request completes, logits finite, launches exact in
@@ -188,7 +191,7 @@ exit:
            in phase 2's tables (``cases.*_ARCH_*``) and timed in phase 8;
 10. moe    the MoE archs at full width (``MOE_PATHS``), bf16, seeded weights
            drawn on the card (slice by slice for a stacked expert leaf),
-           after every earlier model is freed: qwen3-moe-30b-a3b (48 layers,
+           after every earlier model is freed: qwen3-moe-30b-a3b (24 of 48 layers,
            qk-norm) and dbrx-132b (8 of 40 layers, GQA group 6) serve
            phase 9's glm4 traffic through ``BatchScheduler`` (every request
            completes, logits finite, launches exact: K1 4L+1 a forward with
@@ -199,11 +202,48 @@ exit:
            backend="monitor")``: losses finite, launches exact, the record
            in ``results/talp_moe/`` passing ``talp validate`` with an
            ``expert_load_balance`` in (0, 1) read from the router's counts;
-           an fp32 parity run of qwen3 at depth 2 (a 512-token prefill in
+           an fp32 parity run of qwen3 at depth 1 (a 256-token prefill in
            chunks of 64, DECODE_STEPS decode steps) held as phase 9's, its
            routing decisions that differ between card and CPU counted and
            allowed only where the CPU's K-th and (K+1)-th router logits lie
            within ROUTE_TIE;
+11. recurrent the recurrent and hybrid archs at full width
+           (``RECURRENT_PATHS``), bf16, weights drawn on the card after
+           every earlier model is freed, at fan-in scale (``_fan_in_``:
+           stacked leaves at their per-layer fan-in): zamba2-2.7b (54 layers: 45 mamba2,
+           9 attention at 32/32 heads, head dim 80) serves glm4's traffic
+           (launches exact: K3/K4 on the attention layers, K1 on every
+           norm, the mamba2 gated norm at 5120 included), 16 requests
+           against a 12-page pool that preempts (tokens equal an ample
+           pool's but at a near tie), a shared system prompt through the
+           prefix cache (the hybrid rule: pages shared, no prefill token
+           skipped; tokens equal); greedy speculation with every decoding
+           request preempted once, so the replayed history commits through
+           the two-pass verify several tokens at a time (no K3, two
+           forwards' K4 and K1 a verify): in bf16 at 54 layers, where the
+           verify's chunked recurrences and K4 round apart from the decode
+           step's beyond a near tie, each request that parts from the
+           plain run held to an fp32 witness of the same weights (the two
+           tokens' fp32 logits within twice the bf16 logits' error), and in
+           fp32 at 12 layers with tokens equal the plain run's but at a near
+           tie; the copy regime (spec on and off equal, drafts accepted); it trains 3
+           steps at B 1, S 4096 under the monitor (K2 at head dim 80, G 1),
+           its record in ``results/talp_recurrent/`` passing ``talp
+           validate``; xlstm-350m (21 mLSTM, 3 sLSTM; K1 alone) serves the
+           same traffic and a slot-reuse run (tokens equal a fresh
+           scheduler's), and trains at B 4, S 1024: at 16 of its 24 layers
+           checkpoint-restart
+           (checkpoints every 2 steps, a failure at step 3, the failed
+           run's state taking step 3 as the uninterrupted run would, the
+           restart's losses within rtol 1e-4 of those, save seconds and
+           bytes; a temporary directory under ``results/``, deleted), and at
+           8 of its 24 layers one step under remat ``full``, ``none`` and
+           ``dots`` (``dots``'s loss within 1e-6 of ``full``'s, the
+           gradients within GRAD_REMAT_TOL of ``full``'s, each one's peak
+           memory) and one with ``compress_dcn_grads`` (its gradients on the
+           int8 grid, within half a step of ``full``'s); the sLSTM
+           block's host scan timed and its kernels counted; fp32 parity of
+           both at one pattern repeat, held as phase 9's;
 8. timing  each kernel, its plain version and one PyTorch library call at
            the serving and training paths' shapes, beside the bound: ``ms``
            back to back with CUDA events (what an eager caller pays, host
@@ -217,7 +257,9 @@ exit:
            apart, from the profiler's kernel names; then each kernel at phase
            9's shapes (rows with their ``path``; a soft-capped attention has
            no library call: SDPA without the cap beside it), and at phase
-           10's (G 6 and G 8 at head dim 128, qk-norm rows of 128).
+           10's (G 6 and G 8 at head dim 128, qk-norm rows of 128) and
+           11's (zamba2's K2-K4 at head dim 80, G 1, and its verify; the
+           norms at 1024-5120).
 
 ``python3 chip_smoke.py --profile`` adds ``torch.profiler`` over the serve
 trace (after phase 4), over 40 mid-burst ticks of phase 4b's tight-pool
@@ -270,10 +312,11 @@ DECODE_STEPS = 8
 # versions and CPU alike: PERF.md), so only the float64 witness can tell
 # the kernels' error from fp32 rounding.
 TRAIN_TOL = 1e-4
-# Phase 5's sequence length: its CPU fp32 and float64 runs of 1.1e9
-# parameters dominate the phase, and S 128 keeps the script within its
-# time (PERF.md)
+# Phase 5's sequence length and depth: its CPU fp32 and float64 runs
+# dominate the phase, and S 128 at 4 of the 22 layers keeps the script
+# within its time (PERF.md)
 TRAIN_PARITY_S = 128
+TRAIN_PARITY_REPEATS = 4
 TRAIN_STEPS = 10
 TRAIN_B, TRAIN_S, TRAIN_A = 4, 2048, 1
 # Phase 7 runs the training configuration REPORT_STEPS steps more under the
@@ -330,48 +373,89 @@ FAULT_SPEC_TICKS = (6, 20, 40)
 # 4,200-6,000 tokens, so the local layers' window of 4096 cuts keys in K3
 # and K4 (the pool ~3.5 GB); training at B 1, S 8192 (K2 at head dim 256,
 # the window on the local layers) under the monitor; an fp32 parity run at
-# depth 2 (one local and one global layer) whose 4,160-token prefill in
-# chunks of 64 ends past the window. glm4-9b at full depth, and an fp32
-# parity run at depth 2 with non-zero qkv biases. command-r-35b at 8 of its
+# depth 2 (one local and one global layer) with the window cut to 1024,
+# whose 1,088-token prefill in chunks of 64 ends past it (the CPU fp32 and
+# float64 runs of a 4,160-token prefill past 4096 took 50 s). glm4-9b at 20 of its 40 layers, and an fp32
+# parity run at depth 1 with non-zero qkv biases. command-r-35b at 8 of its
 # 40 layers (all 40 would be 60.6 GB of bf16 weights). llava-next-mistral-7b
-# serves at full depth and trains at 8 of 32 layers (AdamW's fp32 master,
+# serves at 16 of 32 layers and trains at 8 (AdamW's fp32 master,
 # m and v and the fp32 gradients take 18 bytes a parameter: 2.0e9
 # parameters fit beside the activations, 7.24e9 do not). hubert-xlarge
 # trains at full depth on frame batches (``FrameStream``).
 ARCH_PATHS = {
-    "gemma2-2b": dict(max_len=8192, prompt_lens=(4200, 4800, 5400, 6000), max_new=32,
+    "gemma2-2b": dict(max_len=8192, prompt_lens=(4200, 4800, 5400, 6000), max_new=16,
                       train_batch=1, train_seq=8192, train_steps=5,
-                      parity_repeats=1, parity_prompt=4160),
-    "glm4-9b": dict(repeats=None, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
-                    max_new=16, parity_repeats=2, parity_prompt=256, parity_bias_std=0.3),
+                      parity_repeats=1, parity_prompt=1088, parity_window=1024),
+    "glm4-9b": dict(repeats=20, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
+                    max_new=16, parity_repeats=1, parity_prompt=256, parity_bias_std=0.3),
     "command-r-35b": dict(repeats=8, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
                           max_new=16),
-    "llava-next-mistral-7b": dict(max_len=2048, prompt_lens=(300, 700, 1100, 1500),
+    "llava-next-mistral-7b": dict(repeats=16, max_len=2048, prompt_lens=(300, 700, 1100, 1500),
                                   max_new=16, train_repeats=8, train_batch=2,
                                   train_seq=2048, train_steps=3),
     "hubert-xlarge": dict(train_batch=4, train_seq=1024, train_steps=3),
 }
 # Phase 10: the MoE archs at full width, bf16, seeded weights drawn on the
 # card (a CPU twin only for the parity run). qwen3-moe-30b-a3b (qk-norm,
-# 128 experts, top 8; 30.5e9 parameters, 61.0 GB of bf16) serves at full
-# depth (48 layers) with glm4's traffic; dbrx-132b (16 experts, top 4, G =
+# 128 experts, top 8; 30.5e9 parameters, 61.0 GB of bf16) serves at 24 of
+# 48 layers with glm4's traffic; dbrx-132b (16 experts, top 4, G =
 # 6) at 8 of 40 layers (40 would be 263 GB: 8 are 55 GB); qwen3 trains at
 # 5 of 48 layers, the deepest that leaves a tenth of the card free (AdamW's
 # state and the fp32 gradients take 18 bytes a parameter: 3.7e9 of them at
 # 5 layers; the peak read 74.8e9 of 85.0e9 bytes on an H100, PERF.md) in a
-# session opened by ``repro_torch.start``; an fp32 parity run of qwen3 at depth 2 (a 512-token
+# session opened by ``repro_torch.start``; an fp32 parity run of qwen3 at depth 1 (a 256-token
 # prefill in chunks of 64) counts the routing decisions that differ between
 # the card and the CPU, each allowed only at a CPU near tie (its K-th and
 # (K+1)-th router logits within ROUTE_TIE).
 MOE_PATHS = {
-    "qwen3-moe-30b-a3b": dict(repeats=None, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
+    "qwen3-moe-30b-a3b": dict(repeats=24, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
                               max_new=16, train_repeats=5, train_batch=1, train_seq=4096,
-                              train_steps=3, parity_repeats=2, parity_prompt=512),
+                              train_steps=3, parity_repeats=1, parity_prompt=256),
     "dbrx-132b": dict(repeats=8, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
                       max_new=16),
 }
 ROUTE_TIE = 1e-4
 MOE_TALP_DIR = os.path.join("results", "talp_moe")
+# Phase 11: the recurrent and hybrid archs at full width, bf16, weights
+# drawn on the card after every earlier model is freed (a CPU twin only for
+# the parity runs), at fan-in scale (``_fan_in_``): every stacked leaf that
+# the initializer draws at its default scale is rescaled from 1/sqrt(repeats)
+# (the reference behaviour) to 1/sqrt of its per-layer fan-in. At the
+# reference scales the recurrent stacks are chaotic in fp32 (on the CPU
+# JAX's own jit and eager runs part by 1.19 on xlstm's smoke logits,
+# tests/test_torch_recurrent.py), so no comparison of two computation
+# orders (speculation on and off, card and CPU) could hold; at fan-in
+# scale they part by 3.9e-5. zamba2-2.7b (2.67e9 parameters) serves at
+# full depth (54 layers) with glm4's traffic, 16 requests against a
+# pool that preempts and a shared system prompt through the prefix cache,
+# two-pass speculation in bf16 (each parting from the plain run held to
+# an fp32 witness) and in fp32 at 12 layers with the copy regime, and
+# trains at B 1, S 4096
+# under the monitor (record in RECURRENT_TALP_DIR); xlstm-350m (0.53e9)
+# serves the same traffic plus a slot-reuse run, and trains at B 4, S 1024
+# with checkpoint-restart (at 16 of 24 layers, for the script's time),
+# remat "dots" and compress_dcn_grads; both run
+# fp32 parity at one pattern repeat (6 and 8 layers), a 256-token prefill
+# in chunks of 64 and DECODE_STEPS decode steps, held as phase 9's.
+RECURRENT_PATHS = {
+    "zamba2-2.7b": dict(max_len=2048, prompt_lens=(600, 900, 1300, 1700), max_new=16,
+                        pool_requests=16, pool_prompt=(32, 96), pool_new=8, pool_pages=12,
+                        prefix_system=128, prefix_tail=(10, 40), prefix_requests=6,
+                        spec_bf16_requests=8, spec_repeats=2, spec_preempt_at=16,
+                        spec_k=4, copy_new=48,
+                        train_batch=1, train_seq=4096, train_steps=3,
+                        parity_repeats=1, parity_prompt=256),
+    "xlstm-350m": dict(max_len=2048, prompt_lens=(600, 900, 1300, 1700), max_new=16,
+                       reuse_prompts=(300, 200), train_batch=4, train_seq=1024,
+                       ckpt_repeats=2, ckpt_steps=4, ckpt_every=2, fail_at=3, remat_repeats=1,
+                       parity_repeats=1, parity_prompt=256),
+}
+RECURRENT_TALP_DIR = os.path.join("results", "talp_recurrent")
+# phase 11's remat steps: the gradients under remat none and dots against
+# full's, from the same weights and batch, in the relative L2 of each leaf
+# (bitwise equality recorded; bf16 gradients one ulp apart in every
+# element would read 2^-8 to 2^-7)
+GRAD_REMAT_TOL = 1e-2
 # phase 9's gemma2-2b training record, apart from phase 7's CI folder (whose
 # report and ``validate`` count its six runs)
 ARCH_TALP_DIR = os.path.join("results", "talp_archs")
@@ -705,8 +789,8 @@ def phase_kernels():
                 out = RMS.rmsnorm(x, s, 1e-6, zc)
                 torch.cuda.synchronize()
                 want = rmsnorm_reference(x, s, 1e-6, zc)
-                e, rel, l2 = (_err(out, want), cases.max_rel_err(_np(out), _np(want)),
-                              cases.l2_rel_err(_np(out), _np(want)))
+                e, rel, l2 = (_err(out, want), cases.max_rel_err(_f64(out), _f64(want)),
+                              cases.l2_rel_err(_f64(out), _f64(want)))
                 checks["rmsnorm"].append([dn, [rows, d, zc], e, rel, l2])
                 if not (rel <= cases.TOL_MAX[dn] and l2 <= cases.TOL_L2_RMS[dn]
                         and ((rows, d) not in absolute or e <= tol[dtype])):  # NaN fails
@@ -715,9 +799,9 @@ def phase_kernels():
                 if (rows, d) == cases.MAIN_RMS[0] and not zc and dtype is torch.bfloat16:
                     main_err["rmsnorm"] = e
                     main_err["l2_rel_err"]["rmsnorm"] = l2
-                key = _arch_err_key("rmsnorm", (rows, d, zc))
-                if key and dtype is torch.bfloat16:
-                    main_err[key], main_err["l2_rel_err"][key] = e, l2
+                for key in _arch_err_keys("rmsnorm", (rows, d, zc)):
+                    if dtype is torch.bfloat16:
+                        main_err[key], main_err["l2_rel_err"][key] = e, l2
     deterministic = _check_training_kernels(checks, main_err)
     _check_dense_flash(checks, main_err)
     _check_nan(checks)
@@ -759,12 +843,10 @@ def paged_errors(out, want) -> dict:
     """The gates' readings of a paged output against its plain version:
     ``abs`` the largest absolute error, ``max`` ``cases.max_rel_err``,
     ``l2`` ``cases.l2_rel_err``."""
-    import numpy as np
-
     from repro_torch.kernels import cases
 
-    got, w = _np(out), _np(want)
-    return {"abs": float(np.abs(got - w).max(initial=0.0)),
+    got, w = _f64(out), _f64(want)
+    return {"abs": float((got - w).abs().max()) if got.numel() else 0.0,
             "max": cases.max_rel_err(got, w), "l2": cases.l2_rel_err(got, w)}
 
 
@@ -829,9 +911,9 @@ def _check_paged_kernels(checks: dict, main_err: dict) -> None:
                 if case in (cases.MAIN_PAGED, cases.MAIN_PREFILL) and dtype is torch.bfloat16:
                     main_err[name] = errs["abs"]
                     main_err["l2_rel_err"][name] = errs["l2"]
-                key = _arch_err_key(name, case)
-                if key and dtype is torch.bfloat16:
-                    main_err[key], main_err["l2_rel_err"][key] = errs["abs"], errs["l2"]
+                for key in _arch_err_keys(name, case):
+                    if dtype is torch.bfloat16:
+                        main_err[key], main_err["l2_rel_err"][key] = errs["abs"], errs["l2"]
         moved = {r: PA.ROUTE_LAUNCHES[r] - before[r] for r in before}
         want = {r: (n if r == PA.route(dtype) else 0) for r in before}
         checks["paged_routes"][dn] = moved
@@ -839,8 +921,11 @@ def _check_paged_kernels(checks: dict, main_err: dict) -> None:
             raise AssertionError(f"paged attention {dn}: route launches {moved} != {want}")
 
 
-def _np(t):
-    return t.detach().float().cpu().numpy()
+def _f64(t):
+    """A kernel's output or its plain version's, in float64 on its device:
+    the gates (``cases.max_rel_err``, ``cases.l2_rel_err``) read tensors
+    where they lie, without a host copy."""
+    return t.detach().double()
 
 
 def flash_inputs(case, dtype, seed: int):
@@ -862,14 +947,15 @@ def flash_inputs(case, dtype, seed: int):
 
 
 def flash_reference(q, k, v, dout, kw):
-    """The plain version's output and its autograd's (dq, dk, dv), as numpy."""
+    """The plain version's output and its autograd's (dq, dk, dv), in
+    float64 on the card."""
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_backward_reference,
         flash_attention_reference,
     )
 
-    return (_np(flash_attention_reference(q, k, v, **kw)),
-            [_np(w) for w in flash_attention_backward_reference(q, k, v, dout, **kw)])
+    return (_f64(flash_attention_reference(q, k, v, **kw)),
+            [_f64(w) for w in flash_attention_backward_reference(q, k, v, dout, **kw)])
 
 
 def flash_errors(out, grads, want) -> dict:
@@ -880,9 +966,9 @@ def flash_errors(out, grads, want) -> dict:
     from repro_torch.kernels import cases
 
     want_o, want_g = want
-    got = _np(out)
+    got = _f64(out)
     errs = {"fwd_max": cases.max_rel_err(got, want_o), "fwd_l2": cases.l2_rel_err(got, want_o)}
-    got = [_np(g) for g in grads]
+    got = [_f64(g) for g in grads]
     errs["bwd_max"] = max(cases.max_rel_err(g, w) for g, w in zip(got, want_g))
     errs["bwd_l2"] = max(cases.l2_rel_err(g, w) for g, w in zip(got, want_g))
     return errs
@@ -945,10 +1031,10 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
                 main_err["l2_rel_err"].update({"flash_attention": errs["fwd_l2"],
                                                "flash_attention_backward": errs["bwd_l2"]})
             for name, part in (("flash_attention", "fwd"), ("flash_attention_backward", "bwd")):
-                key = _arch_err_key(name, case)
-                if key and dtype is torch.bfloat16:
-                    main_err[key] = errs[f"{part}_max"]
-                    main_err["l2_rel_err"][key] = errs[f"{part}_l2"]
+                for key in _arch_err_keys(name, case):
+                    if dtype is torch.bfloat16:
+                        main_err[key] = errs[f"{part}_max"]
+                        main_err["l2_rel_err"][key] = errs[f"{part}_l2"]
             del grads, out
             torch.cuda.empty_cache()
         # each dtype on its own route: two forwards and two backwards a case
@@ -970,7 +1056,7 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
                     raise AssertionError(f"rmsnorm backward {dn} {(rows, d, zc)}: two calls "
                                          f"gave different gradients")
                 dx, ds = rmsnorm_backward_reference(x, sc, dy, 1e-6, zc)
-                got, want = (_np(xl.grad), _np(sl.grad)), (_np(dx), _np(ds))
+                got, want = (_f64(xl.grad), _f64(sl.grad)), (_f64(dx), _f64(ds))
                 e = max(cases.max_rel_err(g, w) for g, w in zip(got, want))
                 l2 = max(cases.l2_rel_err(g, w) for g, w in zip(got, want))
                 checks["rmsnorm_backward"].append([dn, [rows, d, zc], e, l2])
@@ -980,9 +1066,9 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
                 if (rows, d) == cases.MAIN_RMS_TRAIN and not zc and dtype is torch.bfloat16:
                     main_err["rmsnorm_backward"] = e
                     main_err["l2_rel_err"]["rmsnorm_backward"] = l2
-                key = _arch_err_key("rmsnorm_backward", (rows, d, zc))
-                if key and dtype is torch.bfloat16:
-                    main_err[key], main_err["l2_rel_err"][key] = e, l2
+                for key in _arch_err_keys("rmsnorm_backward", (rows, d, zc)):
+                    if dtype is torch.bfloat16:
+                        main_err[key], main_err["l2_rel_err"][key] = e, l2
     if not deterministic:
         raise AssertionError("flash attention backward: two calls gave different gradients")
     return deterministic
@@ -1007,7 +1093,7 @@ def _check_dense_flash(checks: dict, main_err: dict) -> None:
             with torch.no_grad():
                 out, again = FA.flash_attention(q, k, v, **kw), FA.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            got, want = _np(out), _np(flash_attention_reference(q, k, v, **kw))
+            got, want = _f64(out), _f64(flash_attention_reference(q, k, v, **kw))
             e, l2 = cases.max_rel_err(got, want), cases.l2_rel_err(got, want)
             checks["flash_attention_dense"].append([dn, name, e, l2])
             if not (e <= cases.TOL_MAX[dn] and l2 <= cases.TOL_L2[dn]):
@@ -1100,7 +1186,7 @@ def phase_parity():
 
     cfg = _config().replace(param_dtype_name="float32", compute_dtype_name="float32")
     t0 = time.perf_counter()
-    cpu = Transformer.from_init(cfg, seed=0, device="cpu")
+    cpu = Transformer.from_init(cfg, seed=0, device="cpu", draw_device="cuda")
     init_s = time.perf_counter() - t0
     page, C = 16, 64
     prompt = np.random.default_rng(21).integers(4, cfg.vocab, size=(1, C)).astype(np.int32)
@@ -1325,17 +1411,22 @@ def _load_scheduler(model, session=None, fault_injector=None, **kw):
 
 
 def _serve_launches(cfg, st) -> dict:
-    """The exact launches of a serving run: per forward 2L+1 RMSNorm, per
-    decode step L paged decode, per prefill chunk and per speculative verify
-    (counted among the decode steps) L paged prefill."""
+    """The exact launches of a serving run: per forward N+1 RMSNorm (N =
+    ``_layer_norms``, 2L for tinyllama), per decode step A paged decode (A
+    = ``_attn_layers``, L for tinyllama), per prefill chunk A paged
+    prefill, per speculative verify (counted among the decode steps) A
+    paged prefill and a forward's RMSNorms, twice with recurrent state (the
+    scoring pass, then the commit pass)."""
     from repro_torch.kernels import launch_counts
 
-    L = cfg.n_layers
+    A, N = _attn_layers(cfg), _layer_norms(cfg)
     verify = st["spec_dispatches"]
+    passes = 2 if any(k in _RECURRENT_NORMS for k in cfg.pattern) else 1
+    forwards = st["decode_steps"] - verify + passes * verify + st["prefill_chunks"]
     want = dict.fromkeys(launch_counts(), 0)
-    want.update({"paged_attention": L * (st["decode_steps"] - verify),
-                 "paged_prefill_attention": L * (st["prefill_chunks"] + verify),
-                 "rmsnorm": (2 * L + 1) * (st["decode_steps"] + st["prefill_chunks"])})
+    want.update({"paged_attention": A * (st["decode_steps"] - verify),
+                 "paged_prefill_attention": A * (st["prefill_chunks"] + passes * verify),
+                 "rmsnorm": (N + 1) * forwards})
     return want
 
 
@@ -1627,7 +1718,7 @@ def _sampled_top2_gap(model, prompt: list, tokens: list, i: int, rid, temperatur
     fold_in(PRNGKey(seed), tag), position)``."""
     import torch
 
-    from repro_torch.serve import prng
+    from repro_torch import prng
     from repro_torch.serve.serve import _request_tag
 
     hist = prompt + tokens[:i]
@@ -1776,7 +1867,7 @@ def _sampler_timing(cfg, spec_ticks_s: float, decode_tick_s: float) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve import prng
+    from repro_torch import prng
     from repro_torch.serve.serve import _sample_tokens
 
     out = {}
@@ -2393,7 +2484,9 @@ def phase_train_parity(params_f32):
     from repro_torch.models.transformer import Transformer
 
     cfg = _config().replace(param_dtype_name="float32", compute_dtype_name="float32",
-                            remat="full")
+                            remat="full", repeats=TRAIN_PARITY_REPEATS)
+    params_f32 = dict(params_f32, slots=tree_map(lambda t: t[:TRAIN_PARITY_REPEATS],
+                                                 params_f32["slots"]))
     batch = {k: v[0] for k, v in SyntheticLM(DataConfig(
         global_batch=1, seq_len=TRAIN_PARITY_S, vocab=cfg.vocab, pad_fraction=0.05,
         seed=7)).batch_at(0).items()}
@@ -2448,22 +2541,44 @@ def phase_train_parity(params_f32):
 
 
 def _norms_per_layer(cfg) -> int:
-    """K1 launches a layer a forward: the block's two norms, and with
-    qk-norm the query and key norms."""
+    """K1 launches an attention layer a forward: the block's two norms, and
+    with qk-norm the query and key norms."""
     return 4 if cfg.qk_norm else 2
 
 
+_ATTN_KINDS = ("attn", "local_attn", "moe")
+# K1 launches a recurrent layer a forward: the pre-norm and the block's own
+# norm (mamba2's gated norm over d_inner, mLSTM's over its inner width),
+# and sLSTM's third, its MLP's pre-norm
+_RECURRENT_NORMS = {"mamba2": 2, "mlstm": 2, "slstm": 3}
+
+
+def _attn_layers(cfg) -> int:
+    """The layers that launch attention (K2 in training, K3/K4 serving)."""
+    return sum(k in _ATTN_KINDS for k in cfg.pattern) * cfg.repeats
+
+
+def _layer_norms(cfg) -> int:
+    """K1 launches a forward in the layers, the final norm apart: nL for
+    an attention-only stack (``_norms_per_layer``)."""
+    return cfg.repeats * sum(_RECURRENT_NORMS.get(k) or _norms_per_layer(cfg)
+                             for k in cfg.pattern)
+
+
 def _train_expected_launches(cfg, steps: int, accum: int) -> dict:
-    """Per microbatch, L layers of n norms (``_norms_per_layer``), remat
-    full: the forward runs n RMSNorms and one attention per layer plus the
-    final norm (nL+1, L); the backward recomputes every layer once (nL
-    RMSNorms and L attentions more: the final norm sits outside the
-    checkpointed layers) and then launches one flash backward per layer and
-    one RMSNorm backward per norm (L, nL+1)."""
-    L, n = cfg.n_layers, _norms_per_layer(cfg)
-    assert cfg.remat == "full"
-    per = {"flash_attention": 2 * L, "flash_attention_backward": L,
-           "rmsnorm": 2 * n * L + 1, "rmsnorm_backward": n * L + 1}
+    """Per microbatch, A attention layers and N layer norms (``_attn_layers``,
+    ``_layer_norms``; A = L and N = nL for an attention-only stack): the
+    forward runs N RMSNorms and A attentions plus the final norm; under
+    remat ``full`` or ``dots`` the backward recomputes every layer once (N
+    RMSNorms and A attentions more: the final norm sits outside the
+    checkpointed layers, and ``dots`` keeps only the aten products, not
+    the kernels' outputs), then launches one flash backward per attention
+    layer and one RMSNorm backward per norm (A, N+1)."""
+    A, N = _attn_layers(cfg), _layer_norms(cfg)
+    assert cfg.remat in ("none", "full", "dots")
+    rerun = 0 if cfg.remat == "none" else 1
+    per = {"flash_attention": (1 + rerun) * A, "flash_attention_backward": A,
+           "rmsnorm": (1 + rerun) * N + 1, "rmsnorm_backward": N + 1}
     return {k: v * steps * accum for k, v in per.items()}
 
 
@@ -2830,10 +2945,11 @@ def _arch_cfg(arch: str, repeats: int | None = None, dtype: str = "bfloat16"):
     return cfg if repeats is None else cfg.replace(repeats=repeats)
 
 
-def _card_model(cfg, seed: int):
+def _card_model(cfg, seed: int, fan_in: bool = False):
     """Seeded weights drawn on the card (``torch.Generator(device="cuda")``:
     no CPU twin needs them, and a large model's weights never cross the
-    host), with the draw's seconds."""
+    host), with the draw's seconds; ``fan_in``: ``_fan_in_`` after the
+    draw."""
     import torch
 
     from repro_torch.models.transformer import Transformer
@@ -2841,14 +2957,95 @@ def _card_model(cfg, seed: int):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = Transformer.from_init(cfg, seed=seed, device=DEV, draw_device="cuda")
+    if fan_in:
+        _fan_in_(model)
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0
 
 
+def _fan_in_(model) -> None:
+    """Rescale, in place, every stacked leaf that the initializer draws at
+    its default scale, 1/sqrt of its leading axis (the repeat count: the
+    reference behaviour, ROADMAP.md Queue 3), to 1/sqrt of its per-layer
+    fan-in (its second axis), as a per-layer draw would be. Phase 11's
+    weights."""
+    import torch
+
+    from repro_torch.layers.common import tree_leaves
+    from repro_torch.models.transformer import model_params
+
+    specs = dict(tree_leaves(model_params(model.cfg)))
+    with torch.no_grad():
+        for path, p in model.named_params().items():
+            s = specs[path]
+            if path.startswith("slots/") and s.init == "normal" and s.scale is None:
+                p.mul_((s.shape[0] / s.shape[1]) ** 0.5)
+
+
+def _serve_run(model, cfg, reqs, label: str, failures: list, max_len: int,
+               warm_first: bool = False, preempt_at: int | None = None, **kw) -> dict:
+    """``reqs`` [(id, prompt, max_new)] through ``BatchScheduler`` (batch 4,
+    page 16, chunk 64, overlap; ``kw`` on top), launch counters zeroed
+    before and read after: every request completes with its tokens, in
+    the padded vocab (greedy takes its argmax over it), launches exact
+    (``_serve_launches``: per layer and norm, the two-pass verify with
+    recurrent state), no page left in use beside the prefix trie's. Gates
+    append to ``failures``. ``warm_first``: request 0
+    completes before the others are submitted; ``preempt_at``: after that
+    many ticks every decoding slot is preempted (its request resumes
+    later, replaying its history)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.serve import BatchScheduler, ServeConfig
+
+    sched = BatchScheduler(model, ServeConfig(**{**dict(
+        max_len=max_len, batch=4, prefill_chunk=64, overlap=True, page_size=16), **kw}))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (rid, prompt, max_new) in enumerate(reqs):
+        sched.submit(prompt, request_id=rid, max_new=max_new)
+        if warm_first and i == 0:
+            sched.drain()
+    if preempt_at is not None:
+        for _ in range(preempt_at):
+            sched.step()
+        for slot in range(sched.scfg.batch):
+            if sched.active[slot] is not None:
+                sched._preempt(slot)
+    sched.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, want = launch_counts(), _serve_launches(cfg, sched.stats)
+    kv = sched.kv_cache_stats()
+    toks = {r["id"]: r["generated"] for r in sched.completed}
+    ttft = sorted(r["t_first_token"] - r["t_submit"] for r in sched.completed)
+    n_tok = sum(len(t) for t in toks.values())
+    out = {"wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+           "ticks": sched.stats["ticks"], "decode_steps": sched.stats["decode_steps"],
+           "prefill_chunks": sched.stats["prefill_chunks"],
+           "launches": counts, "expected_launches": want, "pressure": kv["pressure"],
+           "speculation": kv["speculation"], "prefix_cache": kv.get("prefix_cache"),
+           "peak_used_pages": kv["peak_used_pages"], "kv_bytes": kv["kv_bytes"],
+           "ttft_deferred_s": {"p50": ttft[len(ttft) // 2], "max": ttft[-1]} if ttft else None,
+           "generated": toks}
+    if counts != want:
+        failures.append(f"{label}: launches {counts} != expected {want}")
+    held = kv["pages_in_use"] - (kv["prefix_cache"]["trie_pages"] if "prefix_cache" in kv else 0)
+    if held or sorted(toks) != sorted(r[0] for r in reqs) or any(
+            len(toks[rid]) != n for rid, _, n in reqs):
+        failures.append(f"{label}: {len(toks)} of {len(reqs)} completed, "
+                        f"{held} pages in use beside the trie's")
+    if any(not 0 <= t < cfg.vocab_padded for g in toks.values() for t in g):
+        failures.append(f"{label}: token id out of range")
+    return out
+
+
 def phase_arch_serve(arch: str, repeats, max_len: int, prompt_lens, max_new: int,
                      seed: int) -> dict:
-    """``BatchScheduler`` (batch 4, page 16, chunk 64, overlap) at full width
-    in bf16 on seeded card weights: every request completes with ``max_new``
+    """``_serve_run`` (batch 4, page 16, chunk 64, overlap) at full width in
+    bf16 on seeded card weights: every request completes with ``max_new``
     tokens in the vocab, finite logits, launches exact (K3 one per layer a
     decode step, K4 one per layer a chunk, K1 nL+1 a forward, n the norms
     of a layer). For an MoE arch also one decode step's time on a fresh
@@ -2858,9 +3055,6 @@ def phase_arch_serve(arch: str, repeats, max_len: int, prompt_lens, max_new: int
     import numpy as np
     import torch
 
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serve.serve import BatchScheduler, ServeConfig
-
     cfg = _arch_cfg(arch, repeats)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2868,56 +3062,40 @@ def phase_arch_serve(arch: str, repeats, max_len: int, prompt_lens, max_new: int
     bad = _finite_guard(model)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(4, cfg.vocab, size=int(n)).tolist() for n in prompt_lens]
-    sched = BatchScheduler(model, ServeConfig(max_len=max_len, batch=4, prefill_chunk=64,
-                                              overlap=True, page_size=16))
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for rid, p in enumerate(prompts):
-        sched.submit(p, request_id=rid, max_new=max_new)
-    sched.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
-    st = sched.stats
-    L = cfg.n_layers
-    want = {k: 0 for k in counts}
-    want.update({"paged_attention": L * st["decode_steps"],
-                 "paged_prefill_attention": L * st["prefill_chunks"],
-                 "rmsnorm": (_norms_per_layer(cfg) * L + 1)
-                 * (st["decode_steps"] + st["prefill_chunks"])})
-    gens = [r["generated"] for r in sched.completed]
-    ttft = sorted(r["t_first_token"] - r["t_submit"] for r in sched.completed)
-    kv = sched.kv_cache_stats()
-    n_tok = sum(len(g) for g in gens)
     phase = f"serve_{arch}"
+    failures: list = []
+    run = _serve_run(model, cfg, [(rid, p, max_new) for rid, p in enumerate(prompts)], phase,
+                     failures, max_len)
+    counts = run["launches"]
     moe = _moe_decode(model, cfg, [len(p) for p in prompts], max_len) if cfg.moe else {}
     # every prompt runs past the window: each local layer's K4 launch from
     # the first chunk past it, and each K3 launch, leaves keys out
-    emit(phase, arch=arch, dtype="bfloat16", layers=L, full_layers=_arch_cfg(arch).n_layers,
-         params=cfg.param_count(), weights_drawn_on="cuda", init_seconds=round(init_s, 3),
-         window=cfg.window, batch=4, max_len=max_len, page=16, chunk=64,
-         prompt_lens=[len(p) for p in prompts], max_new=max_new,
-         completed=len(sched.completed), ticks=st["ticks"], decode_steps=st["decode_steps"],
-         prefill_chunks=st["prefill_chunks"], launches=counts, expected_launches=want,
-         tokens_per_s=n_tok / wall, wall_s=wall,
-         ttft_deferred_s={"p50": ttft[len(ttft) // 2], "max": ttft[-1]},
-         kv_bytes=kv["kv_bytes"], peak_used_pages=kv["peak_used_pages"],
+    emit(phase, arch=arch, dtype="bfloat16", layers=cfg.n_layers,
+         full_layers=_arch_cfg(arch).n_layers, params=cfg.param_count(),
+         weights_drawn_on="cuda", init_seconds=round(init_s, 3), window=cfg.window, batch=4,
+         max_len=max_len, page=16, chunk=64, prompt_lens=[len(p) for p in prompts],
+         max_new=max_new, completed=len(run["generated"]),
+         **{k: run[k] for k in ("ticks", "decode_steps", "prefill_chunks", "launches",
+                                "expected_launches", "tokens_per_s", "wall_s",
+                                "ttft_deferred_s", "kv_bytes", "peak_used_pages")},
          peak_mem_bytes=torch.cuda.max_memory_allocated(), **moe)
-    if len(gens) != len(prompts) or any(len(g) != max_new for g in gens):
-        raise AssertionError(f"{phase}: {len(gens)} completed, lengths {[len(g) for g in gens]}")
     if cfg.window and min(len(p) for p in prompts) <= cfg.window:
-        raise AssertionError(f"{phase}: a prompt within the window {cfg.window}: the local "
-                             f"layers' K3/K4 launches must cut keys")
-    if any(not 0 <= t < cfg.vocab_padded for g in gens for t in g):
-        raise AssertionError(f"{phase}: token id out of range")
+        failures.append(f"a prompt within the window {cfg.window}: the local layers' K3/K4 "
+                        f"launches must cut keys")
     if bool(bad):
-        raise AssertionError(f"{phase}: non-finite logits")
-    if counts != want or min(counts[k] for k in SERVE_KERNELS) <= 0:
-        raise AssertionError(f"{phase}: launches {counts} != expected {want}")
-    del sched
+        failures.append("non-finite logits")
+    if min(counts[k] for k in _path_kernels(cfg, SERVE_KERNELS)) <= 0:
+        failures.append(f"a kernel of the path not launched: {counts}")
+    if failures:
+        raise AssertionError(f"{phase}: " + "; ".join(failures))
     _release(model)
     return counts
+
+
+def _path_kernels(cfg, kernels) -> tuple:
+    """The kernels of ``kernels`` a path of ``cfg`` must launch: an arch
+    with no attention layer (xlstm-350m) launches K1 alone."""
+    return kernels if _attn_layers(cfg) else tuple(k for k in kernels if "rmsnorm" in k)
 
 
 class FrameStream:
@@ -2940,7 +3118,7 @@ class FrameStream:
 
 
 def phase_arch_train(arch: str, repeats, data, steps: int, seed: int, backend: str = "null",
-                     record_dir: str | None = None) -> dict:
+                     record_dir: str | None = None, fan_in: bool = False) -> dict:
     """``TrainLoop`` at full width in bf16 (remat full, AdamW with fp32
     master) from seeded card weights: losses finite, launches exact; with
     ``record_dir`` the monitor's run record there, its POP factors valid."""
@@ -2959,7 +3137,7 @@ def phase_arch_train(arch: str, repeats, data, steps: int, seed: int, backend: s
     tcfg = TrainConfig(total_steps=steps)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model, init_s = _card_model(cfg, seed)
+    model, init_s = _card_model(cfg, seed, fan_in)
     state = TrainState(model, adamw_init(model.named_params(), tcfg.optimizer), 0)
     loop = TrainLoop(cfg, tcfg, data, LoopConfig(steps=steps, lb_sample_every=1,
                                                  monitor_app_name=arch,
@@ -3006,7 +3184,7 @@ def phase_arch_train(arch: str, repeats, data, steps: int, seed: int, backend: s
     emit(f"train_{arch}", **out)
     if not all(np.isfinite(losses)):
         failures.append(f"non-finite loss in {losses}")
-    if counts != want or min(counts[k] for k in TRAIN_KERNELS) <= 0:
+    if counts != want or min(counts[k] for k in _path_kernels(cfg, TRAIN_KERNELS)) <= 0:
         failures.append(f"launches {counts} != expected {want}")
     if failures:
         raise AssertionError(f"train {arch}: " + "; ".join(failures))
@@ -3042,7 +3220,7 @@ def _chunked_run(model, prompt, page: int, chunk: int, toks=None):
 
 
 def phase_arch_parity(arch: str, repeats: int, prompt_len: int, seed: int,
-                      bias_std: float = 0.0) -> None:
+                      bias_std: float = 0.0, fan_in: bool = False, window=None) -> None:
     """Full width, fp32, ``repeats`` repeats of the pattern: weights drawn on
     the CPU (qkv biases, where the arch has them, redrawn as N(0,
     ``bias_std``): the initializer zeroes them), a ``prompt_len``-token
@@ -3061,9 +3239,15 @@ def phase_arch_parity(arch: str, repeats: int, prompt_len: int, seed: int,
     from repro_torch.models.transformer import Transformer
 
     cfg = _arch_cfg(arch, repeats, "float32")
+    if window:
+        cfg = cfg.replace(window=window)
     routed = _routing_recorded if cfg.moe else (lambda: contextlib.nullcontext([]))
     t0 = time.perf_counter()
-    cpu = Transformer.from_init(cfg, seed=seed, device="cpu")
+    # drawn on the card and copied to the host: a CPU draw of the large
+    # embeddings took 5-13 s
+    cpu = Transformer.from_init(cfg, seed=seed, device="cpu", draw_device="cuda")
+    if fan_in:
+        _fan_in_(cpu)
     if bias_std:
         g = torch.Generator().manual_seed(seed + 1)
         with torch.no_grad():
@@ -3101,7 +3285,8 @@ def phase_arch_parity(arch: str, repeats: int, prompt_len: int, seed: int,
     n_chunks = -(-prompt_len // chunk)
     emit(f"parity_{arch}", arch=arch, dtype="float32", layers=cfg.n_layers,
          pattern=list(cfg.pattern), params=cfg.param_count(), window=cfg.window,
-         attn_bias=cfg.attn_bias, bias_std=bias_std, prompt_len=prompt_len, chunk=chunk,
+         attn_bias=cfg.attn_bias, bias_std=bias_std, fan_in=fan_in, prompt_len=prompt_len,
+         chunk=chunk,
          chunks=n_chunks, decode_steps=DECODE_STEPS,
          tolerance={"card_vs_cpu": LOGIT_TOL, "card_over_cpu_rms_vs_float64": EXACT_RATIO},
          max_abs_err=err, prefill_max_abs_err=float((got - ref)[:n_chunks].abs().max()),
@@ -3149,7 +3334,8 @@ def phase_archs() -> dict:
     RESULT["train_gemma2-2b"]["talp_validate"] = cli
     if cli["rc"] != 0 or not m or m.groups() != ("1", "0"):
         raise AssertionError(f"talp validate {ARCH_TALP_DIR}: {cli}")
-    phase_arch_parity("gemma2-2b", g["parity_repeats"], g["parity_prompt"], seed=53)
+    phase_arch_parity("gemma2-2b", g["parity_repeats"], g["parity_prompt"], seed=53,
+                      window=g["parity_window"])
     gl = ARCH_PATHS["glm4-9b"]
     counts["glm4_serve"] = phase_arch_serve("glm4-9b", gl["repeats"], gl["max_len"],
                                             gl["prompt_lens"], gl["max_new"], seed=54)
@@ -3159,7 +3345,7 @@ def phase_archs() -> dict:
     counts["command_r_serve"] = phase_arch_serve("command-r-35b", c["repeats"], c["max_len"],
                                                  c["prompt_lens"], c["max_new"], seed=56)
     lv = ARCH_PATHS["llava-next-mistral-7b"]
-    counts["llava_serve"] = phase_arch_serve("llava-next-mistral-7b", None, lv["max_len"],
+    counts["llava_serve"] = phase_arch_serve("llava-next-mistral-7b", lv["repeats"], lv["max_len"],
                                              lv["prompt_lens"], lv["max_new"], seed=57)
     cfg = _arch_cfg("llava-next-mistral-7b")
     data = SyntheticLM(DataConfig(global_batch=lv["train_batch"], seq_len=lv["train_seq"],
@@ -3270,7 +3456,7 @@ def phase_moe_train(arch: str, repeats: int, batch: int, seq: int, steps: int,
 
 def phase_moe() -> dict:
     """The MoE archs at full width (MOE_PATHS' cuts): qwen3-moe-30b-a3b's
-    serving at full depth, training in a ``repro_torch.start`` session and
+    serving at 24 of 48 layers, training in a ``repro_torch.start`` session and
     fp32 parity with its routing flips counted; dbrx-132b's serving (G 6).
     Runs after every earlier model is freed. Returns each path's launch
     counts."""
@@ -3368,6 +3554,547 @@ def _routing_flips(card: list, cpu: list, k: int) -> dict:
     return {"decisions": n, "flips": len(gaps), "flip_cpu_gaps": gaps}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent and hybrid archs at full width
+# ---------------------------------------------------------------------------
+
+
+def _spec_gates(run: dict, label: str, failures: list) -> None:
+    """A speculating ``_serve_run`` whose decoding requests were preempted:
+    verifies dispatched, requests resumed, and no K3 launch (every decode
+    step is a verify through K4)."""
+    sp, k3 = run["speculation"], run["launches"]["paged_attention"]
+    if not (sp["verify_dispatches"] > 0 and run["pressure"]["resumes"] > 0 and k3 == 0):
+        failures.append(f"{label}: {sp}, {run['pressure']}, K3 {k3}")
+
+
+def _fp32_witness(model, prompts: dict, base: dict, other: dict) -> list:
+    """Where two greedy runs of a bf16 ``model`` part (``base``'s and
+    ``other``'s tokens of each request), the logits after their common
+    history from the model and from an fp32 copy of its weights: at the
+    first differing position, the bf16 top-2 gap, the fp32 logit of
+    ``base``'s token less that of ``other``'s (``fp32_gap``) and the bf16
+    logits' largest distance from the fp32 ones (``bf16_err``). Rounding
+    explains a parting where the fp32 run tells the two tokens apart by no
+    more than twice that distance."""
+    import torch
+
+    from repro_torch.layers.common import tree_map
+    from repro_torch.models.transformer import Transformer
+
+    cfg32 = model.cfg.replace(param_dtype_name="float32", compute_dtype_name="float32")
+    m32 = Transformer(cfg32, tree_map(lambda t: t.float(), model.params()), DEV)
+    out = []
+    with torch.no_grad():
+        for rid, want in base.items():
+            got = other[rid]
+            i = _first_divergence(got, want)
+            if i is None:
+                continue
+            hist = prompts[rid] + want[:i]
+            l16 = _history_logits(model, hist).float()
+            l32 = _history_logits(m32, hist).float()
+            top = l16.topk(2).values
+            out.append({"request": rid, "position": i, "tokens": [want[i], got[i]],
+                        "bf16_top2_gap": float(top[0] - top[1]),
+                        "fp32_gap": float(l32[want[i]] - l32[got[i]]),
+                        "bf16_err": float((l16 - l32).abs().max())})
+    del m32
+    return out
+
+
+def phase_zamba2_serve(p: dict, seed: int) -> dict:
+    """zamba2-2.7b serving, fan-in weights drawn on the card. At full depth
+    (54 layers: 45 mamba2, 9 attention) in bf16, one model: (a) glm4's
+    traffic (launches exact: K3 and K4 on the 9 attention layers, K1 on
+    every norm); (b) ``pool_requests`` requests against ``pool_pages``
+    pages, which preempts, and against an ample pool: tokens equal but at
+    a near tie (``_tie_check``); (c) a shared system prompt with the prefix
+    cache on and off: the hybrid rule (pages shared, no prefill token
+    skipped: the chunk count equal), tokens equal; (d) greedy speculation
+    on the first ``spec_bf16_requests`` of (b)'s requests (every decoding
+    one preempted after
+    ``spec_preempt_at`` ticks): the drafter finds little in random weights'
+    streams, but a resumed request's history replays through verify
+    windows of up to ``spec_k`` + 1 tokens, all accepted, so the commit
+    pass advances the state over several tokens at once; launches exact
+    for the two-pass verify (no K3, two forwards' K4 and K1 a verify). In
+    bf16 the verify's chunked recurrences and K4 round apart from the
+    decode step's recurrent form and K3, and requests part from (b)'s
+    ample run beyond a near tie; each parting is held to the fp32 witness
+    (``_fp32_witness``). (e) the same at ``spec_repeats`` repeats of the
+    pattern in fp32 on all of (b)'s requests: tokens equal the plain run's
+    but at a near tie; (f)
+    the copy regime (every layer zeroed, a prompt on a short cycle of the
+    successor map): spec on and off equal, drafts accepted. Returns the
+    launch counts of (a) and of (e)."""
+    import numpy as np
+    import torch
+
+    arch = "zamba2-2.7b"
+    cfg = _arch_cfg(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _card_model(cfg, seed, fan_in=True)
+    bad = _finite_guard(model)
+    rng = np.random.default_rng(seed)
+    failures: list = []
+    out: dict = {}
+    draw = lambda n: rng.integers(4, cfg.vocab, size=int(n)).tolist()  # noqa: E731
+    max_len = p["max_len"]
+    # (a) glm4's traffic
+    main = [(i, draw(n), p["max_new"]) for i, n in enumerate(p["prompt_lens"])]
+    out["traffic"] = _serve_run(model, cfg, main, "zamba2 traffic", failures, max_len)
+    # (b) a pool that preempts against an ample one
+    pool = [(i, draw(n), p["pool_new"])
+            for i, n in enumerate(rng.integers(*p["pool_prompt"], size=p["pool_requests"]))]
+    prompts = {rid: pr for rid, pr, _ in pool}
+    tight = _serve_run(model, cfg, pool, "zamba2 tight pool", failures, max_len,
+                           num_pages=p["pool_pages"])
+    ample = _serve_run(model, cfg, pool, "zamba2 ample pool", failures, max_len)
+    out["pool"] = {"tight": tight, "ample": {k: v for k, v in ample.items() if k != "generated"},
+                   "ties": _tie_check(model, prompts, {"tight": tight["generated"],
+                                                       "ample": ample["generated"]},
+                                      "ample", "zamba2 pool", failures)}
+    if tight["pressure"]["preemptions"] <= 0:
+        failures.append(f"zamba2 tight pool: no preemption ({tight['pressure']})")
+    # (c) the prefix cache's hybrid rule
+    system = draw(p["prefix_system"])
+    shared = [(i, system + draw(n), p["pool_new"])
+              for i, n in enumerate(rng.integers(*p["prefix_tail"], size=p["prefix_requests"]))]
+    on = _serve_run(model, cfg, shared, "zamba2 prefix on", failures, max_len,
+                        warm_first=True, prefix_cache=True)
+    off = _serve_run(model, cfg, shared, "zamba2 prefix off", failures, max_len,
+                         warm_first=True)
+    pc = on["prefix_cache"]
+    out["prefix"] = {"on": on, "off": {k: v for k, v in off.items() if k != "generated"},
+                     "ties": _tie_check(model, {rid: pr for rid, pr, _ in shared},
+                                        {"on": on["generated"], "off": off["generated"]},
+                                        "off", "zamba2 prefix", failures)}
+    if not (pc["hits"] == len(shared) - 1 and pc["pages_saved_by_sharing"] > 0
+            and pc["prefill_tokens_skipped"] == 0
+            and on["prefill_chunks"] == off["prefill_chunks"]):
+        failures.append(f"zamba2 prefix: the hybrid rule does not hold: {pc}, chunks "
+                        f"{on['prefill_chunks']} vs {off['prefill_chunks']}")
+    # (d) speculation in bf16 at full depth, the two-pass verify, every
+    # decoding request preempted once, on the first ``spec_bf16_requests``
+    # of (b)'s requests against their ample run; where they part, the fp32
+    # witness of the same weights
+    sub = pool[:p["spec_bf16_requests"]]
+    spec16 = _serve_run(model, cfg, sub, "zamba2 bf16 spec on", failures, max_len,
+                        preempt_at=p["spec_preempt_at"], spec_decode=True, spec_k=p["spec_k"])
+    _spec_gates(spec16, "zamba2 bf16 spec", failures)
+    witness = _fp32_witness(model, prompts, {rid: ample["generated"][rid] for rid, _, _ in sub},
+                            spec16["generated"])
+    out["spec_bf16"] = {"on": {k: v for k, v in spec16.items() if k != "generated"},
+                        "requests": len(sub), "parted": len(witness), "witness": witness}
+    for w in witness:
+        if not abs(w["fp32_gap"]) <= 2 * w["bf16_err"]:
+            failures.append(f"zamba2 bf16 spec: request {w['request']} parts at token "
+                            f"{w['position']} beyond bf16 rounding: {w}")
+    peak = torch.cuda.max_memory_allocated()
+    finite = not bool(bad)
+    _release(model)
+    del model, bad
+    # (e) the same in fp32 at a cut depth: tokens equal but at a near tie
+    cfg32 = _arch_cfg(arch, p["spec_repeats"], "float32")
+    model, _ = _card_model(cfg32, seed + 1, fan_in=True)
+    bad = _finite_guard(model)
+    plain = _serve_run(model, cfg32, pool, "zamba2 fp32 spec off", failures, max_len)
+    spec = _serve_run(model, cfg32, pool, "zamba2 fp32 spec on", failures, max_len,
+                          preempt_at=p["spec_preempt_at"], spec_decode=True,
+                          spec_k=p["spec_k"])
+    out["spec"] = {"dtype": "float32", "layers": cfg32.n_layers, "on": spec,
+                   "off": {k: v for k, v in plain.items() if k != "generated"},
+                   "ties": _tie_check(model, prompts, {"spec": spec["generated"],
+                                                       "plain": plain["generated"]},
+                                      "plain", "zamba2 spec", failures)}
+    _spec_gates(spec, "zamba2 fp32 spec", failures)
+    finite = finite and not bool(bad)
+    # (f) the copy regime: every layer zeroed, so a token's successor is a
+    # function of it alone and greedy decode cycles; the drafter locks on
+    with torch.no_grad():
+        for path, t in model.named_params().items():
+            if path.startswith("slots/"):
+                t.zero_()
+    copy_prompts, cycles = _copy_regime_motifs(model, 1, rng)
+    copy = [(0, copy_prompts[0], p["copy_new"])]
+    cp_off = _serve_run(model, cfg32, copy, "zamba2 copy off", failures, max_len)
+    cp_on = _serve_run(model, cfg32, copy, "zamba2 copy on", failures, max_len,
+                           spec_decode=True, spec_k=p["spec_k"])
+    out["copy_regime"] = {"on": {k: v for k, v in cp_on.items() if k != "generated"},
+                          "off": {k: v for k, v in cp_off.items() if k != "generated"},
+                          "equal": cp_on["generated"] == cp_off["generated"],
+                          "shortest_cycles": cycles[:8]}
+    if cp_on["generated"] != cp_off["generated"] or cp_on["speculation"]["accepted"] <= 0:
+        failures.append(f"zamba2 copy regime: equal {out['copy_regime']['equal']}, "
+                        f"{cp_on['speculation']}")
+    emit(f"serve_{arch}", arch=arch, dtype="bfloat16", layers=cfg.n_layers,
+         attention_layers=_attn_layers(cfg), params=cfg.param_count(), init="fan_in",
+         weights_drawn_on="cuda", init_seconds=round(init_s, 3), peak_mem_bytes=peak,
+         finite_logits=finite, **out)
+    if not finite:
+        failures.append("non-finite logits")
+    if failures:
+        raise AssertionError(f"serve {arch}: " + "; ".join(failures))
+    _release(model)
+    return {"zamba2_serve": out["traffic"]["launches"], "zamba2_spec": spec["launches"]}
+
+
+def phase_xlstm_serve(p: dict, seed: int) -> dict:
+    """xlstm-350m serving (24 layers: 21 mLSTM, 3 sLSTM; no attention, so
+    K1 alone), bf16, fan-in weights on the card: glm4's traffic
+    (launches exact), then slot reuse: a batch-1 scheduler serves request
+    "a" and then "b" in the slot "a" left, and "b"'s tokens equal a fresh
+    scheduler's (the reset restores the initial carries, ``m`` -1e30).
+    Returns the traffic's launch counts."""
+    import numpy as np
+    import torch
+
+    arch = "xlstm-350m"
+    cfg = _arch_cfg(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _card_model(cfg, seed, fan_in=True)
+    bad = _finite_guard(model)
+    rng = np.random.default_rng(seed)
+    failures: list = []
+    draw = lambda n: rng.integers(4, cfg.vocab, size=int(n)).tolist()  # noqa: E731
+    reqs = [(i, draw(n), p["max_new"]) for i, n in enumerate(p["prompt_lens"])]
+    traffic = _serve_run(model, cfg, reqs, "xlstm traffic", failures, p["max_len"])
+    a, b = (("a", draw(p["reuse_prompts"][0]), p["max_new"]),
+            ("b", draw(p["reuse_prompts"][1]), p["max_new"]))
+    reused = _serve_run(model, cfg, [a, b], "xlstm reuse", failures, p["max_len"],
+                            batch=1)
+    fresh = _serve_run(model, cfg, [b], "xlstm fresh", failures, p["max_len"], batch=1)
+    equal = reused["generated"]["b"] == fresh["generated"]["b"]
+    if not equal:
+        failures.append(f"xlstm slot reuse: b {reused['generated']['b']} != fresh "
+                        f"{fresh['generated']['b']}")
+    emit(f"serve_{arch}", arch=arch, dtype="bfloat16", layers=cfg.n_layers,
+         attention_layers=_attn_layers(cfg), params=cfg.param_count(), init="fan_in",
+         weights_drawn_on="cuda", init_seconds=round(init_s, 3),
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), finite_logits=not bool(bad),
+         traffic=traffic, slot_reuse={"reused": reused, "fresh_b": fresh["generated"]["b"],
+                                      "equal": equal})
+    if bool(bad):
+        failures.append("non-finite logits")
+    if failures:
+        raise AssertionError(f"serve {arch}: " + "; ".join(failures))
+    _release(model)
+    return {"xlstm_serve": traffic["launches"]}
+
+
+def _slstm_scan(cfg, batch: int, seq: int, seed: int) -> dict:
+    """One sLSTM block's forward at (batch, seq, d), bf16, no grad: the host
+    loop of ``seq`` cell steps. Its time (CUDA events, after a warm-up
+    call) and the kernels it puts on the card (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.layers import recurrent as R
+    from repro_torch.layers.common import init_params
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = init_params(R.slstm_params(cfg), gen, cfg.param_dtype, DEV)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=DEV).to(cfg.compute_dtype)
+    with torch.no_grad():
+        R.slstm_block(params, x, cfg)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        R.slstm_block(params, x, cfg)
+        end.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            R.slstm_block(params, x, cfg)
+            torch.cuda.synchronize()
+    kernels = sum(e.count for e in _device_events(prof))
+    del params, x
+    ms = start.elapsed_time(end)
+    return {"batch": batch, "seq": seq, "ms": ms, "ms_per_position": ms / seq,
+            "kernels": kernels, "kernels_per_position": kernels / seq}
+
+
+def _step_grads(state, grad_norm: float, opt) -> dict:
+    """One step's gradients from a fresh AdamW state's first moment, ``m =
+    (1 - b1) * clip * g`` (fp32 on the card), the clip undone from the
+    step's ``grad_norm``. The first step's update is 0 (the warm-up's lr
+    scale at step 0), so the gradients, not the parameters, show what the
+    backward computed."""
+    clip = min(1.0, opt.grad_clip / max(grad_norm, 1e-12)) if opt.grad_clip else 1.0
+    return {k: v / ((1 - opt.b1) * clip) for k, v in state.opt_state["m"].items()}
+
+
+def _grad_blocks(t):
+    """A leaf flattened in fp32 and cut into the int8 compression's blocks
+    (``optim.compression.BLOCK`` values, the tail zero-padded as there)."""
+    import torch.nn.functional as F
+
+    from repro_torch.optim.compression import BLOCK
+
+    f = t.reshape(-1).float()
+    return F.pad(f, (0, (-f.numel()) % BLOCK)).view(-1, BLOCK)
+
+
+def _grad_agreement(got: dict, ref: dict) -> dict:
+    """Gradients against ``ref`` leaf by leaf: bitwise equal or not, the
+    largest ||got - ref|| / ||ref|| of a leaf (a leaf's norm floored at
+    1e-7 of the whole gradient's), and the largest distance of an element
+    in steps of its block's int8 grid (the block's max |ref| / 127)."""
+    import torch
+
+    total = float(torch.sqrt(sum(torch.sum(torch.square(g)) for g in ref.values())))
+    rel = steps = 0.0
+    bitwise = True
+    for k, r in ref.items():
+        d = got[k] - r
+        bitwise = bitwise and bool(torch.equal(got[k], r))
+        rel = max(rel, float(d.norm()) / max(float(r.norm()), 1e-7 * total))
+        step = _grad_blocks(r).abs().amax(1, keepdim=True) / 127.0
+        steps = max(steps, float((_grad_blocks(d).abs() / step.clamp(min=1e-30)).max()))
+    return {"bitwise": bitwise, "max_leaf_rel_l2": rel, "max_grid_steps": steps}
+
+
+def _int8_round_trip_check(got: dict, ref: dict) -> dict:
+    """A ``compress_dcn_grads`` step's gradients against the uncompressed
+    step's (``ref``, the same weights and batch): the largest distance of
+    an element in steps of its block's grid (round half to even: at most
+    0.5), the largest distance of ``got / its block's step`` from an
+    integer (the values lie on the int8 grid), and the share of elements
+    the round trip changed."""
+    import torch
+
+    out = _grad_agreement(got, ref)
+    off, changed, n = 0.0, 0, 0
+    for k, g in got.items():
+        b = _grad_blocks(g)
+        q = b / (b.abs().amax(1, keepdim=True) / 127.0).clamp(min=1e-30)
+        off = max(off, float((q - torch.round(q)).abs().max()))
+        changed += int(torch.count_nonzero(g != ref[k]))
+        n += g.numel()
+    return {"max_grid_steps": out["max_grid_steps"], "max_off_grid": off,
+            "changed_share": changed / n, "max_leaf_rel_l2": out["max_leaf_rel_l2"]}
+
+
+def phase_xlstm_train(p: dict, seed: int) -> dict:
+    """xlstm-350m training at ``ckpt_repeats`` repeats of the pattern, B
+    ``train_batch``, S ``train_seq``, bf16, remat full, fan-in weights
+    drawn on the card (the same seed for every run; the sLSTM host loop is
+    most of a step, 5-6 s at full depth): (a) checkpoint-restart: a
+    ``TrainLoop`` of ``ckpt_steps`` steps with ``ckpt_every`` that fails at
+    ``fail_at`` (a temporary directory under ``results/``, deleted after);
+    its state, as the failure left it, takes step ``fail_at`` at once, so
+    steps 0..``ckpt_steps``-1 are the uninterrupted run's; a second loop
+    over the same directory resumes at the last checkpoint, and its losses
+    equal the uninterrupted ones within rtol 1e-4 (the JAX test's bound;
+    bitwise equality recorded); launches exact over the first loop; the
+    save's seconds and bytes recorded; at ``remat_repeats`` repeats, (b)
+    one step under remat ``full``, ``none`` and ``dots`` from the same
+    weights and batch: ``dots``'s loss equal to ``full``'s within 1e-6
+    relative, the gradients of ``none`` and ``dots`` within
+    GRAD_REMAT_TOL of ``full``'s in each leaf's relative L2 (the step's
+    loss precedes the update and cannot tell a wrong backward), each one's
+    peak memory, launches exact; (c) one step with ``compress_dcn_grads``:
+    a finite loss, its gradients on the int8 grid of their blocks (to
+    1e-3 of a step) and within half a step of ``full``'s (round half to
+    even) plus the spread of (b); (d) the sLSTM block's host scan at full
+    width timed and its kernels counted. Returns the first loop's launch
+    counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import InjectedFailure, LoopConfig, TrainLoop
+    from repro_torch.train.train import TrainConfig, TrainState, make_train_step
+
+    arch = "xlstm-350m"
+    cfg = _arch_cfg(arch, p["ckpt_repeats"])
+    tcfg = TrainConfig(total_steps=p["ckpt_steps"])
+    data = SyntheticLM(DataConfig(global_batch=p["train_batch"], seq_len=p["train_seq"],
+                                  vocab=cfg.vocab, pad_fraction=0.05))
+    failures: list = []
+
+    def fresh(c=cfg):
+        model, _ = _card_model(c, seed, fan_in=True)
+        return TrainState(model, adamw_init(model.named_params(), tcfg.optimizer), 0)
+
+    def loop(ckpt_dir: str, fail_at=None, state=None):
+        return TrainLoop(cfg, tcfg, data, LoopConfig(
+            steps=p["ckpt_steps"], ckpt_every=p["ckpt_every"], ckpt_dir=ckpt_dir,
+            fail_at_step=fail_at, monitor_backend="null", monitor_app_name=arch),
+            state=state if state is not None else fresh())
+
+    _release()
+    os.makedirs(os.path.join(ROOT, "results"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(ROOT, "results"))
+    try:
+        # (a) the run that fails, its state's next step, the restart
+        state = fresh()
+        first = loop(ckpt_dir, fail_at=p["fail_at"], state=state)
+        saves = []
+        inner = first.ckpt.save
+
+        def timed_save(tree, step, _inner=inner):
+            t0 = time.perf_counter()
+            _inner(tree, step)
+            saves.append({"step": step, "seconds_to_return": time.perf_counter() - t0})
+
+        first.ckpt.save = timed_save
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        failed = False
+        t0 = time.perf_counter()
+        try:
+            first.run()
+        except InjectedFailure:
+            failed = True
+        first_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        first_peak = torch.cuda.max_memory_allocated()
+        want = dict.fromkeys(counts, 0)
+        want.update(_train_expected_launches(cfg, p["fail_at"], 1))
+        if counts != want or min(counts[k] for k in _path_kernels(cfg, TRAIN_KERNELS)) <= 0:
+            failures.append(f"launches {counts} != expected {want}")
+        ref = [h["loss"] for h in first.metrics_history]
+        ref_secs = [h["seconds"] for h in first.metrics_history]
+        step = make_train_step(cfg, tcfg)
+        for t in range(p["fail_at"], p["ckpt_steps"]):
+            state, m = step(state, data.batch_at(t))
+            ref.append(float(m["loss"]))
+        latest = first.ckpt.latest()
+        step_dir = os.path.join(ckpt_dir, f"step_{latest:08d}") if latest else None
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir)) if step_dir else 0
+        done_first = [h["step"] for h in first.metrics_history]
+        del first, state, step
+        _release()
+        t0 = time.perf_counter()
+        second = loop(ckpt_dir).run()
+        restart_s = time.perf_counter() - t0
+        resumed = [(h["step"], h["loss"]) for h in second.metrics_history]
+        del second
+        _release()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steps_resumed = [s for s, _ in resumed]
+    got = [loss for _, loss in resumed]
+    want_losses = [ref[s] for s in steps_resumed]
+    ckpt = {"every": p["ckpt_every"], "fail_at": p["fail_at"], "failed": failed,
+            "first_run_steps": done_first, "first_run_s": first_s, "latest": latest,
+            "saves": saves, "checkpoint_bytes": nbytes, "resumed_steps": steps_resumed,
+            "resumed_losses": got, "uninterrupted_losses": want_losses,
+            "bitwise_equal": got == want_losses, "restart_run_s": restart_s,
+            "directory_removed": not os.path.exists(ckpt_dir)}
+    expect_resume = list(range(p["fail_at"] // p["ckpt_every"] * p["ckpt_every"],
+                               p["ckpt_steps"]))
+    if not (failed and steps_resumed == expect_resume
+            and np.allclose(got, want_losses, rtol=1e-4, atol=0)):
+        failures.append(f"checkpoint-restart: {ckpt}")
+    # (b) remat full, none and dots, (c) compress_dcn_grads: one step each
+    # from the same weights, at a cut depth; each step's gradients read
+    # back from AdamW's first moment
+    remat, batch, grads = {}, data.batch_at(0), {}
+    cut = cfg.replace(repeats=p["remat_repeats"])
+    for name, c, tc in (("full", cut, tcfg), ("none", cut.replace(remat="none"), tcfg),
+                        ("dots", cut.replace(remat="dots"), tcfg),
+                        ("compress_dcn_grads", cut,
+                         TrainConfig(total_steps=p["ckpt_steps"], compress_dcn_grads=True))):
+        state = fresh(c)
+        step = make_train_step(c, tc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        secs = time.perf_counter() - t0
+        counts_c = launch_counts()
+        want_c = dict.fromkeys(counts_c, 0)
+        want_c.update(_train_expected_launches(c, 1, 1))
+        remat[name] = {"loss": loss, "grad_norm": float(m["grad_norm"]), "seconds": secs,
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "launches": counts_c}
+        if counts_c != want_c or not np.isfinite(loss):
+            failures.append(f"{name} step: loss {loss}, launches {counts_c} != {want_c}")
+        got = _step_grads(state, float(m["grad_norm"]), tcfg.optimizer)
+        if name == "full":
+            grads["full"] = got
+        elif name == "compress_dcn_grads":
+            remat[name]["vs_full"] = _int8_round_trip_check(got, grads["full"])
+        else:
+            remat[name]["vs_full"] = _grad_agreement(got, grads["full"])
+        del state, step, m, got
+        _release()
+    del grads
+    rel = abs(remat["dots"]["loss"] - remat["full"]["loss"]) / abs(remat["full"]["loss"])
+    if rel > 1e-6:
+        failures.append(f"remat dots loss {remat['dots']['loss']} vs full "
+                        f"{remat['full']['loss']}: {rel} relative")
+    for name in ("none", "dots"):
+        if not remat[name]["vs_full"]["max_leaf_rel_l2"] <= GRAD_REMAT_TOL:
+            failures.append(f"remat {name} gradients vs full: {remat[name]['vs_full']}")
+    q = remat["compress_dcn_grads"]["vs_full"]
+    spread = max(remat[n]["vs_full"]["max_grid_steps"] for n in ("none", "dots"))
+    if not (q["max_grid_steps"] <= 0.5 + 1e-3 + spread and q["max_off_grid"] <= 1e-3
+            and q["changed_share"] > 0):
+        failures.append(f"compress_dcn_grads gradients vs full: {q}, spread {spread}")
+    scan = _slstm_scan(cfg, p["train_batch"], p["train_seq"], seed)
+    emit(f"train_{arch}", arch=arch, dtype="bfloat16", layers=cfg.n_layers,
+         params=cfg.param_count(), init="fan_in", weights_drawn_on="cuda",
+         labels_shape=[1, p["train_batch"], p["train_seq"]], remat=cfg.remat,
+         losses=ref, step_seconds=ref_secs, median_step_seconds=float(np.median(ref_secs[1:])),
+         launches=counts, expected_launches=want, first_run_peak_mem_bytes=first_peak,
+         checkpoint_restart=ckpt, remat_layers=cut.n_layers, remat_steps=remat,
+         remat_dots_vs_full_rel=rel, slstm_scan=scan)
+    if failures:
+        raise AssertionError(f"train {arch}: " + "; ".join(failures))
+    return counts
+
+
+def phase_recurrent() -> dict:
+    """The recurrent and hybrid archs at full width (RECURRENT_PATHS), after
+    every earlier model is freed: zamba2-2.7b's serving (traffic, a pool
+    that preempts, the prefix cache's hybrid rule, two-pass speculation,
+    the copy regime) and training under the monitor (its record passing
+    ``talp validate``); xlstm-350m's serving and slot reuse, and training
+    with checkpoint-restart, remat ``dots`` and ``compress_dcn_grads``;
+    fp32 parity of both at one pattern repeat. Returns each path's launch
+    counts."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    _release()
+    counts = {}
+    z = RECURRENT_PATHS["zamba2-2.7b"]
+    counts.update(phase_zamba2_serve(z, seed=81))
+    record_dir = os.path.join(ROOT, RECURRENT_TALP_DIR, "zamba2-2.7b", "train_monitor")
+    shutil.rmtree(os.path.join(ROOT, RECURRENT_TALP_DIR), ignore_errors=True)
+    cfg = _arch_cfg("zamba2-2.7b")
+    data = SyntheticLM(DataConfig(global_batch=z["train_batch"], seq_len=z["train_seq"],
+                                  vocab=cfg.vocab, pad_fraction=0.05))
+    counts["zamba2_train"] = phase_arch_train("zamba2-2.7b", None, data, z["train_steps"],
+                                              seed=82, backend="monitor",
+                                              record_dir=record_dir, fan_in=True)
+    cli = _talp_cli("validate", "-i", RECURRENT_TALP_DIR)
+    m = re.search(r"(\d+) runs checked, (\d+) violations", cli["stdout"])
+    RESULT["train_zamba2-2.7b"]["talp_validate"] = cli
+    if cli["rc"] != 0 or not m or m.groups() != ("1", "0"):
+        raise AssertionError(f"talp validate {RECURRENT_TALP_DIR}: {cli}")
+    x = RECURRENT_PATHS["xlstm-350m"]
+    counts.update(phase_xlstm_serve(x, seed=83))
+    counts["xlstm_train"] = phase_xlstm_train(x, seed=84)
+    phase_arch_parity("zamba2-2.7b", z["parity_repeats"], z["parity_prompt"], seed=85,
+                      fan_in=True)
+    phase_arch_parity("xlstm-350m", x["parity_repeats"], x["parity_prompt"], seed=86,
+                      fan_in=True)
+    return counts
+
+
 def _arch_kernel_rows() -> list:
     """(kernel, label, path, case) of each kernel shape the other dense
     archs' paths run: phase 2 keeps its bf16 errors under
@@ -3415,17 +4142,35 @@ def _arch_kernel_rows() -> list:
                          ("qwen3_train", (4096, 2048))):
         rows += [(name, label, "qwen3_train", by_case[shape])
                  for name in ("rmsnorm", "rmsnorm_backward")]
+    # the recurrent archs (phase 11): zamba2's attention at G 1, head dim
+    # 80, and its verify's two passes; the mamba2 gated norm at 5120;
+    # xlstm's norms (no attention)
+    rows += [(name, "zamba2", "zamba2_train", cases.MAIN_FLASH_ZAMBA2)
+             for name in ("flash_attention", "flash_attention_backward")]
+    rows += [("paged_attention", "zamba2", "zamba2_serve", cases.PAGED_ZAMBA2),
+             ("paged_prefill_attention", "zamba2", "zamba2_serve", cases.PREFILL_ZAMBA2),
+             ("paged_prefill_attention", "zamba2_verify", "zamba2_spec",
+              cases.PREFILL_ZAMBA2_VERIFY),
+             ("rmsnorm", "zamba2_decode", "zamba2_serve", by_case[(4, 2560)]),
+             ("rmsnorm", "zamba2_gated_decode", "zamba2_serve", by_case[(4, 5120)]),
+             ("rmsnorm", "zamba2_gated_chunk", "zamba2_serve", by_case[(64, 5120)]),
+             ("rmsnorm", "xlstm_decode", "xlstm_serve", by_case[(4, 1024)]),
+             ("rmsnorm", "xlstm_mlstm_decode", "xlstm_serve", by_case[(4, 2048)])]
+    for label, path, shape in (("zamba2_train", "zamba2_train", (4096, 2560)),
+                               ("zamba2_gated_train", "zamba2_train", (4096, 5120)),
+                               ("xlstm_train", "xlstm_train", (4096, 1024)),
+                               ("xlstm_mlstm_train", "xlstm_train", (4096, 2048))):
+        rows += [(name, label, path, by_case[shape])
+                 for name in ("rmsnorm", "rmsnorm_backward")]
     return rows
 
 
-def _arch_err_key(name: str, case) -> str | None:
-    """``f"{name}@{label}"`` where (name, case) is one of
-    ``_arch_kernel_rows``' (flash cases compared on their first 9 fields),
-    else None."""
-    for n, label, _, c in _arch_kernel_rows():
-        if n == name and tuple(c) == tuple(case)[:len(c)]:
-            return f"{name}@{label}"
-    return None
+def _arch_err_keys(name: str, case) -> list:
+    """``f"{name}@{label}"`` of every row of ``_arch_kernel_rows`` that is
+    (name, case) (flash cases compared on their first 9 fields; two paths
+    may share a shape)."""
+    return [f"{name}@{label}" for n, label, _, c in _arch_kernel_rows()
+            if n == name and tuple(c) == tuple(case)[:len(c)]]
 
 
 _SOURCES = {
@@ -3876,10 +4621,11 @@ def main() -> int:
     phase_report()
     arch_counts = phase_archs()
     moe_counts = phase_moe()
+    recurrent_counts = phase_recurrent()
     rows = phase_timing(main_err, {"serve": serve_counts, "serve_dense": dense_counts,
                                    "serve_load": load_counts, "serve_spec": spec_counts,
                                    "serve_fault": fault_counts, "train": train_counts,
-                                   **arch_counts, **moe_counts})
+                                   **arch_counts, **moe_counts, **recurrent_counts})
     emit("timing", rows=len(rows))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,10 +1,10 @@
 """The JAX package's architectures, copied as data, plus the smoke variants.
 
-The dense archs (tinyllama-1.1b, gemma2-2b, glm4-9b, command-r-35b,
-llava-next-mistral-7b and hubert-xlarge) run through the port's model;
-the others are here so configs can be read and compared, and the model
-raises ``NotImplementedError`` for the parts it lacks (MoE, recurrent
-blocks, qk-norm).
+All ten run through the port's model: the dense archs (tinyllama-1.1b,
+gemma2-2b, glm4-9b, command-r-35b, llava-next-mistral-7b, hubert-xlarge),
+the MoE ones (qwen3-moe-30b-a3b, dbrx-132b) and the recurrent ones
+(zamba2-2.7b: mamba2 with attention every sixth layer; xlstm-350m: mLSTM
+and sLSTM).
 """
 
 from __future__ import annotations

@@ -1,11 +1,10 @@
 """Model configuration schema, field for field the JAX ``ModelConfig``.
 
 The layer stack is ``pattern`` repeated ``repeats`` times. The port runs
-the attention block kinds (``attn``, ``local_attn``, ``moe``), the qkv
-bias, qk-norm, the stub frontends (``vlm`` patch embeddings, ``audio``
-frame embeddings) and encoder-only models; SSM and xLSTM are carried as
-data so that every arch's config can be read, and the model raises
-``NotImplementedError`` for them.
+every block kind (``attn``, ``local_attn``, ``moe``, ``mamba2``,
+``mlstm``, ``slstm``), the qkv bias, qk-norm, the stub frontends (``vlm``
+patch embeddings, ``audio`` frame embeddings) and encoder-only models.
+``check_supported`` refuses what it does not know.
 """
 
 from __future__ import annotations
@@ -16,7 +15,8 @@ import math
 import torch
 
 BLOCK_KINDS = ("attn", "local_attn", "moe", "mamba2", "mlstm", "slstm")
-PORTED_KINDS = ("attn", "local_attn", "moe")
+# the block kinds each family config must accompany
+_FAMILY = {"moe": "moe", "mamba2": "ssm", "mlstm": "xlstm", "slstm": "xlstm"}
 
 # float64 runs only on the CPU (the kernels take bf16/f32): a reference
 # for the fp32 paths' rounding
@@ -127,8 +127,8 @@ class ModelConfig:
     paged_attn_impl: str = "auto"
 
     # distribution (JAX-only knobs, carried as data), except remat: the
-    # training forward checkpoints every layer when "full" (the port has
-    # "none" and "full")
+    # training forward checkpoints every layer when "full", and keeps the
+    # outputs of its plain products when "dots"
     sharding: str = "megatron"
     remat: str = "full"
     scan_layers: bool = True
@@ -182,19 +182,19 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port lacks: the
-    ``mamba2``, ``mlstm`` and ``slstm`` block kinds and their configs. The
-    attention kinds (``attn``, ``local_attn``, ``moe`` with its config),
-    the qkv bias, qk-norm, the ``vlm`` and ``audio`` frontend stubs and
-    encoder-only models run."""
-    kinds = sorted(set(cfg.pattern) - set(PORTED_KINDS))
+    """Raise ``NotImplementedError`` for what the port does not run: an
+    unknown block kind, a block kind without its family config (``moe``,
+    ``ssm``, ``xlstm``), a frontend other than the ``vlm`` and ``audio``
+    stubs, or a ``paged_attn_impl`` other than ``"auto"``."""
+    kinds = sorted(set(cfg.pattern) - set(BLOCK_KINDS))
     if kinds:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {kinds} are not ported yet (only {PORTED_KINDS})"
+            f"{cfg.name}: block kinds {kinds} are not ported (the port runs {BLOCK_KINDS})"
         )
-    for field in ("ssm", "xlstm"):
-        if getattr(cfg, field):
-            raise NotImplementedError(f"{cfg.name}: {field} is not ported yet")
+    for kind in sorted(set(cfg.pattern) & set(_FAMILY)):
+        if getattr(cfg, _FAMILY[kind]) is None:
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {kind!r} needs its {_FAMILY[kind]} config")
     if cfg.frontend not in (None, "vlm", "audio"):
         raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} is not ported")
     if cfg.paged_attn_impl != "auto":

@@ -6,11 +6,15 @@ initializes in JAX, converts the leaves to numpy (``np.asarray``) on the
 JAX side, and hands the tree here. The tree is the one
 ``repro.layers.common.init_params(T.model_params(cfg), ...)`` returns:
 ``embed`` (none for the audio model), ``norm_f/scale``, ``head`` (none
-with tied embeddings) and ``slots/slot{i}_{kind}/{norm_in,
-attn/{wq,wk,wv,wo[,bq,bk,bv][,q_norm,k_norm]}, norm_mlp, mlp/{wi_gate,
-wi_up,wo | wi,wo} | moe/{router, wi_gate, wi_up, wo[, shared/...]}}``
-stacked over ``repeats`` (``kind`` ``attn``, ``local_attn`` or ``moe``;
-the experts at (L, E, d, f) and (L, E, f, d)). The AdamW state's trees
+with tied embeddings) and ``slots/slot{i}_{kind}/...`` stacked over
+``repeats``: ``norm_in`` and ``attn/{wq,wk,wv,wo[,bq,bk,bv][,q_norm,
+k_norm]}``, ``norm_mlp``, ``mlp/{wi_gate,wi_up,wo | wi,wo}`` or ``moe/{router,
+wi_gate, wi_up, wo[, shared/...]}`` (the experts at (L, E, d, f) and (L, E,
+f, d)) for ``attn``, ``local_attn`` and ``moe``; ``mamba/{in_proj, conv_w,
+conv_b, A_log, D, dt_bias, norm, out_proj}`` for ``mamba2``; ``mlstm/
+{up_proj, conv_w, conv_b, wq, wk, wv, w_if, b_i, b_f, norm, down_proj}``
+for ``mlstm``; ``slstm/{w_in, r, b, norm}``, ``norm_mlp`` and ``mlp`` for
+``slstm``. The AdamW state's trees
 (``m``, ``v``, ``master``) carry the same leaves. This module imports no
 JAX: it sees only numpy.
 """

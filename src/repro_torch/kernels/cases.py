@@ -12,7 +12,7 @@ the functions below make the inputs with numpy from a seed, so the JAX
 functions and the port's kernels and plain versions see the same numbers. ``MAIN_*`` are the shapes the serving
 and training paths give the kernels at tinyllama-1.1b's full width, and
 ``*_ARCH_*`` those of the other archs (the MoE ones' rows named
-``*_QWEN3``, ``*_DBRX``).
+``*_QWEN3``, ``*_DBRX``; the hybrid zamba2-2.7b's ``*_ZAMBA2``).
 """
 
 from __future__ import annotations
@@ -101,7 +101,8 @@ PREFILL_SPLIT_CASES = [
 RMS_CASES = [(4, 128), (3, 300), (1, 1024), (17, 96)]
 # every model width of ``configs/archs.py`` (rows, d): the RMSNorm kernels'
 # row layouts from one warp a row to sixteen
-RMS_WIDTH_CASES = [(5, d) for d in (1024, 1280, 2048, 2304, 2560, 4096, 6144, 8192)]
+# (5120: zamba2's gated norm over the mamba2 inner width)
+RMS_WIDTH_CASES = [(5, d) for d in (1024, 1280, 2048, 2304, 2560, 4096, 5120, 6144, 8192)]
 
 # tinyllama-1.1b serving: Hq=32, Hkv=4, D=64, page 16, max_len 512 (32
 # logical pages), batch 4 decode slots, 64-token prefill chunks, d=2048
@@ -138,6 +139,7 @@ FLASH_ARCH_SMALL = [
     (1, 64, 64, 32, 2, 128, True, None, None),    # glm4: G = 16
     (2, 48, 48, 16, 16, 80, False, None, None),   # hubert: bidirectional
     (1, 64, 64, 32, 4, 128, True, None, None),    # qwen3: G = 8, D = 128
+    (1, 64, 64, 32, 32, 80, True, None, None),    # zamba2: G = 1, causal, D = 80
 ]
 # gemma2-2b training (B 1, S 8192): the local layers (window 4096) and the
 # global ones, softcap 50
@@ -150,9 +152,12 @@ MAIN_FLASH_LLAVA = (2, 2048, 2048, 32, 8, 128, True, None, None)
 MAIN_FLASH_HUBERT = (4, 1024, 1024, 16, 16, 80, False, None, None)
 # qwen3-moe-30b-a3b training (B 1, S 4096: 32/4 heads, head dim 128)
 MAIN_FLASH_QWEN3 = (1, 4096, 4096, 32, 4, 128, True, None, None)
+# zamba2-2.7b training (B 1, S 4096): its attention layers at 32/32 heads
+# (G 1), head dim 80 (padded to 128 on the tensor-core route), causal
+MAIN_FLASH_ZAMBA2 = (1, 4096, 4096, 32, 32, 80, True, None, None)
 FLASH_ARCH_CASES = FLASH_ARCH_SMALL + [MAIN_FLASH_GEMMA2, MAIN_FLASH_GEMMA2_GLOBAL,
                                        FLASH_GLM4, MAIN_FLASH_LLAVA, MAIN_FLASH_HUBERT,
-                                       MAIN_FLASH_QWEN3]
+                                       MAIN_FLASH_QWEN3, MAIN_FLASH_ZAMBA2]
 
 # K3 (B, Hq, Hkv, D, psize, nL, P, lens, window, softcap)
 PAGED_ARCH_SMALL = [
@@ -162,6 +167,7 @@ PAGED_ARCH_SMALL = [
     (2, 64, 8, 128, 8, 4, 10, (25, 9), None, None),   # command-r: G = 8
     (2, 32, 4, 128, 8, 4, 10, (30, 17), None, None),  # qwen3: G = 8
     (3, 48, 8, 128, 8, 4, 12, (27, 11, 1), None, None),  # dbrx: G = 6
+    (3, 32, 32, 80, 8, 4, 12, (30, 17, 0), None, None),  # zamba2: G = 1, D = 80, idle
 ]
 # gemma2-2b serving (batch 4, max_len 8192: 512 logical pages of 16) with
 # prompts of 4,300-6,100 tokens: the local layers' window 4096 cuts keys,
@@ -176,8 +182,12 @@ PAGED_COMMAND_R = (4, 64, 8, 128, 16, 128, 520, (700, 1500, 2047, 333), None, No
 # groups)
 PAGED_QWEN3 = (4, 32, 4, 128, 16, 128, 520, (700, 1500, 2047, 333), None, None)
 PAGED_DBRX = (4, 48, 8, 128, 16, 128, 520, (700, 1500, 2047, 333), None, None)
+# zamba2-2.7b's serving (batch 4, max_len 2048): MHA (G 1) at head dim 80,
+# which the tensor-core route serves on its DP = 128 instance
+PAGED_ZAMBA2 = (4, 32, 32, 80, 16, 128, 520, (700, 1500, 2047, 333), None, None)
 PAGED_ARCH_CASES = PAGED_ARCH_SMALL + [MAIN_PAGED_GEMMA2, MAIN_PAGED_GEMMA2_GLOBAL,
-                                       PAGED_GLM4, PAGED_COMMAND_R, PAGED_QWEN3, PAGED_DBRX]
+                                       PAGED_GLM4, PAGED_COMMAND_R, PAGED_QWEN3, PAGED_DBRX,
+                                       PAGED_ZAMBA2]
 
 # K4 (B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap)
 PREFILL_ARCH_SMALL = [
@@ -187,6 +197,7 @@ PREFILL_ARCH_SMALL = [
     (2, 8, 32, 4, 128, 4, 6, 14, (0, 8), None, None),   # qwen3: G = 8
     (1, 8, 48, 8, 128, 4, 6, 8, (10,), None, None),     # dbrx: G = 6, mid-page
     (2, 5, 48, 8, 128, 4, 6, 14, (3, 9), None, None),   # dbrx: 30 rows, ragged tile
+    (2, 8, 32, 32, 80, 4, 6, 14, (0, 8), None, None),   # zamba2: G = 1, D = 80
 ]
 # a gemma2-2b chunk of 64 past 4096: the window's first key (405..468)
 # lies inside a page, so the window crosses and splits pages
@@ -196,19 +207,34 @@ PREFILL_GLM4 = (1, 64, 32, 2, 128, 16, 128, 140, (1000,), None, None)
 # the MoE archs' 64-token chunks at 1000, which starts mid-page (62 * 16 + 8)
 PREFILL_QWEN3 = (1, 64, 32, 4, 128, 16, 128, 140, (1000,), None, None)
 PREFILL_DBRX = (1, 64, 48, 8, 128, 16, 128, 140, (1000,), None, None)
+# zamba2-2.7b: a 64-token chunk at 1000 (G 1, D 80), and its speculative
+# verify (spec_k 4: C 5) at batch 4, ragged lengths and an idle slot. The
+# verify's two passes (scoring, then the commit of the accepted prefix)
+# launch the kernel twice at this shape, the second over positions the
+# first wrote
+PREFILL_ZAMBA2 = (1, 64, 32, 32, 80, 16, 128, 140, (1000,), None, None)
+PREFILL_ZAMBA2_VERIFY = (4, 5, 32, 32, 80, 16, 128, 520, (700, 1500, 2040, 333), None, None,
+                         (5, 3, 1, 0))
 PREFILL_ARCH_CASES = PREFILL_ARCH_SMALL + [MAIN_PREFILL_GEMMA2, MAIN_PREFILL_GEMMA2_GLOBAL,
-                                           PREFILL_GLM4, PREFILL_QWEN3, PREFILL_DBRX]
+                                           PREFILL_GLM4, PREFILL_QWEN3, PREFILL_DBRX,
+                                           PREFILL_ZAMBA2, PREFILL_ZAMBA2_VERIFY]
 
 # K1 (rows, d, zero_centred) on the new paths: gemma2's zero-centred norm
 # at 2304 (a decode step, a chunk, the training step's 8192 rows), glm4 and
 # llava at 4096, command-r at 8192, hubert's training rows at 1280; the MoE
 # archs: qwen3's qk-norm over head dim 128 (a decode step's 4 x 32 query
 # rows, the training step's 4096 x 32 query and 4096 x 4 key rows), its
-# training block norm (4096 x 2048), dbrx's decode at 6144
+# training block norm (4096 x 2048), dbrx's decode at 6144; the recurrent
+# archs: zamba2's block norms at 2560 and the mamba2 gated norm at 5120 (a
+# decode step, a 64-token chunk, the training step's 4096 rows), xlstm's
+# block norms at 1024 and the mLSTM norm at 2048 (a decode step; training,
+# B 4 x S 1024: 4096 rows, the 2048-wide ones qwen3's row)
 RMS_ARCH_CASES = [(4, 2304, True), (64, 2304, True), (8192, 2304, True), (4, 4096, False),
                   (4, 8192, False), (4096, 1280, False), (128, 128, False),
                   (131072, 128, False), (16384, 128, False), (4096, 2048, False),
-                  (4, 6144, False)]
+                  (4, 6144, False), (4, 2560, False), (4, 5120, False), (64, 5120, False),
+                  (4096, 2560, False), (4096, 5120, False), (4, 1024, False),
+                  (4, 2048, False), (4096, 1024, False)]
 
 
 # Gates of a kernel against its plain version, by dtype. TOL_MAX bounds the
@@ -227,15 +253,26 @@ TOL_L2_RMS = {"float32": 1e-6, "bfloat16": 2e-4}
 
 
 def max_rel_err(got, want) -> float:
-    """max |got - want| over max(1, max |want|)."""
+    """max |got - want| over max(1, max |want|). numpy arrays, or torch
+    tensors, read in float64 on their own device (no host copy)."""
+    if hasattr(got, "detach"):  # a torch tensor
+        if got.numel() == 0:
+            return 0.0
+        got, want = got.detach().double(), want.detach().double()
+        return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max(initial=0.0) / max(1.0, np.abs(want).max(initial=0.0)))
 
 
 def l2_rel_err(got, want) -> float:
-    """||got - want||_2 over ||want||_2; the absolute norm where want is 0."""
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    err, ref = float(np.linalg.norm(got - want)), float(np.linalg.norm(want))
+    """||got - want||_2 over ||want||_2; the absolute norm where want is 0.
+    numpy arrays, or torch tensors read in float64 on their own device."""
+    if hasattr(got, "detach"):  # a torch tensor
+        got, want = got.detach().double(), want.detach().double()
+        err, ref = float((got - want).norm()), float(want.norm())
+    else:
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        err, ref = float(np.linalg.norm(got - want)), float(np.linalg.norm(want))
     return err / ref if ref > 0 else err
 
 

@@ -24,7 +24,8 @@ for the recovery layer:
         --num-pages 8 --page-size 8 --cancel-frac 0.2 --talp-out /tmp/talp_serve
 
 ``--arch`` takes every decoder arch the port runs, the MoE ones
-(qwen3-moe-30b-a3b, dbrx-132b) too. Without ``--device`` it runs on the
+(qwen3-moe-30b-a3b, dbrx-132b) and the recurrent ones (zamba2-2.7b,
+xlstm-350m) too. Without ``--device`` it runs on the
 card (``cuda``) and raises if there is none. Weights are the port's seeded initializer's, seed 0. It prints
 the completed count, ticks, decode steps, prefill chunks, the traffic,
 KV, prefix-cache, pressure, speculation and recovery lines, each

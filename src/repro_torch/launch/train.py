@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --smoke --device cpu --steps 4 --global-batch 2 --seq-len 32 \\
-        --talp-out /tmp/talp/case/current
+        --talp-out /tmp/talp/case/current [--ckpt-dir /tmp/ckpt --ckpt-every 2]
 
 Without ``--device`` it runs on the card (``cuda``) and raises if there is
 none; ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -10,9 +10,13 @@ Weights are the port's seeded initializer's. It prints the first and last
 loss, each kernel's launch count, and where the TALP run record (schema
 v3, regions ``initialize`` and ``train_step``) was written.
 
-``--arch`` takes every arch the port runs, the MoE ones (qwen3-moe-30b-a3b,
-dbrx-132b) too: their record's ``expert_load_balance`` reads the router's
-per-expert counts. The vlm (llava-next-mistral-7b)
+``--ckpt-dir``/``--ckpt-every`` checkpoint the state every so many steps
+(``checkpoint``, the JAX package's format), and a run started over a
+directory that holds one resumes from the latest.
+
+``--arch`` takes every arch the port runs: the MoE ones (qwen3-moe-30b-a3b,
+dbrx-132b), whose record's ``expert_load_balance`` reads the router's
+per-expert counts, and the recurrent ones (zamba2-2.7b, xlstm-350m). The vlm (llava-next-mistral-7b)
 trains on the synthetic stream with its stub patch embeddings ahead of
 the text, as the JAX launcher feeds it. The audio model (hubert-xlarge)
 is refused: the synthetic stream is a token stream and the audio model
@@ -40,6 +44,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--talp-out", default="",
                     help="directory for the TALP run record (CI artifact)")
     args = ap.parse_args(argv)
@@ -67,7 +73,8 @@ def main(argv=None) -> int:
     loop = TrainLoop(
         cfg, TrainConfig(optimizer=AdamWConfig(lr=args.lr), total_steps=args.steps),
         data,
-        LoopConfig(steps=args.steps, lb_sample_every=1, monitor_app_name=args.arch),
+        LoopConfig(steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
+                   lb_sample_every=1, monitor_app_name=args.arch),
         device=args.device,
     )
     reset_launch_counts()

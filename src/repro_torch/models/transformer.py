@@ -2,11 +2,13 @@
 
 The layer stack is ``cfg.pattern`` repeated ``cfg.repeats`` times; the
 parameter tree is the JAX package's, stacked over repeats, and a Python
-loop over repeats takes the place of the ``scan``. The port runs the
-attention block kinds, ``attn``, ``local_attn`` (attention over the last
-``cfg.window`` keys) and ``moe`` (attention, then the Mixture-of-Experts
-FFN), cache-less for training and over the paged KV pool or the dense KV
-cache for serving. Inputs are token ids, stub frontend
+loop over repeats takes the place of the ``scan``. The port runs every
+block kind: ``attn``, ``local_attn`` (attention over the last
+``cfg.window`` keys), ``moe`` (attention, then the Mixture-of-Experts
+FFN), and the recurrent ``mamba2``, ``mlstm`` and ``slstm`` (the last
+with its own MLP), cache-less for training and over the paged KV pool or
+the dense KV cache for serving; recurrent state stays dense, one row a
+slot, in both layouts. Inputs are token ids, stub frontend
 embeddings (``batch["frontend"]`` (B,P,d): the vlm's patches ahead of the
 text, or the audio model's frames with no tokens and no ``embed``), or
 both. An encoder-only model (bidirectional attention) has ``forward`` and
@@ -19,7 +21,9 @@ both. An encoder-only model (bidirectional attention) has ``forward`` and
   model.apply_logits(batch)              (logits, aux): full-sequence logits
                                          (aux: the MoE router's totals)
   model.init_cache(batch, max_len, ...)  paged pools (R, P+1, page, Hkv, hd), or
-                                         with paged=False dense (R, B+1, max_len, Hkv, hd)
+                                         with paged=False dense (R, B+1, max_len, Hkv, hd);
+                                         recurrent state (R, B, ...)
+  model.reset_state(caches, slots)       recurrent rows back to their initial values
   model.prefill_chunk(tokens, ...)       incremental prefill at per-row offsets
   model.decode_step(tokens, pos, ...)    one-token step, per-slot positions
 """
@@ -30,7 +34,11 @@ import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import check_supported
 from repro_torch.device import resolve_device
@@ -53,10 +61,7 @@ from repro_torch.layers.norms import rmsnorm, rmsnorm_params
 
 
 def _slot_params(cfg, kind: str) -> dict:
-    """The JAX package's slot tree for every block kind. The attention
-    kinds (``attn``, ``local_attn``, ``moe``) run (``check_supported``);
-    the recurrent ones are declared so that the parameter count, and with
-    it ``models.flops``, is the JAX one for every arch."""
+    """The JAX package's slot tree for every block kind."""
     p: dict = {"norm_in": rmsnorm_params(cfg.d_model)}
     if kind in ("attn", "local_attn", "moe"):
         p["attn"] = A.attention_params(cfg)
@@ -103,6 +108,22 @@ def model_params(cfg) -> dict:
 
 def _attr_name(path: str) -> str:
     return path.replace("/", "__")
+
+
+# remat="dots": the outputs of the products without batch dims (``x @ W``
+# dispatches to aten.mm, or aten.addmm with a bias) are kept; everything
+# else in the layer, the batched einsums of the recurrent blocks and the
+# kernels included, is recomputed in the backward, as
+# ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` does
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +198,9 @@ class Transformer(nn.Module):
         takes dropped writes; ``num_pages`` defaults to dense-equivalent
         capacity, ``ceil(batch*max_len/page_size)``. ``paged=False``: dense
         ``(R, batch+1, max_len, Hkv, hd)``, a row a slot plus the spare row
-        (see ``layers.attention``)."""
+        (see ``layers.attention``). Recurrent state, in both layouts, one
+        row a slot: ``(R, batch, ...)`` at its initial values (conv state in
+        ``dtype``, the rest in fp32; xLSTM's ``m`` at -1e30)."""
         self._no_cache("init_cache")
         cfg = self.cfg
         dtype = dtype or cfg.compute_dtype
@@ -189,12 +212,40 @@ class Transformer(nn.Module):
         else:
             names = ("k", "v")
             shape = (cfg.repeats, batch + 1, max_len, cfg.n_kv_heads, cfg.head_dim_)
-        return {
-            f"slot{i}_{kind}": {"attn": {
-                n: torch.zeros(shape, dtype=dtype, device=self.device) for n in names
-            }}
-            for i, kind in enumerate(cfg.pattern)
-        }
+        caches = {}
+        for i, kind in enumerate(cfg.pattern):
+            if kind in R.CACHE_KEYS:
+                rows = self._recurrent_rows(kind, batch, dtype)
+                caches[f"slot{i}_{kind}"] = {R.CACHE_KEYS[kind]: {
+                    k: v[None].repeat((cfg.repeats,) + (1,) * v.dim())
+                    for k, v in rows.items()}}
+            else:
+                caches[f"slot{i}_{kind}"] = {"attn": {
+                    n: torch.zeros(shape, dtype=dtype, device=self.device) for n in names}}
+        return caches
+
+    def _recurrent_rows(self, kind: str, batch: int, dtype) -> dict:
+        if kind == "mamba2":
+            return R.mamba2_cache(self.cfg, batch, dtype, self.device)
+        if kind == "mlstm":
+            return R.mlstm_cache(self.cfg, batch, dtype, self.device)
+        return R.slstm_cache(self.cfg, batch, dtype, self.device)
+
+    def reset_state(self, caches: dict, slots) -> None:
+        """Restore the recurrent rows of ``slots`` to their initial values,
+        in place (attention caches untouched). Unlike attention K/V, whose
+        stale lines are never read, recurrent state carries: a reused slot
+        would otherwise continue from its last request's state."""
+        idx = None
+        for i, kind in enumerate(self.cfg.pattern):
+            if kind not in R.CACHE_KEYS:
+                continue
+            if idx is None:
+                idx = torch.as_tensor(list(slots), dtype=torch.long).to(
+                    self.device, non_blocking=True)
+            rows = caches[f"slot{i}_{kind}"][R.CACHE_KEYS[kind]]
+            for name, leaf in rows.items():
+                leaf.index_fill_(1, idx, R.M_INIT if name == "m" else 0.0)
 
     # -- pieces ---------------------------------------------------------
 
@@ -227,14 +278,34 @@ class Transformer(nn.Module):
         return rmsnorm(x, self.norm_f__scale, cfg.norm_eps, cfg.zero_centered_norm)
 
     def _apply_slot(self, sp: dict, x, *, kind, positions, cache, cache_len, seq_mask,
-                    block_tables, cache_row0=0):
-        """One ``attn``, ``local_attn`` or ``moe`` block: pre-norm attention
-        (over the last ``cfg.window`` keys for ``local_attn``; bidirectional
-        for an encoder-only model) + pre-norm MLP (the MoE FFN for ``moe``),
-        residuals. Returns (x, aux): the MoE block's aux, else {}. Every
-        position is routed, padding included, as in the JAX block."""
+                    block_tables, cache_row0=0, commit_state=True):
+        """One block: pre-norm attention (over the last ``cfg.window`` keys
+        for ``local_attn``; bidirectional for an encoder-only model) +
+        pre-norm MLP (the MoE FFN for ``moe``), or a pre-norm recurrent
+        block (``slstm`` with its own pre-norm MLP), residuals. Returns (x,
+        aux): the MoE block's aux, else {}. Every position is routed,
+        padding included, as in the JAX block. A recurrent block reads and
+        writes the state rows ``cache_row0 .. cache_row0+B-1`` in place
+        (with ``commit_state`` False it reads them and writes nothing)."""
         cfg = self.cfg
         h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
+        if kind in R.CACHE_KEYS:
+            key = R.CACHE_KEYS[kind]
+            rows = None
+            if cache is not None:
+                B = x.shape[0]
+                rows = {k: v[cache_row0:cache_row0 + B] for k, v in cache[key].items()}
+            block = {"mamba2": R.mamba2_block, "mlstm": R.mlstm_block,
+                     "slstm": R.slstm_block}[kind]
+            o, new = block(sp[key], h, cfg, cache=rows, seq_mask=seq_mask)
+            if new is not None and commit_state:
+                for k, v in new.items():
+                    rows[k].copy_(v)
+            x = x + o
+            if kind == "slstm":
+                h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
+                x = x + FFN.mlp_block(sp["mlp"], h2, cfg)
+            return x, {}
         x = x + A.attention_block(
             sp["attn"], h, cfg, positions=positions,
             cache=None if cache is None else cache["attn"],
@@ -249,19 +320,23 @@ class Transformer(nn.Module):
         return x + FFN.mlp_block(sp["mlp"], h2, cfg), {}
 
     def _run_stack(self, x, caches, *, positions, cache_len, seq_mask,
-                   block_tables, cache_row0=0):
+                   block_tables, cache_row0=0, commit_state=True):
         """Pattern x repeats. Each stacked leaf is unbound over repeats once
         (views; the backward stacks the per-layer gradients in one op
         rather than scattering into the stacked leaf once per layer). With
-        ``caches`` None and ``cfg.remat == "full"``, every layer runs under
-        ``torch.utils.checkpoint`` (non-reentrant) while autograd records,
-        as ``jax.checkpoint`` wraps the scanned layer body. Returns (x, aux):
-        each aux entry summed over layers (``expert_load`` stays per
-        expert), as the JAX ``_run_stack`` reduces the scan's."""
+        ``caches`` None and ``cfg.remat`` ``"full"`` or ``"dots"``, every
+        layer runs under ``torch.utils.checkpoint`` (non-reentrant) while
+        autograd records, as ``jax.checkpoint`` wraps the scanned layer
+        body: ``"full"`` keeps only the layer's inputs, ``"dots"`` also the
+        outputs of its products without batch dims (``_dots_policy``).
+        Returns (x, aux): each aux entry summed over layers
+        (``expert_load`` stays per expert), as the JAX ``_run_stack``
+        reduces the scan's."""
         cfg = self.cfg
-        if cfg.remat not in ("none", "full"):
-            raise NotImplementedError(f"remat={cfg.remat!r}: the port has 'none' and 'full'")
-        remat = caches is None and cfg.remat == "full" and torch.is_grad_enabled()
+        if cfg.remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat={cfg.remat!r}: one of 'none', 'full', 'dots'")
+        remat = caches is None and cfg.remat != "none" and torch.is_grad_enabled()
+        ckpt_kw = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
         slots = {name: tree_map(lambda t: t.unbind(0), sp)
                  for name, sp in self.params()["slots"].items()}
         totals: dict = {}
@@ -272,9 +347,10 @@ class Transformer(nn.Module):
                 kw = dict(kind=name.split("_", 1)[1], positions=positions, cache=cache,
                           cache_len=cache_len,
                           seq_mask=seq_mask, block_tables=block_tables,
-                          cache_row0=cache_row0)
+                          cache_row0=cache_row0, commit_state=commit_state)
                 if remat:
-                    x, aux = checkpoint(self._apply_slot, layer, x, use_reentrant=False, **kw)
+                    x, aux = checkpoint(self._apply_slot, layer, x, use_reentrant=False,
+                                        **ckpt_kw, **kw)
                 else:
                     x, aux = self._apply_slot(layer, x, **kw)
                 for k, v in aux.items():
@@ -365,14 +441,19 @@ class Transformer(nn.Module):
 
     @torch.inference_mode()
     def prefill_chunk(self, tokens, caches, start, length, block_tables=None,
-                      all_logits: bool = False, slot: int = 0):
+                      all_logits: bool = False, slot: int = 0,
+                      commit_state: bool = True):
         """One chunk of an incremental prefill: ``tokens`` (B,C) at positions
         ``start .. start+C``; ``length`` () or (B,) valid tokens (the rest is
-        padding that writes nothing). Writes the caches in place and attends
-        against everything written so far: through ``block_tables`` (B,nL)
-        on the paged layout, or, on the dense layout (``block_tables``
-        None), in cache rows ``slot .. slot+B-1``. Returns logits (B,V) at
-        each row's last valid position, or (B,C,V) with ``all_logits``."""
+        padding that writes nothing and advances no state). Writes the
+        caches in place and attends against everything written so far:
+        through ``block_tables`` (B,nL) on the paged layout, or, on the
+        dense layout (``block_tables`` None), in cache rows ``slot ..
+        slot+B-1``; recurrent state lives in rows ``slot .. slot+B-1`` in
+        both layouts. ``commit_state=False`` reads the recurrent state and
+        leaves it as it was (the speculative verify's scoring pass; the
+        attention writes still land). Returns logits (B,V) at each row's
+        last valid position, or (B,C,V) with ``all_logits``."""
         self._no_cache("prefill_chunk")
         x = self._embed_inputs(tokens)
         B, C, _ = x.shape
@@ -383,7 +464,7 @@ class Transformer(nn.Module):
         positions = start[:, None] + offs
         x, _ = self._run_stack(x, caches, positions=positions, cache_len=start + length,
                                seq_mask=seq_mask, block_tables=block_tables,
-                               cache_row0=slot)
+                               cache_row0=slot, commit_state=commit_state)
         x = self._final_norm(x)
         if all_logits:
             return self._logits(x)
@@ -395,7 +476,7 @@ class Transformer(nn.Module):
         """One decode step. tokens: (B,1); pos: () or (B,) per-slot positions;
         ``active`` (B,) bool: inactive slots write nothing. ``block_tables``
         (B,nL) on the paged layout, None on the dense one (cache rows
-        0..B-1). Returns (B,V)."""
+        0..B-1); recurrent state in rows 0..B-1. Returns (B,V)."""
         self._no_cache("decode_step")
         x = self._embed_inputs(tokens)
         B = x.shape[0]

@@ -1,10 +1,10 @@
-"""Optimizer (``repro.optim``): AdamW with fp32 master weights and the
-cosine schedule. The int8 gradient compression of the cross-pod hop
-(``repro.optim.compression``) waits for the distribution slice (ROADMAP.md
-Queue 1, item 6)."""
+"""Optimizer (``repro.optim``): AdamW with fp32 master weights, the
+cosine schedule, and the int8 gradient compression of the cross-pod hop
+(``optim.compression``)."""
 
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, global_norm
+from repro_torch.optim.compression import compress_int8, decompress_int8
 from repro_torch.optim.schedule import cosine_schedule
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
-           "cosine_schedule"]
+           "cosine_schedule", "compress_int8", "decompress_int8"]

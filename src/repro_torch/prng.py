@@ -1,4 +1,5 @@
-"""The ``jax.random`` functions the serving scheduler samples with, in
+"""The ``jax.random`` functions the serving scheduler samples with (and the
+int8 gradient compression draws its rounding noise with), in
 torch integer ops (JAX's default ``threefry2x32`` generator, with
 ``jax_threefry_partitionable`` on, as in JAX 0.9).
 

@@ -42,7 +42,7 @@ What the port keeps of the JAX scheduler, with its semantics:
 * sampling: greedy (an argmax over the padded vocabulary, unmasked) by
   default; with ``greedy=False`` temperature and top-k sampling on the
   device from the request's key ``fold_in(PRNGKey(sample_seed), tag)``
-  folded with the sampled position (``serve/prng.py``: the ``jax.random``
+  folded with the sampled position (``repro_torch/prng.py``: the ``jax.random``
   functions in torch integer ops, so the draws are JAX's). A request's
   stream is then a function of its prompt, id and seed alone, never of
   its slot, its neighbours, the overlap schedule or a preemption;
@@ -70,7 +70,16 @@ What the port keeps of the JAX scheduler, with its semantics:
   kernel, the A/B baseline of the paged pool. Tokens equal the paged
   layout's in fp32; in bf16 the two layouts' attention kernels round
   differently, and greedy tokens can part where the top two logits are a
-  few ulps apart.
+  few ulps apart;
+* recurrent state (mamba2, mLSTM, sLSTM: zamba2-2.7b, xlstm-350m) lives in
+  one dense row a slot in both layouts. A prefill chunk, and the verify
+  chunk ``spec_k+1``, must be at most the recurrent chunk or a multiple of
+  it. A reused slot's rows are restored to their initial values before its
+  new request runs (``_reset_slots``); the prefix cache shares a hybrid
+  arch's matched pages but skips no prefill (the state must advance over
+  every prompt token); preemption and retry resume over every token; and
+  the speculative verify runs in two passes, the scoring pass leaving the
+  state as it was and a commit pass over the accepted tokens advancing it.
 
 The KV caches are written in place (``layers.attention.paged_write`` and
 ``dense_write``), not returned anew as in the JAX package. Everything runs
@@ -90,7 +99,7 @@ import numpy as np
 import torch
 
 from repro_torch.serve import faults as F
-from repro_torch.serve import prng
+from repro_torch import prng
 from repro_torch.serve.spec import draft_tokens
 from repro_torch.session import PerfSession, SessionConfig
 
@@ -571,6 +580,16 @@ class BatchScheduler:
     def __init__(self, model, scfg: ServeConfig, session=None, fault_injector=None):
         self.model, self.cfg, self.scfg = model, model.cfg, scfg
         self.device = model.device
+        cfg = self.cfg
+        # the chunked recurrences re-chunk internally at the ssm/xlstm chunk:
+        # a prefill chunk, and the verify chunk, larger than that must tile it
+        inners = [c.chunk for c in (cfg.ssm, cfg.xlstm) if c is not None]
+        for inner in inners:
+            if scfg.prefill_chunk > inner and scfg.prefill_chunk % inner:
+                raise ValueError(
+                    f"prefill_chunk={scfg.prefill_chunk} must be <= the "
+                    f"recurrent chunk {inner} or a multiple of it"
+                )
         if scfg.paged and scfg.max_len % scfg.page_size:
             raise ValueError(
                 f"paged serving needs max_len ({scfg.max_len}) divisible by "
@@ -580,6 +599,19 @@ class BatchScheduler:
         self.session = session if session is not None else PerfSession(
             SessionConfig(app_name="serve", backend="null")
         )
+        if scfg.spec_decode:
+            for inner in inners:
+                verify_c = scfg.spec_k + 1
+                if verify_c > inner and verify_c % inner:
+                    raise ValueError(
+                        f"spec_k+1={verify_c} (the verify chunk) must be <= "
+                        f"the recurrent chunk {inner} or a multiple of it"
+                    )
+        # recurrent state carries unconditionally (no positional mask): a
+        # reattached slot's rows are reset to their initial values; the
+        # verify runs in two passes so it advances over accepted tokens only
+        self._has_recurrent = any(k in ("mamba2", "mlstm", "slstm") for k in cfg.pattern)
+        self._dirty: set[int] = set()     # slots whose state may be non-fresh
         # observe the sampled tokens only: the caches are written in place
         # and never leave the card
         self.decode = self.session.wrap_step(
@@ -721,10 +753,17 @@ class BatchScheduler:
         accept (B,) int32, the accepted drafts: the longest prefix with
         ``out[:, i] == tokens[:, i+1]`` within ``length - 1``; bad (B,), a
         non-finite logit at a valid position of the row, after the
-        ``fault_mask`` rows are poisoned)."""
+        ``fault_mask`` rows are poisoned).
+
+        With recurrent state (JAX's ``two_pass``) the scoring pass leaves
+        the state as it was, and a second ``prefill_chunk`` over the same
+        tokens, clamped to ``min(accept + 1, length)``, writes it: the state
+        advances over exactly the accepted tokens, and the attention K/V of
+        those positions is rewritten with the same values."""
         B, C = tokens.shape
         logits = self.model.prefill_chunk(tokens, self.caches, start, length, tables,
-                                          all_logits=True)  # (B,C,V)
+                                          all_logits=True,
+                                          commit_state=not self._has_recurrent)  # (B,C,V)
         logits = torch.where(fault_mask[:, None, None], torch.full(
             (), float("nan"), dtype=logits.dtype, device=logits.device), logits)
         offs = torch.arange(C, dtype=torch.int32, device=tokens.device)[None, :]
@@ -737,6 +776,9 @@ class BatchScheduler:
                            positions.reshape(-1)).reshape(B, C)
         match = (out[:, :-1] == tokens[:, 1:]) & (offs[:, :C - 1] < (length - 1)[:, None])
         accept = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        if self._has_recurrent:
+            commit = torch.where(length > 0, torch.minimum(accept + 1, length), 0)
+            self.model.prefill_chunk(tokens, self.caches, start, commit, tables)
         return out, accept, bad
 
     # -- admission ---------------------------------------------------------
@@ -881,14 +923,29 @@ class BatchScheduler:
         order = lambda r: (-r["priority"], r["_seq"])
         self.queue.sort(key=order)    # stable: FIFO within a priority class
         self._parked.sort(key=order)
+        reused: list[int] = []
         for slot in range(self.scfg.batch):
             if not self._free(slot):
                 continue
             req = self._next_admittable()
             if req is None:
                 break
+            if slot in self._dirty:
+                reused.append(slot)
+            self._dirty.add(slot)
             if not self._attach_one(slot, req):
                 break  # attach-time pool pressure: try again next tick
+        if reused:
+            self._reset_slots(reused)
+
+    def _reset_slots(self, slots: list[int]) -> None:
+        """Restore reused slots' recurrent rows (SSM, conv, xLSTM carries)
+        to their initial values, which are not all zero (xLSTM's ``m``
+        starts at -1e30), before the new request's first prefill chunk or
+        decode step. Attention K/V needs no reset: stale lines never enter
+        the visible window."""
+        if self._has_recurrent:
+            self.model.reset_state(self.caches, slots)
 
     def _next_admittable(self) -> dict | None:
         """Best waiter across the queue and the parked set on (priority
@@ -995,6 +1052,25 @@ class BatchScheduler:
         if self.scfg.checksum_pages:
             chain, donor, donor_rows = self._verify_chain(chain, donor, donor_rows)
         st = self._prefix.stats
+        if self._has_recurrent:
+            # a hybrid arch shares the matched pages (the memory win) but
+            # skips no prefill: the recurrent state has no positional mask to
+            # fast-forward through, so every prompt token runs. The rerun
+            # writes the shared pages' K/V again with the same values (same
+            # tokens, positions and chunk grid)
+            for node in chain:
+                self._alloc.share([node.page])
+                self._tables[slot, len(self._slot_pages[slot])] = node.page
+                self._slot_pages[slot].append(node.page)
+                self._prefix._touch(node)
+            if chain:
+                self._tables_dirty = True
+                st["hits"] += 1
+                st["hit_tokens"] += len(chain) * psize
+                st["pages_shared"] += len(chain)
+            else:
+                st["misses"] += 1
+            return 0
         use = min(len(chain) * psize + donor_rows, len(prompt) - 1)
         if use <= 0:
             st["misses"] += 1
@@ -1051,7 +1127,7 @@ class BatchScheduler:
         """Copy physical page ``src`` to ``dst`` in every attention slot's K
         and V pool, all repeats, in place on the device (no host sync)."""
         for slot in self.caches.values():
-            for pool in slot["attn"].values():
+            for pool in slot.get("attn", {}).values():
                 pool[:, dst].copy_(pool[:, src])
 
     # -- preemption --------------------------------------------------------
@@ -1231,7 +1307,7 @@ class BatchScheduler:
         if slot in self._corrupted_rows:
             self._corrupted_rows.discard(slot)
             for cache in self.caches.values():
-                for rows in cache["attn"].values():
+                for rows in cache.get("attn", {}).values():
                     rows[:, slot].zero_()
         dirty = [p for p in self._slot_pages[slot] if p in self._corrupted_pages]
         if dirty:
@@ -1429,7 +1505,7 @@ class BatchScheduler:
         injector's, when one is attached) and speculation."""
         kv_bytes = sum(
             t.numel() * t.element_size()
-            for slot in self.caches.values() for t in slot["attn"].values()
+            for slot in self.caches.values() for t in slot.get("attn", {}).values()
         )
         out = {"layout": "paged" if self.scfg.paged else "dense",
                "kv_bytes": int(kv_bytes)}

@@ -8,12 +8,17 @@ host heartbeat) into the collector. ``finalize_run(out_dir)`` writes the
 JSON artifact for TALP-Pages in one call.
 
 ``metrics_history`` holds each step's loss and its host-clock seconds
-(batch made to loss on the host). Kept from the JAX loop: the straggler hook (``on_straggler`` when the host
-load balance drops below ``straggler_threshold``) and ``fail_at_step``
-(crash injection). Checkpointing waits for ROADMAP.md Queue 1, item 6:
-``ckpt_dir`` raises. The loop starts from the port's seeded initializer,
-or from ``state`` when given (a state converted from the JAX package with
-``repro_torch.convert.from_jax_train_state``).
+(batch made to loss on the host). Kept from the JAX loop: checkpoints
+every ``ckpt_every`` steps into ``ckpt_dir`` (``checkpoint.
+CheckpointManager``: async file writes, atomic commit, the newest 3 kept),
+the restore of the latest one at start (a crash is a restart; the data
+stream is step-indexed), the wait for pending writes when the run ends or
+fails, the straggler hook (``on_straggler`` when the host load balance
+drops below ``straggler_threshold``) and ``fail_at_step`` (crash
+injection). The loop starts from the port's seeded initializer, or from
+``state`` when given (a state converted from the JAX package with
+``repro_torch.convert.from_jax_train_state``); a checkpoint in
+``ckpt_dir`` overrides either.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.records import ResourceConfig
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
@@ -36,7 +42,7 @@ from repro_torch.train.train import TrainConfig, TrainState, init_state, make_tr
 @dataclasses.dataclass
 class LoopConfig:
     steps: int = 50
-    ckpt_every: int = 0              # checkpoints: not ported yet (raises)
+    ckpt_every: int = 0              # 0 = no checkpoints
     ckpt_dir: str = ""
     seed: int = 0
     straggler_threshold: float = 0.8
@@ -58,11 +64,6 @@ class TrainLoop:
     def __init__(self, cfg, tcfg: TrainConfig, data: SyntheticLM, loop_cfg: LoopConfig,
                  device=None, on_straggler: Callable[[int, float], None] | None = None,
                  state: TrainState | None = None):
-        if loop_cfg.ckpt_dir or loop_cfg.ckpt_every:
-            raise NotImplementedError(
-                "checkpointing is not ported yet (ROADMAP.md Queue 1, item 6): leave "
-                "ckpt_dir and ckpt_every unset"
-            )
         self.cfg, self.tcfg = cfg, tcfg
         self.device = state.model.device if state is not None else resolve_device(device)
         self.data = data
@@ -81,6 +82,7 @@ class TrainLoop:
             ),
             self.resources,
         )
+        self.ckpt = CheckpointManager(loop_cfg.ckpt_dir) if loop_cfg.ckpt_dir else None
         self.metrics_history: list[dict] = []
         self._cur_step = 0
         self._host_times: Any = _UNSAMPLED
@@ -110,7 +112,11 @@ class TrainLoop:
                 loss = float(metrics["loss"])  # waits for the step's device work
                 self.metrics_history.append(
                     {"step": step, "loss": loss, "seconds": time.perf_counter() - t0})
+                if self.ckpt and self.loop.ckpt_every and (step + 1) % self.loop.ckpt_every == 0:
+                    self.ckpt.save(state.tree(), step + 1)
         finally:
+            if self.ckpt:
+                self.ckpt.wait()
             ses.stop()
         self.final_state = state
         return self
@@ -121,6 +127,9 @@ class TrainLoop:
         state = self._state
         if state is None:
             state = init_state(self.cfg, self.tcfg, seed=self.loop.seed, device=self.device)
+        if self.ckpt and self.ckpt.latest() is not None:
+            tree, _ = self.ckpt.restore(state.tree())
+            state.load_tree(tree)
         example = self.data.batch_at(0)
         step_fn = self.session.wrap_step(
             make_train_step(self.cfg, self.tcfg),

@@ -7,11 +7,15 @@ observables (real-token counts per data shard).
 ``tokens``/``labels`` of shape (A, B, S) with A = ``accum_steps``; each
 microbatch's gradients (in the parameter dtype, as ``jax.grad`` gives
 them) are summed in fp32, then loss and gradients are scaled by 1/A.
-Metrics: ``loss``, ``grad_norm``, ``lr``, ``tokens``,
-``tokens_per_shard``, and for an MoE model ``expert_load`` (pairs per
-expert, summed over layers) and ``moe_lb_loss``, each summed over the
-microbatches as the JAX step's scan sums them. The state is updated in
-place and returned.
+With ``compress_dcn_grads`` each averaged gradient makes the int8 round
+trip of ``optim.compression`` (no key: round half to even) before the
+update, as the JAX step does. Metrics: ``loss``, ``grad_norm``, ``lr``,
+``tokens``, ``tokens_per_shard``, and for an MoE model ``expert_load``
+(pairs per expert, summed over layers) and ``moe_lb_loss``, each summed
+over the microbatches as the JAX step's scan sums them. The state is
+updated in place and returned. ``TrainState.tree()`` is the JAX
+``TrainState.tree()``'s layout over the live tensors (what a checkpoint
+stores) and ``TrainState.load_tree`` copies such a tree back in.
 """
 
 from __future__ import annotations
@@ -20,8 +24,16 @@ import dataclasses
 
 import torch
 
+from repro_torch.layers.common import unflatten
 from repro_torch.models.transformer import Transformer
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+from repro_torch.optim import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    compress_int8,
+    cosine_schedule,
+    decompress_int8,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +42,7 @@ class TrainConfig:
     accum_steps: int = 1
     warmup_steps: int = 100
     total_steps: int = 10_000
-    # int8 round trip of the gradients for the cross-pod hop: not ported
-    # (ROADMAP.md Queue 1, item 6); True raises
+    # int8 round trip of the gradients for the cross-pod hop
     compress_dcn_grads: bool = False
 
 
@@ -40,6 +51,30 @@ class TrainState:
     model: Transformer   # holds the parameters
     opt_state: dict      # {"step", "m", "v", "master"}, flat {path: tensor}
     step: int = 0
+
+    def tree(self) -> dict:
+        """``{"params", "opt_state": {"step", "m", "v"[, "master"]}, "step"}``
+        nested as the JAX tree, over the live tensors (no copy)."""
+        opt = {k: (unflatten(v) if isinstance(v, dict) else v)
+               for k, v in self.opt_state.items()}
+        return {"params": self.model.params(), "opt_state": opt, "step": self.step}
+
+    @torch.no_grad()
+    def load_tree(self, tree: dict) -> None:
+        """Copy a tree of ``tree()``'s layout (a restored checkpoint) into
+        the parameters and the optimizer state, in place."""
+        from repro_torch.layers.common import tree_leaves
+
+        named = self.model.named_params()
+        for path, t in tree_leaves(tree["params"]):
+            named[path].copy_(t)
+        for key, v in tree["opt_state"].items():
+            if key == "step":
+                self.opt_state["step"] = int(v)
+                continue
+            for path, t in tree_leaves(v):
+                self.opt_state[key][path].copy_(t)
+        self.step = int(tree["step"])
 
 
 def init_state(cfg, tcfg: TrainConfig, seed: int = 0, device=None) -> TrainState:
@@ -60,11 +95,6 @@ def tokens_per_shard(labels: torch.Tensor, n_shards: int = 1) -> torch.Tensor:
 
 def make_train_step(cfg, tcfg: TrainConfig):
     """Returns ``train_step(state, batch) -> (state, metrics)``."""
-    if tcfg.compress_dcn_grads:
-        raise NotImplementedError(
-            "compress_dcn_grads: the int8 gradient compression is not ported "
-            "yet (ROADMAP.md Queue 1, item 6)"
-        )
 
     def train_step(state: TrainState, batch: dict):
         model = state.model
@@ -99,6 +129,10 @@ def make_train_step(cfg, tcfg: TrainConfig):
         inv = 1.0 / A
         for g in gsum.values():
             g.mul_(inv)
+        if tcfg.compress_dcn_grads:
+            for g in gsum.values():
+                q, scale, meta = compress_int8(g)
+                g.copy_(decompress_int8(q, scale, meta))
         lr_scale = cosine_schedule(state.step, warmup=tcfg.warmup_steps,
                                    total=tcfg.total_steps)
         stats = adamw_update(params, gsum, state.opt_state, tcfg.optimizer, lr_scale)

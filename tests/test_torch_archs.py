@@ -9,9 +9,10 @@ smoke config with weights drawn by ``jax.random`` and converted leaf for
 leaf:
 
 (a) ``configs/archs.py`` and ``models/flops.py`` equal to the JAX ones for
-    all ten archs; ``check_supported`` admits the dense archs and qk-norm
-    and refuses the recurrent ones (the MoE archs run:
-    ``test_torch_moe.py``);
+    all ten archs; ``check_supported`` admits all ten (the MoE archs run
+    in ``test_torch_moe.py``, the recurrent ones in
+    ``test_torch_recurrent.py``) and qk-norm, and refuses an unknown block
+    kind, frontend or paged-attention implementation;
 (b) full-sequence logits (``apply_logits``) against ``T.apply_logits``;
 (c) logits after two prefill chunks and 4 decode steps, paged and dense,
     against ``T.prefill_chunk`` / ``T.decode_step`` (not hubert: no cache,
@@ -52,7 +53,10 @@ from repro_torch.layers.common import tree_leaves  # noqa: E402
 
 ARCHS = ["gemma2-2b", "glm4-9b", "command-r-35b", "llava-next-mistral-7b", "hubert-xlarge"]
 DECODERS = [a for a in ARCHS if a != "hubert-xlarge"]
-REFUSED = ["zamba2-2.7b", "xlstm-350m"]
+# configs check_supported refuses, with the message each raises
+REFUSED = [(dict(frontend="speech"), "frontend"), (dict(pattern=("attn", "conv")), "conv"),
+           (dict(paged_attn_impl="pallas"), "paged_attn_impl"),
+           (dict(pattern=("mamba2",), ssm=None), "ssm config")]
 F32 = dict(compute_dtype_name="float32", param_dtype_name="float32")
 # gemma2's window (4096) never cuts at the smoke lengths: 16 does
 SMOKE_EXTRA = {"gemma2-2b": dict(window=16)}
@@ -169,18 +173,25 @@ def test_model_flops_equal_jax_for_the_full_config(arch):
 
 
 def test_check_supported_admits_the_dense_archs_only():
+    """All ten archs are admitted now, the dense, MoE and recurrent ones,
+    at full size and smoke size, and build; qk-norm too. An unknown
+    frontend, block kind or paged-attention implementation, and a
+    recurrent kind without its config, still raise before any weight is
+    drawn."""
     from repro_torch.configs.base import check_supported
     from repro_torch.models.transformer import Transformer
 
-    for arch in ARCHS + ["tinyllama-1.1b"]:
+    for arch in list_archs():
         check_supported(get_t(arch))
         check_supported(smoke_t(arch))
-    for arch in REFUSED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            check_supported(get_t(arch))
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Transformer.from_init(smoke_t(arch), device="cpu")
+    for arch in ("zamba2-2.7b", "xlstm-350m"):
+        Transformer.from_init(smoke_t(arch), device="cpu")
     check_supported(smoke_t("glm4-9b").replace(qk_norm=True))
+    for over, msg in REFUSED:
+        with pytest.raises(NotImplementedError, match=msg):
+            check_supported(smoke_t("zamba2-2.7b").replace(**over))
+        with pytest.raises(NotImplementedError, match=msg):
+            Transformer.from_init(smoke_t("zamba2-2.7b").replace(**over), device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

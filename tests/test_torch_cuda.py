@@ -10,7 +10,9 @@ Cases are the JAX package's kernel case tables plus the serving and
 training paths' shapes at tinyllama-1.1b's full width and at the other
 archs' (``cases.*_ARCH_*``: the MoE archs' too, K3/K4 at dbrx's GQA group
 of 6 and qwen3's of 8 at head dim 128, K1 at qwen3's qk-norm rows of 128,
-K2 at qwen3's training shape). Tolerances: paged
+K2 at qwen3's training shape; the recurrent archs' too: zamba2's K2-K4 at
+head dim 80 and G 1, its speculative verify at C 5 with an idle slot, K1
+at the mamba2 gated norm's width 5120 and xlstm's widths). Tolerances: paged
 attention and forwards f32 1e-4 (the kernels sum in another order than the
 plain versions), bf16 2e-2; the training kernels' outputs and gradients
 f32 1e-4 and bf16 2e-2 of the largest |value| (at least of 1): bf16 keeps

@@ -13,9 +13,9 @@ eviction, co-resident isolation, NaN pages (scrubbed before reuse), the
 dense layout; (d) the sentinel, ``PerfSession.event`` under each backend,
 and the ``recovery`` region of a monitored chaos run.
 
-``test_fault_isolation_coresident[zamba2-2.7b]`` of the JAX file waits for
-the recurrent archs (ROADMAP Queue 1 item 7): the port runs the ``attn``
-block kind only.
+``test_fault_isolation_coresident[zamba2-2.7b]`` of the JAX file is held
+in ``test_torch_recurrent.py`` (``test_fault_isolation_coresident_zamba2``),
+beside the other recurrent-arch scheduler tests and their weights.
 """
 
 import dataclasses
@@ -340,8 +340,8 @@ def test_checksum_catches_bitflip_and_evicts_subtree_like_jax():
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b"])
 def test_fault_isolation_coresident(arch):
     """A NaN poison and a NaN page, both pinned to request 0: request 1's
-    stream is unchanged, nothing leaks (zamba2-2.7b: see the module
-    docstring)."""
+    stream is unchanged, nothing leaks (zamba2-2.7b: in
+    ``test_torch_recurrent.py``)."""
     events = (("nan", 5, 0), ("page_corrupt", 7, 0))
     _, got, base = _both(events, max_new=5)
     assert got["injected"]["nan_injected"] == 1

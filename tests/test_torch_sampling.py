@@ -2,7 +2,7 @@
 JAX's, and the sampled scheduler against the JAX scheduler on converted
 weights (smoke tinyllama, fp32).
 
-(a) ``serve/prng.py``: keys, ``split``, ``fold_in`` and ``random_bits``
+(a) ``prng.py``: keys, ``split``, ``fold_in`` and ``random_bits``
 bit for bit against ``jax.random``, up to the full vocabulary (32000);
 ``uniform`` bitwise, ``gumbel`` within 1e-6 of max(1, |value|) (the two
 ``log`` implementations differ by an ulp, which is ill-conditioned where
@@ -29,7 +29,7 @@ from repro.layers.common import init_params as init_j  # noqa: E402
 from repro.models import transformer as TJ  # noqa: E402
 from repro_torch.configs import smoke_config as smoke_t  # noqa: E402
 from repro_torch.convert import from_jax_params  # noqa: E402
-from repro_torch.serve import prng  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.serve.serve import BatchScheduler, ServeConfig, _sample_tokens  # noqa: E402
 
 F32 = dict(compute_dtype_name="float32", param_dtype_name="float32")

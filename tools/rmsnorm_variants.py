@@ -162,7 +162,7 @@ def main() -> int:
         want = ([rmsnorm_reference(x, s)] if job[4] == "fwd"
                 else list(rmsnorm_backward_reference(x, s, dy)))
         got = [got] if job[4] == "fwd" else list(got)
-        errs = [(cases.max_rel_err(C._np(g), C._np(w)), cases.l2_rel_err(C._np(g), C._np(w)))
+        errs = [(cases.max_rel_err(C._f64(g), C._f64(w)), cases.l2_rel_err(C._f64(g), C._f64(w)))
                 for g, w in zip(got, want)]
         ok = all(m <= cases.TOL_MAX["bfloat16"] and l2 <= cases.TOL_L2_RMS["bfloat16"]
                  for m, l2 in errs)
