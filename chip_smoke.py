@@ -149,6 +149,19 @@ exit:
            ``results/talp/<arch>/train_monitor/`` with POP factors that pass
            ``validate_pop``; median step time, tokens/s, MFU, peak memory
            and the record's dispatch efficiency;
+6b. mesh   training on a mesh of ranks: (a) phase 6's configuration
+           MESH_STEPS steps on a 1 x 1 mesh over a one-rank ``nccl``
+           group (every leaf all-gathered and its gradient reduce-scattered
+           through the group, launched on the card), each loss and grad
+           norm within MESH_TOL of phase 6's same step (printed: whether
+           bitwise), launches exact, the held state its share; (b) two
+           ``gloo`` ranks on the one card (this script's ``--mesh-rank``
+           subprocesses, killed past MESH_RANK_TIMEOUT) at MESH_REPEATS
+           layers on each of MESH_SHAPES, MESH_PAIR_STEPS steps, each loss
+           within MESH_PAIR_TOL of a one-rank run at that depth, each
+           rank's held bytes its share under the pspecs, rank 0's record
+           in ``results/talp_mesh/`` naming the mesh and passing
+           ``validate_pop``; step times and peak memory a rank;
 7. report  the same configuration REPORT_STEPS steps under the tracer
            (record in ``results/talp/<arch>/train_tracer/``) and under the
            null collector, launch counters exact for each; the tracer's
@@ -325,6 +338,21 @@ TRAIN_B, TRAIN_S, TRAIN_A = 4, 2048, 1
 # within AGREE_TOL relative (both count step 0 with StepProfile.count).
 REPORT_STEPS = 5
 AGREE_TOL = 1e-6
+# Phase 6b (mesh): (a) phase 6's configuration on a 1 x 1 mesh over a
+# one-rank nccl group, MESH_STEPS steps, each loss and grad_norm within
+# MESH_TOL relative of phase 6's same step; (b) two gloo ranks sharing the
+# card at MESH_REPEATS layers on each of MESH_SHAPES, MESH_PAIR_STEPS steps,
+# each loss within MESH_PAIR_TOL relative of a one-rank run at that depth
+# (bf16: the ranks' gradients sum in another order), each rank's held state
+# bytes its share under the pspecs
+MESH_STEPS = 3
+MESH_TOL = 1e-5
+MESH_REPEATS = 4
+MESH_SHAPES = ((1, 2), (2, 1))
+MESH_PAIR_STEPS = 2
+MESH_PAIR_TOL = 2e-2
+MESH_RANK_TIMEOUT = 300
+MESH_TALP_DIR = os.path.join("results", "talp_mesh")
 # Phase 4b: the loaded server. Batch 16 at max_len 1024 (a 1024-page
 # dense-equivalent pool), the traffic harness's bursty trace, and a pool of
 # LOAD_PAGES pages: at 384 (37.5%) the trace never fills it (peak 349 pages,
@@ -2632,7 +2660,8 @@ def phase_train(profile: bool):
     model_flops = train_step_model_flops(cfg, (A, B, S))
     ts = record.regions["train_step"]
     emit("train", arch=ARCH, dtype="bfloat16", batch=B, seq_len=S, accum=A, remat=cfg.remat,
-         steps=TRAIN_STEPS, losses=losses, step_seconds=secs,
+         steps=TRAIN_STEPS, losses=losses, grad_norms=[h["grad_norm"] for h in hist],
+         step_seconds=secs,
          step0_seconds=secs[0], median_step_seconds=median,
          tokens_per_s=A * B * S / median,
          real_tokens_per_step=float(sum(int((data.batch_at(i)["labels"] >= 0).sum())
@@ -2658,6 +2687,240 @@ def phase_train(profile: bool):
     del loop, record
     torch.cuda.empty_cache()
     return counts
+
+
+def _mesh_data(cfg):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    return SyntheticLM(DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_S, vocab=cfg.vocab,
+                                  accum_steps=TRAIN_A, pad_fraction=0.05))
+
+
+def _mesh_loop(cfg, steps: int, mesh, backend: str = "monitor"):
+    """Phase 6's training configuration (``cfg`` at its depth) for ``steps``
+    steps of a ``TrainConfig(total_steps=TRAIN_STEPS)`` run, on ``mesh``."""
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.train import TrainConfig
+
+    return TrainLoop(cfg, TrainConfig(total_steps=TRAIN_STEPS), _mesh_data(cfg),
+                     LoopConfig(steps=steps, lb_sample_every=1, monitor_app_name=ARCH,
+                                monitor_backend=backend), device=DEV, mesh=mesh)
+
+
+def _share_bytes(cfg, mesh) -> int:
+    """A rank's share of the training state under the rules: each leaf's
+    bytes over the product of the mesh axes its pspec names (parameters in
+    the param dtype, m, v and master in fp32)."""
+    import math
+
+    from repro_torch.layers.common import tree_leaves
+    from repro_torch.models.transformer import model_params
+    from repro_torch.train.train import TrainConfig, train_state_pspecs
+
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    shapes = dict(tree_leaves(model_params(cfg)))
+    total = 0
+    for path, spec in tree_leaves(train_state_pspecs(cfg, mesh, TrainConfig())):
+        if path in ("step", "opt_state/step"):
+            continue
+        leaf = path.split("/", 2)[-1] if path.startswith("opt_state/") else path[len("params/"):]
+        split = math.prod(sizes[a] for e in spec if e is not None
+                          for a in ((e,) if isinstance(e, str) else e))
+        itemsize = cfg.param_dtype.itemsize if path.startswith("params/") else 4
+        total += math.prod(shapes[leaf].shape) * itemsize // split
+    return total
+
+
+def _held_bytes(state) -> int:
+    from repro_torch.layers.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(state.tree())
+               if hasattr(t, "numel"))
+
+
+def _mesh_rank_main(argv) -> int:
+    """One of phase 6b (b)'s ranks: ``--mesh-rank RANK WORLD STORE OUT``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT))
+    cfg = _config().replace(repeats=MESH_REPEATS)
+    res = {}
+    for shape in MESH_SHAPES:
+        mesh = make_host_mesh(model=shape[1], device=DEV)
+        torch.cuda.reset_peak_memory_stats()
+        loop = _mesh_loop(cfg, MESH_PAIR_STEPS, mesh)
+        reset_launch_counts()
+        loop.run()
+        torch.cuda.synchronize()
+        label = f"{shape[0]}x{shape[1]}"
+        loop.finalize_run(os.path.join(MESH_TALP_DIR, ARCH, f"train_mesh_{label}"))
+        res[label] = dict(
+            rank=rank, mesh=mesh.sizes, device=str(mesh.device),
+            losses=[h["loss"] for h in loop.metrics_history],
+            grad_norms=[h["grad_norm"] for h in loop.metrics_history],
+            step_seconds=[h["seconds"] for h in loop.metrics_history],
+            peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launch_counts(),
+            held_bytes=_held_bytes(loop.final_state), share_bytes=_share_bytes(cfg, mesh),
+            record=loop.session.last_record_path)
+        del loop
+        torch.cuda.empty_cache()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_one_rank(failures: list) -> tuple[dict, dict]:
+    """(a): phase 6's configuration on a 1 x 1 mesh over a one-rank nccl
+    group (the gathers and reduce-scatters launch on the card)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+
+    store = os.path.join(ROOT, "results", "mesh_store")
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(store)
+    cfg = _config()
+    dist.init_process_group("nccl", init_method=f"file://{store}/one", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device=DEV)
+        torch.cuda.reset_peak_memory_stats()
+        loop = _mesh_loop(cfg, MESH_STEPS, mesh)
+        reset_launch_counts()
+        loop.run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        held, share = _held_bytes(loop.final_state), _share_bytes(cfg, mesh)
+        hist = loop.metrics_history
+        del loop
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ref = RESULT["train"]
+    losses, norms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
+    want_l, want_g = ref["losses"][:MESH_STEPS], ref["grad_norms"][:MESH_STEPS]
+    rel = max(max(abs(a - b) / abs(b) for a, b in zip(losses, want_l)),
+              max(abs(a - b) / abs(b) for a, b in zip(norms, want_g)))
+    want = {k: 0 for k in counts}
+    want.update(_train_expected_launches(cfg, MESH_STEPS, TRAIN_A))
+    if rel > MESH_TOL:
+        failures.append(f"(a) losses {losses} / grad norms {norms} vs phase 6's {want_l} / "
+                        f"{want_g}: {rel:.3g} relative > {MESH_TOL}")
+    if counts != want or min(counts[k] for k in TRAIN_KERNELS) <= 0:
+        failures.append(f"(a) launches {counts} != expected {want}")
+    if held != share:
+        failures.append(f"(a) held state {held} B != its share {share} B")
+    return dict(mesh=mesh.sizes, backend="nccl", steps=MESH_STEPS, losses=losses,
+                grad_norms=norms, phase6_losses=want_l, phase6_grad_norms=want_g,
+                max_rel_err=rel, bitwise_equal=losses == want_l and norms == want_g,
+                step_seconds=[h["seconds"] for h in hist], peak_mem_bytes=peak,
+                held_bytes=held, share_bytes=share, launches=counts,
+                expected_launches=want), counts
+
+
+def _mesh_pair(failures: list) -> dict:
+    """(b): two gloo ranks sharing the card (subprocesses of this script,
+    ``--mesh-rank``) at MESH_REPEATS layers on each of MESH_SHAPES, against a
+    one-rank run at that depth in this process."""
+    import math
+
+    import torch
+
+    from repro_torch.core.factors import validate_pop
+    from repro_torch.core.records import RunRecord
+
+    cfg = _config().replace(repeats=MESH_REPEATS)
+    loop = _mesh_loop(cfg, MESH_PAIR_STEPS, None)
+    loop.run()
+    ref = [h["loss"] for h in loop.metrics_history]
+    ref_norms = [h["grad_norm"] for h in loop.metrics_history]
+    del loop
+    torch.cuda.empty_cache()
+    work = os.path.join(ROOT, "results", "mesh_pair")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    world = 2
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                               str(r), str(world), os.path.join(work, "store"), work],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    logs = []
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:  # a hung rank ends here, never outlives the script
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError("mesh (b): ranks exited " + str([p.returncode for p in procs])
+                             + "\n" + "\n".join(x[-3000:] for x in logs))
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    out = {}
+    for shape in MESH_SHAPES:
+        label = f"{shape[0]}x{shape[1]}"
+        rows = [rk[label] for rk in ranks]
+        for row in rows:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(row["losses"], ref))
+            row["max_rel_err"] = rel
+            if rel > MESH_PAIR_TOL or not all(map(math.isfinite, row["losses"])):
+                failures.append(f"(b) {label} rank {row['rank']}: losses {row['losses']} vs "
+                                f"one rank's {ref}: {rel:.3g} > {MESH_PAIR_TOL}")
+            if row["held_bytes"] != row["share_bytes"]:
+                failures.append(f"(b) {label} rank {row['rank']}: held {row['held_bytes']} B "
+                                f"!= its share {row['share_bytes']} B")
+            if row["mesh"] != {"data": shape[0], "model": shape[1]}:
+                failures.append(f"(b) {label} rank {row['rank']}: mesh {row['mesh']}")
+        rec = RunRecord.load(rows[0]["record"])
+        pop_errors = {n: validate_pop(r.pop) for n, r in rec.regions.items()}
+        if rec.resources.mesh != {"data": shape[0], "model": shape[1]} or any(pop_errors.values()):
+            failures.append(f"(b) {label} record: mesh {rec.resources.mesh}, POP {pop_errors}")
+        if rows[1]["record"] is not None:
+            failures.append(f"(b) {label}: rank 1 wrote a record")
+        out[label] = dict(ranks=rows, record=os.path.relpath(rows[0]["record"], ROOT),
+                          record_resources=rec.resources.to_json(),
+                          data_lb=rec.regions["train_step"].measurements.data_lb)
+    return dict(repeats=MESH_REPEATS, steps=MESH_PAIR_STEPS, backend="gloo", world=world,
+                one_rank_losses=ref, one_rank_grad_norms=ref_norms, meshes=out)
+
+
+def phase_mesh() -> dict:
+    """6b: the training step over a mesh of ranks, (a) and (b)."""
+    failures: list = []
+    one, counts = _mesh_one_rank(failures)
+    pair = _mesh_pair(failures)
+    emit("mesh", one_rank_nccl=one, two_ranks_gloo=pair, card=_card())
+    if failures:
+        raise AssertionError("mesh: " + "; ".join(failures))
+    return counts
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def _kernel_group(key: str) -> str:
@@ -3938,9 +4201,9 @@ def phase_xlstm_train(p: dict, seed: int) -> dict:
         saves = []
         inner = first.ckpt.save
 
-        def timed_save(tree, step, _inner=inner):
+        def timed_save(tree, step, shardings=None, _inner=inner):
             t0 = time.perf_counter()
-            _inner(tree, step)
+            _inner(tree, step, shardings)
             saves.append({"step": step, "seconds_to_return": time.perf_counter() - t0})
 
         first.ckpt.save = timed_save
@@ -4594,6 +4857,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return _mesh_rank_main(sys.argv[2:])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv[1:]
@@ -4618,6 +4883,7 @@ def main() -> int:
     phase_train_parity(params)
     del params
     train_counts = phase_train(profile)
+    mesh_counts = phase_mesh()
     phase_report()
     arch_counts = phase_archs()
     moe_counts = phase_moe()
@@ -4625,12 +4891,10 @@ def main() -> int:
     rows = phase_timing(main_err, {"serve": serve_counts, "serve_dense": dense_counts,
                                    "serve_load": load_counts, "serve_spec": spec_counts,
                                    "serve_fault": fault_counts, "train": train_counts,
+                                   "mesh": mesh_counts,
                                    **arch_counts, **moe_counts, **recurrent_counts})
     emit("timing", rows=len(rows))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = _card()
     RESULT["kernels_line"] = rows
     RESULT["card"] = card
     RESULT["torch"] = torch.__version__

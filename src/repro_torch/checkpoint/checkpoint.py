@@ -22,8 +22,14 @@ Contract:
     (the port's AdamW then updates the parameters in place); with
     ``async_`` only the file writes run on a background thread;
   * restore places each array on its template leaf's device, in the
-    template's dtype. The sharded restore (``shardings=``) waits for the
-    distribution slice.
+    template's dtype.
+
+On a mesh of ranks (``shardings=``: a tree of ``distributed.shard.
+NamedSharding``s of the state tree's structure, whose leaves are then
+this rank's blocks) a save gathers each leaf (every rank takes part) and
+rank 0 alone writes the files above, so the JAX loader reads them; a
+restore reads only this rank's block of each array (the ``.npy`` is
+memory-mapped and sliced).
 """
 
 from __future__ import annotations
@@ -69,9 +75,18 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def save_checkpoint(tree, directory: str, step: int, async_: bool = False):
+def save_checkpoint(tree, directory: str, step: int, async_: bool = False, shardings=None):
     """Save ``tree`` as ``directory/step_%08d``; returns a join() callable
-    (a no-op when synchronous)."""
+    (a no-op when synchronous, and on every rank but 0 of a mesh)."""
+    flat = _flatten(tree)
+    if shardings is not None:
+        from repro_torch.distributed.shard import gather_full
+
+        placed = _flatten(shardings)
+        flat = {k: gather_full(v, placed[k]) if isinstance(v, torch.Tensor) else v
+                for k, v in flat.items()}
+        if _rank(shardings):
+            return lambda: None
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -79,7 +94,7 @@ def save_checkpoint(tree, directory: str, step: int, async_: bool = False):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     # device -> host now, so training may update the buffers after
-    host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+    host = {k: _to_host(v) for k, v in flat.items()}
 
     def write():
         manifest = {}
@@ -99,6 +114,13 @@ def save_checkpoint(tree, directory: str, step: int, async_: bool = False):
         return t.join
     write()
     return lambda: None
+
+
+def _rank(shardings) -> int:
+    """This process's rank on the mesh of ``shardings`` (0 without one)."""
+    if shardings is None:
+        return 0
+    return next(iter(_flatten(shardings).values())).mesh.rank
 
 
 def latest_step(directory: str) -> int | None:
@@ -139,12 +161,10 @@ def _unflatten_like(template, flat: dict, prefix: str = ""):
 def load_checkpoint(template, directory: str, step: int | None = None, shardings=None):
     """Restore into the structure of ``template`` (nested dicts and lists
     of tensors and ints): each array on its template leaf's device and in
-    its dtype. Returns (tree, step). Raises KeyError for a
-    template key the checkpoint lacks."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "shardings=: the sharded restore waits for the distribution slice "
-            "(ROADMAP.md Queue 1, item 8); at world size 1 leave it None")
+    its dtype; with ``shardings`` only this rank's block of each array.
+    Returns (tree, step). Raises KeyError for a template key the
+    checkpoint lacks."""
+    placed = _flatten(shardings) if shardings is not None else {}
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -156,7 +176,10 @@ def load_checkpoint(template, directory: str, step: int | None = None, shardings
     for k, tmpl in _flatten(template).items():
         if k not in manifest:
             raise KeyError(f"checkpoint missing array {k!r}")
-        arr = np.load(os.path.join(d, manifest[k]["file"]))
+        sh = placed.get(k) if isinstance(tmpl, torch.Tensor) else None
+        arr = np.load(os.path.join(d, manifest[k]["file"]), mmap_mode="r" if sh else None)
+        if sh is not None:
+            arr = np.ascontiguousarray(arr[sh.block_slices(arr.shape)])
         out[k] = _from_host(arr, manifest[k]["dtype"], tmpl)
     return _unflatten_like(template, out), step
 
@@ -170,9 +193,11 @@ class CheckpointManager:
         self.async_ = async_
         self._pending: list = []
 
-    def save(self, tree, step: int) -> None:
-        self._pending.append(save_checkpoint(tree, self.directory, step, self.async_))
-        self._gc()
+    def save(self, tree, step: int, shardings=None) -> None:
+        self._pending.append(save_checkpoint(tree, self.directory, step, self.async_,
+                                             shardings))
+        if _rank(shardings) == 0:  # rank 0 alone writes and prunes
+            self._gc()
 
     def wait(self) -> None:
         for join in self._pending:

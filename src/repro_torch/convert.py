@@ -41,25 +41,32 @@ def params_from_numpy(tree: dict) -> dict:
     return tree_map(_to_torch, tree)
 
 
-def from_jax_params(tree_of_numpy: dict, cfg, device=None) -> Transformer:
-    """Build the port's ``Transformer`` on ``device`` from the JAX tree.
-    Raises if the tree's paths or shapes differ from ``model_params(cfg)``."""
-    return Transformer(cfg, params_from_numpy(tree_of_numpy), device)
+def from_jax_params(tree_of_numpy: dict, cfg, device=None, mesh=None) -> Transformer:
+    """Build the port's ``Transformer`` on ``device`` from the JAX tree (on
+    ``mesh``, this rank's blocks). Raises if the tree's paths or shapes
+    differ from ``model_params(cfg)``."""
+    return Transformer(cfg, params_from_numpy(tree_of_numpy), device, mesh)
 
 
-def from_jax_train_state(tree_of_numpy: dict, cfg, device=None):
+def from_jax_train_state(tree_of_numpy: dict, cfg, device=None, mesh=None):
     """A port ``TrainState`` from the JAX ``TrainState.tree()`` as numpy:
     ``{"params", "opt_state": {"step", "m", "v"[, "master"]}, "step"}``.
     The optimizer trees are flattened to the port's ``{path: tensor}``
-    dicts on the model's device, so a port run resumes from a JAX one."""
+    dicts on the model's device, so a port run resumes from a JAX one. On
+    ``mesh`` every leaf is this rank's block (on ``mesh.device`` unless
+    ``device`` is given)."""
     from repro_torch.layers.common import tree_leaves
     from repro_torch.train.train import TrainState
 
-    model = from_jax_params(tree_of_numpy["params"], cfg, device)
+    if mesh is not None and device is None:
+        device = mesh.device
+    model = from_jax_params(tree_of_numpy["params"], cfg, device, mesh)
     dev = model.device
     opt = tree_of_numpy["opt_state"]
     opt_state = {"step": int(np.asarray(opt["step"]))}
+    cut = (lambda p, t: model.shardings[p].local(t).clone()) if mesh is not None else \
+        (lambda p, t: t)
     for key in ("m", "v", "master"):
         if key in opt:
-            opt_state[key] = {p: _to_torch(a).to(dev) for p, a in tree_leaves(opt[key])}
+            opt_state[key] = {p: cut(p, _to_torch(a)).to(dev) for p, a in tree_leaves(opt[key])}
     return TrainState(model, opt_state, int(np.asarray(tree_of_numpy["step"])))

@@ -89,7 +89,10 @@ class StepProfile:
     def count(cls, fn: Callable, *args, num_devices: int = 1, model_flops: float = 0.0,
               model_bytes: float = 0.0, **kwargs) -> tuple[Any, "StepProfile"]:
         """Run ``fn(*args, **kwargs)`` once under the counters; returns its
-        result and the profile of that execution."""
+        result and the profile of that execution. The count is one
+        device's: on a mesh of ``num_devices`` ranks, each running the
+        same step on its rows, the machine total is ``num_devices`` times
+        it (as the JAX package scales its per-device HLO count)."""
         kernels: dict[str, list] = {}
 
         def sink(name: str, flops: float, nbytes: float) -> None:
@@ -117,8 +120,11 @@ class StepProfile:
                 name=name, kind="kernel", multiplicity=float(calls), num_instructions=calls,
                 flops=f, dot_flops=f if name.startswith("flash") else 0.0,
                 hbm_bytes=nbytes)
+        n = max(num_devices, 1)
+        if n > 1:
+            per = {name: c.scaled(n) for name, c in per.items()}
         return out, cls(
-            num_devices=max(num_devices, 1),
+            num_devices=n,
             flops=sum(c.flops for c in per.values()),
             dot_flops=sum(c.dot_flops for c in per.values()),
             hbm_bytes=sum(c.hbm_bytes for c in per.values()),

@@ -1,0 +1,250 @@
+"""Ranks that hold only their blocks: placements, the batch split, and the
+gather that a layer's weights go through.
+
+A leaf's placement is a ``NamedSharding``: a mesh and a pspec (a tuple,
+one entry a dim: None, an axis name, or a tuple of names, major first).
+Along a dim sharded over axes ``(a, b)`` the block index is ``i_a *
+size_b + i_b``, as a JAX mesh orders its devices. A rank stores the
+block at its own coordinates as a plain contiguous tensor; ranks that
+differ only along axes the pspec does not name hold equal copies.
+
+The compute splits only the batch: each rank runs its rows of the global
+batch (``BatchRanks``, the rows the ``"batch"`` activation rule gives
+it) against the full weights, which ``gather`` assembles just before
+use. ``gather`` is an ``autograd.Function``: forward, an all-gather over
+the ranks that differ along the leaf's axes; backward, the gradient
+summed over the ranks that hold different rows, and each holder keeps
+its block. When the leaf's axes all split the batch that is a
+reduce-scatter over them (then an all-reduce over the batch axes the
+leaf does not name); otherwise (the ``"model"`` peers of a megatron
+mesh, which compute the same rows) the full gradient is all-reduced over
+the batch axes and each rank cuts its block, so identical gradients
+count once. ``gloo`` has no reduce-scatter for CUDA tensors: there the
+reduce-scatter is an all-reduce and the rank's slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+class NamedSharding:
+    """``mesh`` + ``spec``: where a leaf's blocks live (JAX's
+    ``NamedSharding``'s data)."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec})"
+
+    def dim_axes(self, ndim: int) -> list[tuple]:
+        out = []
+        for d in range(ndim):
+            ax = self.spec[d] if d < len(self.spec) else None
+            out.append(() if ax is None else ((ax,) if isinstance(ax, str) else tuple(ax)))
+        return out
+
+    @property
+    def axes(self) -> tuple:
+        """Every axis the spec names, in mesh order."""
+        named = [a for e in self.spec if e is not None
+                 for a in ((e,) if isinstance(e, str) else e)]
+        return self.mesh.ordered(named)
+
+    def block_shape(self, shape) -> tuple:
+        sizes = self.mesh.sizes
+        out = []
+        for n, dax in zip(shape, self.dim_axes(len(shape))):
+            k = math.prod(sizes[a] for a in dax)
+            if n % k:
+                raise ValueError(f"dim {n} does not split over {dax} ({k})")
+            out.append(n // k)
+        return tuple(out)
+
+    def block_slices(self, shape, rank: int | None = None) -> tuple:
+        """The slices of the full leaf that ``rank`` (default: this rank) holds."""
+        sizes, c = self.mesh.sizes, self.mesh.coords(rank)
+        out = []
+        for n, blk, dax in zip(shape, self.block_shape(shape), self.dim_axes(len(shape))):
+            i = 0
+            for a in dax:
+                i = i * sizes[a] + c[a]
+            out.append(slice(i * blk, (i + 1) * blk))
+        return tuple(out)
+
+    def local(self, full):
+        """This rank's block of ``full`` (a view)."""
+        return full[self.block_slices(tuple(full.shape))]
+
+    def owned(self, rank: int | None = None) -> bool:
+        """Whether ``rank`` is the one holder of its block that counts it:
+        index 0 along every axis the spec does not name."""
+        c = self.mesh.coords(rank)
+        named = set(self.axes)
+        return all(c[a] == 0 for a in self.mesh.axis_names if a not in named)
+
+
+def shardings_tree(mesh, pspec_tree):
+    """A pspec tree (``param_pspecs``) -> the same tree of ``NamedSharding``s."""
+    from repro_torch.layers.common import tree_map
+
+    return tree_map(lambda p: NamedSharding(mesh, p), pspec_tree)
+
+
+class BatchRanks:
+    """This rank's rows of a batch split over mesh ``axes`` (the ``"batch"``
+    pspec entry of the batch's shape, major first): ``shards`` groups of
+    equal rows; ``group`` sums over the ranks that hold different rows."""
+
+    def __init__(self, mesh, axes):
+        self.mesh = mesh
+        self.axes = tuple(axes)
+        sizes, c = mesh.sizes, mesh.coords()
+        self.shards = math.prod(sizes[a] for a in self.axes)
+        idx = 0
+        for a in self.axes:
+            idx = idx * sizes[a] + c[a]
+        self.index = idx
+        self.group = mesh.group(self.axes) if self.axes else None
+
+    @classmethod
+    def for_batch(cls, lc, shape) -> "BatchRanks":
+        """The split the activation rules give a (B, ...) batch: ``lc.pspec_for(
+        shape, "batch", None, ...)``'s first entry."""
+        ax = lc.pspec_for(tuple(shape), "batch", *([None] * (len(shape) - 1)))[0]
+        return cls(lc.mesh, () if ax is None else ((ax,) if isinstance(ax, str) else ax))
+
+    def rows(self, n: int) -> slice:
+        per = n // self.shards
+        return slice(self.index * per, (self.index + 1) * per)
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """All-reduce ``t`` in place over the ranks with other rows."""
+        if self.group is not None:
+            _dist().all_reduce(t, group=self.group)
+        return t
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+
+def _gloo_cuda(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and _dist().get_backend(group) == "gloo"
+
+
+def _all_gather(block: torch.Tensor, group) -> torch.Tensor:
+    """(n, *block.shape): the group's blocks in group rank order."""
+    dist = _dist()
+    block = block.contiguous()
+    n = dist.get_world_size(group)
+    if _gloo_cuda(block, group):
+        parts = [torch.empty_like(block) for _ in range(n)]
+        dist.all_gather(parts, block, group=group)
+        return torch.stack(parts)
+    # the concatenated form (gloo takes no other): (n * b0, ...) -> (n, b0, ...)
+    out = block.new_empty((n * block.shape[0],) + tuple(block.shape[1:]))
+    ag = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    ag(out, block, group=group)
+    return out.view((n,) + tuple(block.shape))
+
+
+def _reduce_scatter(stacked: torch.Tensor, group) -> torch.Tensor:
+    """Sum of the group's (n, *blk) stacks; this rank's row."""
+    dist = _dist()
+    if _gloo_cuda(stacked, group):
+        dist.all_reduce(stacked, group=group)
+        return stacked[dist.get_rank(group)].clone()
+    out = stacked.new_empty(tuple(stacked.shape[1:]))
+    rs = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    rs(out, stacked.reshape((-1,) + tuple(stacked.shape[2:])), group=group)
+    return out
+
+
+def _assemble(stacked: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
+    """(n, *blk) in group rank order (row-major over ``sh.axes``) -> full."""
+    axes, sizes = sh.axes, sh.mesh.sizes
+    blk = tuple(stacked.shape[1:])
+    t = stacked.reshape(*(sizes[a] for a in axes), *blk)
+    k = len(axes)
+    perm, shape = [], []
+    for d, dax in enumerate(sh.dim_axes(len(blk))):
+        perm += [axes.index(a) for a in dax] + [k + d]
+        shape.append(blk[d] * math.prod(sizes[a] for a in dax))
+    return t.permute(perm).reshape(shape)
+
+
+def _split(full: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
+    """The inverse of ``_assemble``: full -> (n, *blk), contiguous."""
+    axes, sizes = sh.axes, sh.mesh.sizes
+    blk = sh.block_shape(tuple(full.shape))
+    view, pos, bpos = [], {}, []
+    for d, dax in enumerate(sh.dim_axes(full.dim())):
+        for a in dax:
+            pos[a] = len(view)
+            view.append(sizes[a])
+        bpos.append(len(view))
+        view.append(blk[d])
+    t = full.reshape(view).permute([pos[a] for a in axes] + bpos)
+    return t.reshape((-1,) + blk).contiguous()
+
+
+@torch.no_grad()
+def gather_full(block: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
+    """The full leaf from the blocks of the ranks along ``sh.axes``."""
+    group = sh.mesh.group(sh.axes)
+    if group is None:
+        return block
+    return _assemble(_all_gather(block, group), sh)
+
+
+@torch.no_grad()
+def reduce_to_block(g: torch.Tensor, sh: NamedSharding, batch_axes) -> torch.Tensor:
+    """A full-shape gradient summed over the ranks with other rows of the
+    batch (``batch_axes``), as this rank's block."""
+    mesh, dist = sh.mesh, _dist()
+    held, split = set(sh.axes), set(batch_axes)
+    if held <= split:
+        if held:
+            blk = _reduce_scatter(_split(g, sh), mesh.group(held))
+        else:
+            blk = g.contiguous().clone()
+        if split - held:
+            dist.all_reduce(blk, group=mesh.group(split - held))
+        return blk
+    if split:
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=mesh.group(split))
+    return sh.local(g).contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, sh, batch_axes):
+        ctx.sh, ctx.batch_axes = sh, batch_axes
+        full = gather_full(block, sh)
+        return full.clone() if full is block else full
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_to_block(g, ctx.sh, ctx.batch_axes), None, None
+
+
+def gather(block: torch.Tensor, sh: NamedSharding, batch_axes=()) -> torch.Tensor:
+    """The full leaf, differentiable: the backward sums the gradient over the
+    ranks with other rows (``batch_axes``) and returns this rank's block.
+    On a mesh without a process group, ``block`` itself."""
+    if not sh.mesh.distributed:
+        return block
+    return _Gather.apply(block, sh, tuple(batch_axes))

@@ -10,6 +10,17 @@ Weights are the port's seeded initializer's. It prints the first and last
 loss, each kernel's launch count, and where the TALP run record (schema
 v3, regions ``initialize`` and ``train_step``) was written.
 
+On a mesh of ranks, under ``torchrun`` (``WORLD_SIZE`` above 1; the
+process group starts from the environment, ``nccl`` on the card and
+``gloo`` on the CPU), ``--model-axis`` sets the mesh's "model" axis:
+
+    torchrun --nproc_per_node 4 -m repro_torch.launch.train --device cpu \\
+        --smoke --arch tinyllama-1.1b --model-axis 2
+
+trains on a (2, 2) mesh, each rank holding its blocks of the state
+(``train.train``); rank 0 prints and writes the record. Without
+``torchrun`` the mesh is 1 x 1.
+
 ``--ckpt-dir``/``--ckpt-every`` checkpoint the state every so many steps
 (``checkpoint``, the JAX package's format), and a run started over a
 directory that holds one resumes from the latest.
@@ -46,13 +57,21 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="size of the mesh's model axis (ranks from torchrun)")
     ap.add_argument("--talp-out", default="",
                     help="directory for the TALP run record (CI artifact)")
     args = ap.parse_args(argv)
 
+    import os
+
+    import torch.distributed as dist
+
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.device import resolve_device
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import AdamWConfig
     from repro_torch.train.loop import LoopConfig, TrainLoop
     from repro_torch.train.train import TrainConfig
@@ -64,6 +83,11 @@ def main(argv=None) -> int:
             f"token embedding; the synthetic stream has no audio frames (nor has the "
             f"JAX package's), so this launcher cannot train it. Drive "
             f"train.loop.TrainLoop with a data source of frontend batches instead.")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if resolve_device(args.device).type == "cuda" else "gloo")
+    mesh = make_host_mesh(model=args.model_axis, device=args.device)
+    rank0 = mesh.rank == 0
     data = SyntheticLM(DataConfig(
         global_batch=args.global_batch, seq_len=args.seq_len, vocab=cfg.vocab,
         accum_steps=args.accum, pad_fraction=0.05,
@@ -75,17 +99,22 @@ def main(argv=None) -> int:
         data,
         LoopConfig(steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
                    lb_sample_every=1, monitor_app_name=args.arch),
-        device=args.device,
+        mesh=mesh,
     )
     reset_launch_counts()
     loop.run()
+    loop.finalize_run(args.talp_out or None)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if not rank0:
+        return 0
     h = loop.metrics_history
     print(f"[launch] {args.arch} on {loop.device}: steps {h[0]['step']}..{h[-1]['step']} "
           f"loss {h[0]['loss']:.3f} -> {h[-1]['loss']:.3f}")
+    print(f"[launch] mesh {mesh.sizes} over {mesh.devices.size} rank(s)")
     route = "kernel launches" if loop.device.type == "cuda" else \
         "kernel launches (0 on the CPU: plain versions ran)"
     print(f"[launch] {route}: " + ", ".join(f"{k} {v}" for k, v in launch_counts().items()))
-    loop.finalize_run(args.talp_out or None)
     if loop.session.last_record_path:
         print(f"[launch] TALP record: {loop.session.last_record_path}")
     elif args.talp_out:

@@ -138,21 +138,21 @@ def attention_params(cfg) -> dict:
     ``qk_norm`` the per-head RMSNorm scales over ``head_dim`` (ones)."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     p = {
-        "wq": ParamSpec((d, hq * hd)),
-        "wk": ParamSpec((d, hkv * hd)),
-        "wv": ParamSpec((d, hkv * hd)),
+        "wq": ParamSpec((d, hq * hd), ("embed", "qkv")),
+        "wk": ParamSpec((d, hkv * hd), ("embed", "kv")),
+        "wv": ParamSpec((d, hkv * hd), ("embed", "kv")),
         "wo": ParamSpec(
-            (hq * hd, d),
+            (hq * hd, d), ("qkv", "embed_out"),
             scale=1.0 / (math.sqrt(hq * hd) * math.sqrt(2 * cfg.n_layers)),
         ),
     }
     if cfg.attn_bias:
-        p["bq"] = ParamSpec((hq * hd,), init="zeros")
-        p["bk"] = ParamSpec((hkv * hd,), init="zeros")
-        p["bv"] = ParamSpec((hkv * hd,), init="zeros")
+        p["bq"] = ParamSpec((hq * hd,), ("qkv",), init="zeros")
+        p["bk"] = ParamSpec((hkv * hd,), ("kv",), init="zeros")
+        p["bv"] = ParamSpec((hkv * hd,), ("kv",), init="zeros")
     if cfg.qk_norm:
-        p["q_norm"] = ParamSpec((hd,), init="ones")
-        p["k_norm"] = ParamSpec((hd,), init="ones")
+        p["q_norm"] = ParamSpec((hd,), (None,), init="ones")
+        p["k_norm"] = ParamSpec((hd,), (None,), init="ones")
     return p
 
 

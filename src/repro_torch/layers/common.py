@@ -1,9 +1,16 @@
-"""Parameter declaration and the port's own seeded initializer.
+"""Parameter declaration, the port's own seeded initializer, and the
+logical sharding substrate (``repro.layers.common``).
 
 A layer declares its parameters as a nested dict of ``ParamSpec`` (shape
-+ initializer), the same tree the JAX package declares, so that the JAX
-parameter pytree converts leaf for leaf (``repro_torch.convert``). The
-JAX package's logical sharding axes have no counterpart here.
++ *logical* axis names + initializer), the same tree the JAX package
+declares, so that the JAX parameter pytree converts leaf for leaf
+(``repro_torch.convert``). ``param_pspecs`` maps the logical axes to mesh
+axes through an arch's sharding rules (``distributed.sharding``);
+``LogicalConstraints`` does the same for activations. A pspec is a tuple
+with one entry per dim: ``None``, a mesh-axis name, or a tuple of names,
+the data of JAX's ``PartitionSpec`` (``tuple(P(...))`` compares equal).
+A mesh is anything with ``axis_names`` and ``devices.shape``
+(``launch.mesh.Mesh``, or a JAX mesh).
 """
 
 from __future__ import annotations
@@ -18,9 +25,15 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    logical: tuple[Any, ...] | None = None  # logical axis name (or None) per dim
     init: str = "normal"      # normal | zeros | ones
     scale: float | None = None
     dtype: torch.dtype | None = None  # None -> config param dtype
+
+    def __post_init__(self):
+        if self.logical is None:  # no axis named: replicated
+            object.__setattr__(self, "logical", (None,) * len(self.shape))
+        assert len(self.shape) == len(self.logical), (self.shape, self.logical)
 
 
 def tree_map(fn: Callable, tree):
@@ -119,3 +132,130 @@ def count_params(tree) -> int:
         shape = leaf.shape if isinstance(leaf, ParamSpec) else tuple(leaf.shape)
         total += math.prod(shape)
     return total
+
+
+def spec_bytes(tree, param_dtype: torch.dtype = torch.float32) -> int:
+    """Bytes of a ParamSpec tree's leaves in their dtypes."""
+    return sum(math.prod(s.shape) * (s.dtype or param_dtype).itemsize
+               for _, s in tree_leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# logical axes -> mesh axes
+# ---------------------------------------------------------------------------
+
+
+def mesh_sizes(mesh) -> dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _flat(ax) -> tuple:
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def _entry(axes: tuple):
+    """A pspec entry: None, one axis name, or a tuple of names."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def _divisible_prefix(dim: int, axes: tuple, sizes: dict) -> tuple:
+    """The longest prefix of ``axes`` whose sizes' product divides ``dim``."""
+    keep, prod = [], 1
+    for a in axes:
+        nxt = prod * sizes.get(a, 1)
+        if dim % nxt:
+            break
+        keep.append(a)
+        prod = nxt
+    return tuple(keep)
+
+
+def param_pspecs(tree, rules: dict[str, Any], mesh=None):
+    """Map logical axes -> mesh axes (JAX ``param_pspecs``). ``rules[name]``
+    may be a mesh axis name, a tuple of axes, or None (replicated). A mesh
+    axis appears once per pspec. With ``mesh`` given, each dim keeps only
+    the longest prefix of its mapped axes whose product divides the dim
+    size (a (5248,) conv bias cannot shard 256 ways)."""
+    sizes = mesh_sizes(mesh) if mesh is not None else None
+
+    def to_pspec(spec: ParamSpec) -> tuple:
+        axes, used = [], set()
+        for dim, name in zip(spec.shape, spec.logical):
+            ax = rules.get(name) if name is not None else None
+            if ax is not None:
+                flat = tuple(a for a in _flat(ax) if a not in used)
+                if sizes is not None:
+                    flat = _divisible_prefix(dim, flat, sizes)
+                used.update(flat)
+                ax = _entry(flat)
+            axes.append(ax)
+        return tuple(axes)
+
+    return tree_map(to_pspec, tree)
+
+
+class LogicalConstraints:
+    """Logical axes -> mesh axes for activations (JAX ``LogicalConstraints``).
+    The port has no sharding propagation to constrain: the model reads
+    ``group_count`` (the MoE dispatch's token groups) and nothing else.
+    ``ranks``, when set, says that the tensors a layer sees are this rank's
+    rows of the batch (``distributed.shard.BatchRanks``): one group of
+    ``ranks.shards``, with the cross-rank sums it needs."""
+
+    def __init__(self, mesh, rules: dict[str, Any] | None, ranks=None):
+        self.mesh = mesh
+        self.rules = rules or {}
+        self.ranks = ranks
+
+    def pspec(self, *logical_axes) -> tuple:
+        axes, used = [], set()
+        for name in logical_axes:
+            ax = self.rules.get(name) if name is not None else None
+            if ax is not None:
+                flat = tuple(a for a in _flat(ax) if a not in used)
+                used.update(flat)
+                ax = _entry(flat)
+            axes.append(ax)
+        return tuple(axes)
+
+    def pspec_for(self, shape, *logical_axes) -> tuple:
+        """Shape-aware pspec: per dim, keep the longest prefix of mapped
+        mesh axes whose product divides the dim size (batch=32 over a
+        ("data","model") mapping degrades to ("data",) instead of failing)."""
+        sizes = mesh_sizes(self.mesh)
+        axes, used = [], set()
+        for dim, name in zip(shape, logical_axes):
+            ax = self.rules.get(name) if name is not None else None
+            if ax is None:
+                axes.append(None)
+                continue
+            keep = _divisible_prefix(dim, tuple(a for a in _flat(ax) if a not in used), sizes)
+            used.update(keep)
+            axes.append(_entry(keep))
+        return tuple(axes)
+
+    def group_count(self, logical_name: str, dim: int) -> int:
+        """Largest product of a prefix of the mapped mesh axes that divides
+        ``dim`` (the MoE dispatch's groups: sorting stays per data shard)."""
+        if self.mesh is None:
+            return 1
+        ax = self.rules.get(logical_name)
+        if ax is None:
+            return 1
+        sizes = mesh_sizes(self.mesh)
+        return math.prod(sizes.get(a, 1) for a in _divisible_prefix(dim, _flat(ax), sizes))
+
+    def axis_size(self, logical_name: str) -> int:
+        """Product of mesh-axis sizes a logical axis maps to (1 if unmapped)."""
+        if self.mesh is None:
+            return 1
+        ax = self.rules.get(logical_name)
+        if ax is None:
+            return 1
+        sizes = mesh_sizes(self.mesh)
+        return math.prod(sizes.get(a, 1) for a in _flat(ax))
+
+
+NULL_CONSTRAINTS = LogicalConstraints(None, None)

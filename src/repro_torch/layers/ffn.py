@@ -3,11 +3,15 @@
 Dense: SwiGLU, GeGLU and GELU, with GELU's tanh approximation as in the
 JAX package.
 
-MoE: the JAX package's sort-based capacity dispatch on one group (the JAX
-``group_count`` is 1 without a mesh): router top-k -> (token, expert)
-pairs sorted by expert (stable) -> a capacity buffer (E, C, d), pairs past
-an expert's C dropped (they fall through the residual) -> batched expert
-products -> combine with the routing weights. Every position is routed,
+MoE: the JAX package's sort-based capacity dispatch per token group (G =
+``lc.group_count("batch", B)``: one group without a mesh, one a data
+shard on a mesh): router top-k -> (token, expert) pairs sorted by expert
+(stable) within the group -> a capacity buffer (E, C, d) a group, pairs
+past an expert's C dropped (they fall through the residual) -> batched
+expert products -> combine with the routing weights. On a mesh of ranks
+(``lc.ranks``) a rank's rows are one group: the sort and the drops stay on
+the rank, the per-expert counts are summed over the ranks with other rows,
+and the router's losses are this rank's part of the global ones. Every position is routed,
 padding included (the JAX block takes no mask). The router's per-expert
 pair counts (``aux["expert_load"]``) feed the monitor's expert
 load-balance factor.
@@ -26,16 +30,18 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.layers.common import ParamSpec
+from repro_torch.layers.common import NULL_CONSTRAINTS, LogicalConstraints, ParamSpec
 
 
 def mlp_params(cfg, d_ff: int | None = None) -> dict:
     d = cfg.d_model
     f = d_ff or cfg.d_ff
-    wo = ParamSpec((f, d), scale=1.0 / (math.sqrt(f) * math.sqrt(2 * cfg.n_layers)))
+    wo = ParamSpec((f, d), ("mlp", "embed_out"),
+                   scale=1.0 / (math.sqrt(f) * math.sqrt(2 * cfg.n_layers)))
+    wi = ParamSpec((d, f), ("embed", "mlp"))
     if cfg.act in ("swiglu", "geglu"):
-        return {"wi_gate": ParamSpec((d, f)), "wi_up": ParamSpec((d, f)), "wo": wo}
-    return {"wi": ParamSpec((d, f)), "wo": wo}
+        return {"wi_gate": wi, "wi_up": wi, "wo": wo}
+    return {"wi": wi, "wo": wo}
 
 
 def moe_params(cfg) -> dict:
@@ -44,10 +50,11 @@ def moe_params(cfg) -> dict:
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff, m.n_experts
     p = {
-        "router": ParamSpec((d, e), scale=0.02),
-        "wi_gate": ParamSpec((e, d, f)),
-        "wi_up": ParamSpec((e, d, f)),
-        "wo": ParamSpec((e, f, d), scale=1.0 / (math.sqrt(f) * math.sqrt(2 * cfg.n_layers))),
+        "router": ParamSpec((d, e), ("embed", None), scale=0.02),
+        "wi_gate": ParamSpec((e, d, f), ("experts", "embed", "expert_mlp")),
+        "wi_up": ParamSpec((e, d, f), ("experts", "embed", "expert_mlp")),
+        "wo": ParamSpec((e, f, d), ("experts", "expert_mlp", "embed_out"),
+                        scale=1.0 / (math.sqrt(f) * math.sqrt(2 * cfg.n_layers))),
     }
     if m.n_shared_experts:
         p["shared"] = mlp_params(cfg, d_ff=m.d_ff * m.n_shared_experts)
@@ -130,49 +137,81 @@ def _dispatch_group(xt: torch.Tensor, logits: torch.Tensor, E: int, K: int, C: i
     return xbuf[:E * C].reshape(E, C, d), st, sw, keep, slot, expert_counts
 
 
-def moe_block(params: dict, x: torch.Tensor, cfg):
+def moe_block(params: dict, x: torch.Tensor, cfg,
+              lc: LogicalConstraints = NULL_CONSTRAINTS):
     """x: (B, S, d). Returns (out (B, S, d), aux): ``expert_load`` (E,) fp32
     pair counts, ``moe_lb_loss`` (switch-style: E * sum(mean router prob *
     load share)) and ``moe_z_loss`` (mean squared log-sum-exp of the router
-    logits). One group: the JAX ``group_count`` without a mesh."""
+    logits).
+
+    The tokens split into G = ``lc.group_count("batch", B)`` groups of
+    rows, as JAX's grouped dispatch splits them; each group sorts, fills
+    and drops on its own with capacity ``m.capacity(N / G)``. With
+    ``lc.ranks`` set, ``x`` is this rank's rows, one group of
+    ``lc.ranks.shards``: ``expert_load`` is summed over those ranks (the
+    global counts), and the losses are this rank's parts (its router
+    probabilities and squared log-sum-exps over the global token count,
+    against the global load share), which sum over the ranks to JAX's."""
     m = cfg.moe
     B, S, d = x.shape
     N = B * S
     E, K = m.n_experts, m.top_k
     compute = cfg.compute_dtype
-    C = m.capacity(N)
+    ranks = lc.ranks
+    G = 1 if ranks is not None else lc.group_count("batch", B)
+    n_loc = N // G
+    C = m.capacity(n_loc)
 
     xt = x.reshape(N, d)
     logits = (xt @ params["router"].to(compute)).to(torch.float32)     # (N, E)
-    xbuf, st, sw, keep, slot, counts = _dispatch_group(
-        xt, logits, E, K, C, m.normalize_topk, compute)
+    groups = [_dispatch_group(xt[g * n_loc:(g + 1) * n_loc], logits[g * n_loc:(g + 1) * n_loc],
+                              E, K, C, m.normalize_topk, compute) for g in range(G)]
+    # the groups' buffers side by side on the capacity axis: (E, G*C, d)
+    xbuf = groups[0][0] if G == 1 else torch.cat([gr[0] for gr in groups], dim=1)
 
     act = _act("swiglu" if m.gated else "gelu")
-    g = torch.bmm(xbuf, params["wi_gate"].to(compute))                 # (E, C, f)
+    g = torch.bmm(xbuf, params["wi_gate"].to(compute))                 # (E, G*C, f)
     if m.gated:
         h = act(g) * torch.bmm(xbuf, params["wi_up"].to(compute))
     else:
         h = act(g)
-    ybuf = torch.bmm(h, params["wo"].to(compute))                      # (E, C, d)
+    ybuf = torch.bmm(h, params["wo"].to(compute))                      # (E, G*C, d)
 
-    # combine: each pair's expert output (0 for a dropped pair: the spare
-    # row), times its weight, then each token's K rows in expert order
-    ypad = torch.cat([ybuf.reshape(E * C, d), ybuf.new_zeros((1, d))])
-    y = ypad[torch.where(keep, slot, E * C)] * (sw * keep).to(compute)[:, None]
-    # a token's sorted pairs in ascending order are its experts in ascending
-    # order: the JAX scatter-add's order, kept by a sequential sum
-    y = y[torch.argsort(st, stable=True)].reshape(N, K, d)
-    out = y[:, 0]
-    for j in range(1, K):
-        out = out + y[:, j]
+    outs = []
+    for i, (_, st, sw, keep, slot, _) in enumerate(groups):
+        yg = ybuf if G == 1 else ybuf[:, i * C:(i + 1) * C]
+        # combine: each pair's expert output (0 for a dropped pair: the
+        # spare row), times its weight, then each token's K rows in expert
+        # order
+        ypad = torch.cat([yg.reshape(E * C, d), yg.new_zeros((1, d))])
+        y = ypad[torch.where(keep, slot, E * C)] * (sw * keep).to(compute)[:, None]
+        # a token's sorted pairs in ascending order are its experts in
+        # ascending order: the JAX scatter-add's order, kept by a
+        # sequential sum
+        y = y[torch.argsort(st, stable=True)].reshape(n_loc, K, d)
+        o = y[:, 0]
+        for j in range(1, K):
+            o = o + y[:, j]
+        outs.append(o)
+    out = outs[0] if G == 1 else torch.cat(outs)
 
     if m.n_shared_experts:
         out = out + mlp_block(params["shared"], xt, cfg)
 
+    counts = groups[0][5]
+    for gr in groups[1:]:
+        counts = counts + gr[5]
     expert_load = counts.to(torch.float32)
-    me = torch.softmax(logits, dim=-1).mean(dim=0)
+    probs = torch.softmax(logits, dim=-1)
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    if ranks is None:
+        me, z_loss = probs.mean(dim=0), torch.mean(lse2)
+    else:
+        ranks.sum_(expert_load)
+        total = N * ranks.shards
+        me, z_loss = probs.sum(dim=0) / total, lse2.sum() / total
     ce = expert_load / torch.clamp(expert_load.sum(), min=1.0)
     aux = {"expert_load": expert_load,
            "moe_lb_loss": E * torch.sum(me * ce),
-           "moe_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2)}
+           "moe_z_loss": z_loss}
     return out.reshape(B, S, d), aux

@@ -9,7 +9,7 @@ from repro_torch.layers.common import ParamSpec
 
 
 def rmsnorm_params(d: int, name: str = "scale") -> dict:
-    return {name: ParamSpec((d,), init="ones")}
+    return {name: ParamSpec((d,), ("embed",), init="ones")}
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,

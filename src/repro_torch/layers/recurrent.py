@@ -88,15 +88,17 @@ def mamba2_params(cfg) -> dict:
     h = s.n_heads(d)
     conv_ch = d_inner + 2 * s.n_groups * s.d_state
     return {
-        "in_proj": ParamSpec((d, 2 * d_inner + 2 * s.n_groups * s.d_state + h)),
-        "conv_w": ParamSpec((s.d_conv, conv_ch), scale=0.5),
-        "conv_b": ParamSpec((conv_ch,), init="zeros"),
-        "A_log": ParamSpec((h,), init="ones"),
-        "D": ParamSpec((h,), init="ones"),
-        "dt_bias": ParamSpec((h,), init="zeros"),
-        "norm": ParamSpec((d_inner,), init="ones"),
+        "in_proj": ParamSpec((d, 2 * d_inner + 2 * s.n_groups * s.d_state + h),
+                             ("embed", "inner_all")),
+        "conv_w": ParamSpec((s.d_conv, conv_ch), (None, "inner"), scale=0.5),
+        "conv_b": ParamSpec((conv_ch,), ("inner",), init="zeros"),
+        "A_log": ParamSpec((h,), ("ssm_heads",), init="ones"),
+        "D": ParamSpec((h,), ("ssm_heads",), init="ones"),
+        "dt_bias": ParamSpec((h,), ("ssm_heads",), init="zeros"),
+        "norm": ParamSpec((d_inner,), ("inner",), init="ones"),
         "out_proj": ParamSpec(
-            (d_inner, d), scale=1.0 / (math.sqrt(d_inner) * math.sqrt(2 * cfg.n_layers))),
+            (d_inner, d), ("inner", "embed_out"),
+            scale=1.0 / (math.sqrt(d_inner) * math.sqrt(2 * cfg.n_layers))),
     }
 
 
@@ -224,18 +226,19 @@ def mlstm_params(cfg) -> dict:
     di = x.d_inner(d)
     h = cfg.n_heads
     return {
-        "up_proj": ParamSpec((d, 2 * di)),
-        "conv_w": ParamSpec((x.d_conv, di), scale=0.5),
-        "conv_b": ParamSpec((di,), init="zeros"),
-        "wq": ParamSpec((di, di)),
-        "wk": ParamSpec((di, di)),
-        "wv": ParamSpec((di, di)),
-        "w_if": ParamSpec((di, 2 * h), scale=0.02),
-        "b_i": ParamSpec((h,), init="zeros"),
-        "b_f": ParamSpec((h,), init="ones"),
-        "norm": ParamSpec((di,), init="ones"),
+        "up_proj": ParamSpec((d, 2 * di), ("embed", "inner_all")),
+        "conv_w": ParamSpec((x.d_conv, di), (None, "inner"), scale=0.5),
+        "conv_b": ParamSpec((di,), ("inner",), init="zeros"),
+        "wq": ParamSpec((di, di), ("inner", "inner_q")),
+        "wk": ParamSpec((di, di), ("inner", "inner_q")),
+        "wv": ParamSpec((di, di), ("inner", "inner_q")),
+        "w_if": ParamSpec((di, 2 * h), ("inner", None), scale=0.02),
+        "b_i": ParamSpec((h,), (None,), init="zeros"),
+        "b_f": ParamSpec((h,), (None,), init="ones"),
+        "norm": ParamSpec((di,), ("inner",), init="ones"),
         "down_proj": ParamSpec(
-            (di, d), scale=1.0 / (math.sqrt(di) * math.sqrt(2 * cfg.n_layers))),
+            (di, d), ("inner", "embed_out"),
+            scale=1.0 / (math.sqrt(di) * math.sqrt(2 * cfg.n_layers))),
     }
 
 
@@ -385,10 +388,10 @@ def slstm_params(cfg) -> dict:
     d = cfg.d_model
     h = cfg.n_heads
     return {
-        "w_in": ParamSpec((d, 4 * d)),
-        "r": ParamSpec((h, d // h, 4 * (d // h)), scale=0.02),
-        "b": ParamSpec((4 * d,), init="zeros"),
-        "norm": ParamSpec((d,), init="ones"),
+        "w_in": ParamSpec((d, 4 * d), ("embed", "inner_all")),
+        "r": ParamSpec((h, d // h, 4 * (d // h)), (None, None, None), scale=0.02),
+        "b": ParamSpec((4 * d,), (None,), init="zeros"),
+        "norm": ParamSpec((d,), ("embed",), init="ones"),
     }
 
 

@@ -17,6 +17,7 @@ both. An encoder-only model (bidirectional attention) has ``forward`` and
   model_params(cfg)                      ParamSpec tree
   Transformer.from_init(cfg, seed)       seeded weights (port's initializer)
   Transformer(cfg, params)               weights from a tree of tensors
+  Transformer(cfg, params, mesh=mesh)    this rank's blocks of those weights
   model.forward(batch)                   (loss, aux): training/eval loss
   model.apply_logits(batch)              (logits, aux): full-sequence logits
                                          (aux: the MoE router's totals)
@@ -30,6 +31,7 @@ both. An encoder-only model (bidirectional attention) has ``forward`` and
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -46,8 +48,11 @@ from repro_torch.layers import attention as A
 from repro_torch.layers import ffn as FFN
 from repro_torch.layers import recurrent as R
 from repro_torch.layers.common import (
+    NULL_CONSTRAINTS,
+    LogicalConstraints,
     ParamSpec,
     init_params,
+    param_pspecs,
     tree_leaves,
     tree_map,
     unflatten,
@@ -84,8 +89,10 @@ def _slot_params(cfg, kind: str) -> dict:
 
 
 def _stack(tree, n: int):
+    """Stack a slot's leaves over ``n`` repeats: a leading ``"layers"`` axis."""
     return tree_map(
-        lambda s: ParamSpec((n,) + s.shape, s.init, s.scale, s.dtype), tree
+        lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.logical, s.init, s.scale,
+                            s.dtype), tree
     )
 
 
@@ -95,14 +102,14 @@ def model_params(cfg) -> dict:
     d, v = cfg.d_model, cfg.vocab_padded
     params: dict = {}
     if cfg.frontend != "audio":  # the audio stub feeds frame embeddings directly
-        params["embed"] = ParamSpec((v, d), scale=0.02)
+        params["embed"] = ParamSpec((v, d), ("vocab", "embed"), scale=0.02)
     params["slots"] = {
         f"slot{i}_{kind}": _stack(_slot_params(cfg, kind), cfg.repeats)
         for i, kind in enumerate(cfg.pattern)
     }
     params["norm_f"] = rmsnorm_params(d)
     if not cfg.tie_embeddings or cfg.encoder_only:
-        params["head"] = ParamSpec((d, v), scale=1.0 / math.sqrt(d))
+        params["head"] = ParamSpec((d, v), ("embed", "vocab"), scale=1.0 / math.sqrt(d))
     return params
 
 
@@ -131,18 +138,38 @@ def _dots_context():
 # ---------------------------------------------------------------------------
 
 
+def _zip_map(fn, a, b):
+    """``fn`` over the leaves of two nested dicts of one structure."""
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, v, b[k]) for k, v in a.items()}
+    return fn(a, b)
+
+
 class Transformer(nn.Module):
     """Decoder (with ``cfg.encoder_only``, encoder) transformer. Weights
     are ``nn.Parameter``s named after their path in the JAX parameter tree
     (``slots/slot0_attn/attn/wq`` -> ``slots__slot0_attn__attn__wq``),
     stacked over repeats as in JAX, so autograd has one leaf per tree
     leaf. A tensor handed in on the target
-    device is used as it is, not copied."""
+    device is used as it is, not copied.
 
-    def __init__(self, cfg, params: dict, device=None):
+    With ``mesh`` (``launch.mesh.Mesh``) each parameter is this rank's
+    block of the full leaf under the arch's sharding rules (``shardings``:
+    path -> ``NamedSharding``; ``params`` still gives the full leaves, on
+    any device, and only the blocks reach ``device``). On a mesh over a
+    process group each leaf is gathered just before its use: a stacked
+    leaf one layer at a time inside ``_run_stack`` (under remat inside the
+    checkpointed layer, so the backward gathers it again and a rank holds
+    one layer's full weights at a time), the embedding, final norm and
+    head around theirs; the backward returns each rank its block of the
+    gradient (``distributed.shard.gather``). The kernels see plain
+    contiguous tensors."""
+
+    def __init__(self, cfg, params: dict, device=None, mesh=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.mesh = mesh
         dev = resolve_device(device)
         expected = {p: s.shape for p, s in tree_leaves(model_params(cfg))}
         got = dict(tree_leaves(params))
@@ -152,24 +179,64 @@ class Transformer(nn.Module):
                 f"unexpected {sorted(set(got) - set(expected))}"
             )
         self._paths = sorted(expected)
+        self.shardings: dict = {}
+        if mesh is not None:
+            if not mesh.distributed and mesh.devices.size > 1:
+                raise ValueError(f"a {mesh.devices.shape} mesh without a process group "
+                                 f"has no ranks to hold the weights' blocks")
+            from repro_torch.distributed.shard import NamedSharding
+            from repro_torch.distributed.sharding import param_rules
+
+            specs = dict(tree_leaves(param_pspecs(model_params(cfg), param_rules(cfg, mesh),
+                                                  mesh)))
+            self.shardings = {p: NamedSharding(mesh, specs[p]) for p in self._paths}
         for path in self._paths:
             t = got[path]
             if tuple(t.shape) != tuple(expected[path]):
                 raise ValueError(f"{path}: shape {tuple(t.shape)} != {expected[path]}")
-            self.register_parameter(_attr_name(path), nn.Parameter(t.detach().to(dev)))
+            t = t.detach()
+            if mesh is not None:  # the block alone, in storage of its own
+                t = self.shardings[path].local(t).to(dev, copy=True).contiguous()
+            self.register_parameter(_attr_name(path), nn.Parameter(t.to(dev)))
+        # a stacked leaf's placement per layer: its spec without "layers"
+        per_slot: dict = {}
+        for p, sh in self.shardings.items():
+            if p.startswith("slots/"):
+                _, name, sub = p.split("/", 2)
+                per_slot.setdefault(name, {})[sub] = NamedSharding(mesh, sh.spec[1:])
+        self._layer_shardings = {name: unflatten(d) for name, d in per_slot.items()}
+
+    @property
+    def gathers(self) -> bool:
+        """Whether the leaves are blocks that a use must gather (a mesh over
+        a process group)."""
+        return self.mesh is not None and self.mesh.distributed
+
+    def _leaf(self, path: str, lc: LogicalConstraints = NULL_CONSTRAINTS) -> torch.Tensor:
+        """The full leaf at ``path``: the parameter, or on a mesh of ranks its
+        gather (the backward sums over ``lc.ranks``' batch axes)."""
+        t = getattr(self, _attr_name(path))
+        if not self.gathers:
+            return t
+        from repro_torch.distributed.shard import gather
+
+        return gather(t, self.shardings[path], lc.ranks.axes if lc.ranks else ())
 
     @classmethod
     def from_init(cls, cfg, seed: int = 0, device=None,
-                  draw_device: str = "cpu") -> "Transformer":
+                  draw_device: str = "cpu", mesh=None) -> "Transformer":
         """Seeded weights from the port's initializer, stored in the
         config's param dtype. Drawn on the CPU by default (the same weights
         on every device); ``draw_device="cuda"`` draws them on the card
-        with a CUDA generator (other numbers, no host round trip)."""
+        with a CUDA generator (other numbers, no host round trip). With
+        ``mesh`` every rank draws the full leaves on the draw device and
+        keeps its blocks."""
         check_supported(cfg)  # before the draw
         dev = resolve_device(device)
         gen = torch.Generator(device=draw_device).manual_seed(seed)
-        params = init_params(model_params(cfg), gen, cfg.param_dtype, dev)
-        return cls(cfg, params, dev)
+        params = init_params(model_params(cfg), gen, cfg.param_dtype,
+                             dev if mesh is None else None)
+        return cls(cfg, params, dev, mesh)
 
     @property
     def device(self) -> torch.device:
@@ -249,7 +316,8 @@ class Transformer(nn.Module):
 
     # -- pieces ---------------------------------------------------------
 
-    def _embed_inputs(self, tokens, frontend=None) -> torch.Tensor:
+    def _embed_inputs(self, tokens, frontend=None,
+                      lc: LogicalConstraints = NULL_CONSTRAINTS) -> torch.Tensor:
         """Stub frontend embeddings (B,P,d) first, then the tokens' (B,S)
         embeddings, concatenated along the sequence; ``embed_scale`` after
         the concatenation, as in the JAX package."""
@@ -259,26 +327,33 @@ class Transformer(nn.Module):
             parts.append(frontend.to(self.device, cfg.compute_dtype, non_blocking=True))
         if tokens is not None:
             tokens = tokens.to(self.device, non_blocking=True)
-            parts.append(self.embed[tokens.long()].to(cfg.compute_dtype))
+            parts.append(self._leaf("embed", lc)[tokens.long()].to(cfg.compute_dtype))
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
         return x
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, lc: LogicalConstraints = NULL_CONSTRAINTS) -> torch.Tensor:
+        """(d, V): the head, or the tied embedding's transpose."""
+        if self.cfg.tie_embeddings:
+            return self._leaf("embed", lc).T
+        return self._leaf("head", lc)
+
+    def _logits(self, x: torch.Tensor, head: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.cfg
-        head = self.embed.T if cfg.tie_embeddings else self.head
+        head = self._head() if head is None else head
         logits = x @ head.to(cfg.compute_dtype)
         if cfg.final_softcap:
             logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
         return logits
 
-    def _final_norm(self, x):
+    def _final_norm(self, x, lc: LogicalConstraints = NULL_CONSTRAINTS):
         cfg = self.cfg
-        return rmsnorm(x, self.norm_f__scale, cfg.norm_eps, cfg.zero_centered_norm)
+        return rmsnorm(x, self._leaf("norm_f/scale", lc), cfg.norm_eps, cfg.zero_centered_norm)
 
     def _apply_slot(self, sp: dict, x, *, kind, positions, cache, cache_len, seq_mask,
-                    block_tables, cache_row0=0, commit_state=True):
+                    block_tables, cache_row0=0, commit_state=True,
+                    lc: LogicalConstraints = NULL_CONSTRAINTS):
         """One block: pre-norm attention (over the last ``cfg.window`` keys
         for ``local_attn``; bidirectional for an encoder-only model) +
         pre-norm MLP (the MoE FFN for ``moe``), or a pre-norm recurrent
@@ -315,12 +390,21 @@ class Transformer(nn.Module):
         )
         h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         if kind == "moe":
-            o, aux = FFN.moe_block(sp["moe"], h2, cfg)
+            o, aux = FFN.moe_block(sp["moe"], h2, cfg, lc)
             return x + o, aux
         return x + FFN.mlp_block(sp["mlp"], h2, cfg), {}
 
+    def _gathered_slot(self, name: str, layer: dict, x, lc, **kw):
+        """``_apply_slot`` on a layer's blocks gathered to full leaves."""
+        from repro_torch.distributed.shard import gather
+
+        axes = lc.ranks.axes if lc.ranks else ()
+        full = _zip_map(lambda t, sh: gather(t, sh, axes), layer, self._layer_shardings[name])
+        return self._apply_slot(full, x, lc=lc, **kw)
+
     def _run_stack(self, x, caches, *, positions, cache_len, seq_mask,
-                   block_tables, cache_row0=0, commit_state=True):
+                   block_tables, cache_row0=0, commit_state=True,
+                   lc: LogicalConstraints = NULL_CONSTRAINTS):
         """Pattern x repeats. Each stacked leaf is unbound over repeats once
         (views; the backward stacks the per-layer gradients in one op
         rather than scattering into the stacked leaf once per layer). With
@@ -331,7 +415,8 @@ class Transformer(nn.Module):
         outputs of its products without batch dims (``_dots_policy``).
         Returns (x, aux): each aux entry summed over layers
         (``expert_load`` stays per expert), as the JAX ``_run_stack``
-        reduces the scan's."""
+        reduces the scan's. On a mesh of ranks each layer's blocks are
+        gathered inside the (checkpointed) layer (``_gathered_slot``)."""
         cfg = self.cfg
         if cfg.remat not in ("none", "full", "dots"):
             raise ValueError(f"remat={cfg.remat!r}: one of 'none', 'full', 'dots'")
@@ -347,12 +432,14 @@ class Transformer(nn.Module):
                 kw = dict(kind=name.split("_", 1)[1], positions=positions, cache=cache,
                           cache_len=cache_len,
                           seq_mask=seq_mask, block_tables=block_tables,
-                          cache_row0=cache_row0, commit_state=commit_state)
+                          cache_row0=cache_row0, commit_state=commit_state, lc=lc)
+                fn = self._apply_slot
+                if self.gathers:
+                    fn = functools.partial(self._gathered_slot, name)
                 if remat:
-                    x, aux = checkpoint(self._apply_slot, layer, x, use_reentrant=False,
-                                        **ckpt_kw, **kw)
+                    x, aux = checkpoint(fn, layer, x, use_reentrant=False, **ckpt_kw, **kw)
                 else:
-                    x, aux = self._apply_slot(layer, x, **kw)
+                    x, aux = fn(layer, x, **kw)
                 for k, v in aux.items():
                     totals[k] = v if k not in totals else totals[k] + v
         return x, totals
@@ -364,8 +451,8 @@ class Transformer(nn.Module):
         t = x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=torch.int32)
         return t.to(self.device, torch.int32, non_blocking=True).reshape(-1).expand(B)
 
-    def _chunk_loss(self, xi, li, z_coef: float):
-        logits = self._logits(xi)
+    def _chunk_loss(self, xi, li, z_coef: float, head):
+        logits = self._logits(xi, head)
         logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, li.clamp(min=0).long()[..., None])[..., 0]
@@ -375,14 +462,16 @@ class Transformer(nn.Module):
         return torch.sum(nll + zl), torch.sum(w)
 
     def cross_entropy(self, x, labels, *, seq_chunk: int = 512,
-                      z_loss: float | None = None):
+                      z_loss: float | None = None, head: torch.Tensor | None = None):
         """Chunked CE over the sequence: never materializes (B,S,V) logits.
         labels: (B,S) int; negative labels are masked out; the log-sum-exp
         runs over the padded vocabulary, with the z-loss ``z_loss *
         lse**2``. Each chunk is checkpointed (its logits are recomputed in
         the backward), as the JAX scan's ``jax.checkpoint`` does. Returns
-        (loss_sum, weight_sum) in fp32 (float64 for a float64 model)."""
+        (loss_sum, weight_sum) in fp32 (float64 for a float64 model).
+        ``head`` (d, V) defaults to ``_head()``."""
         B, S, _ = x.shape
+        head = self._head() if head is None else head
         z_coef = self.cfg.z_loss if z_loss is None else z_loss
         c = min(seq_chunk, S)
         n = -(-S // c)
@@ -395,25 +484,27 @@ class Transformer(nn.Module):
         for i in range(n):
             xi, li = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
             if torch.is_grad_enabled():
-                ls, ws = checkpoint(self._chunk_loss, xi, li, z_coef, use_reentrant=False)
+                ls, ws = checkpoint(self._chunk_loss, xi, li, z_coef, head,
+                                    use_reentrant=False)
             else:
-                ls, ws = self._chunk_loss(xi, li, z_coef)
+                ls, ws = self._chunk_loss(xi, li, z_coef, head)
             loss_sum, w_sum = loss_sum + ls, w_sum + ws
         return loss_sum, w_sum
 
-    def _full_sequence(self, batch: dict):
+    def _full_sequence(self, batch: dict, lc: LogicalConstraints = NULL_CONSTRAINTS):
         """Embed, run the stack cache-less at positions 0..S-1, final norm.
         Returns (x, aux)."""
-        x = self._embed_inputs(batch.get("tokens"), batch.get("frontend"))
+        x = self._embed_inputs(batch.get("tokens"), batch.get("frontend"), lc)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
         x, aux = self._run_stack(x, None, positions=positions, cache_len=None,
-                                 seq_mask=None, block_tables=None)
-        return self._final_norm(x), aux
+                                 seq_mask=None, block_tables=None, lc=lc)
+        return self._final_norm(x, lc), aux
 
     # -- entry points -----------------------------------------------------
 
-    def forward(self, batch: dict):
+    def forward(self, batch: dict, lc: LogicalConstraints = NULL_CONSTRAINTS,
+                tokens: torch.Tensor | None = None):
         """Training/eval forward: ``batch`` {"tokens": (B,S), "labels": (B,S)},
         with stub embeddings ``"frontend"`` (B,P,d) ahead of the tokens, or
         in their place (labels then cover P + S positions; moved to the
@@ -421,12 +512,18 @@ class Transformer(nn.Module):
         labelled tokens, plus for an MoE model ``moe_lb_coef`` and
         ``moe_z_coef`` times the router's losses averaged over layers; aux
         {"tokens": their count} and the router's totals (``expert_load``,
-        ``moe_lb_loss``, ``moe_z_loss``)."""
+        ``moe_lb_loss``, ``moe_z_loss``).
+
+        On a mesh of ranks ``batch`` holds this rank's rows (``lc.ranks``)
+        and ``tokens`` the global batch's labelled-token count: the CE sum
+        is divided by it, and the router terms are this rank's parts
+        (``layers.ffn.moe_block``), so the ranks' losses add up to the
+        global batch's loss and their gradients to its gradient."""
         cfg = self.cfg
-        x, aux = self._full_sequence(batch)
+        x, aux = self._full_sequence(batch, lc)
         labels = batch["labels"].to(self.device, non_blocking=True)
-        loss_sum, w_sum = self.cross_entropy(x, labels)
-        loss = loss_sum / torch.clamp(w_sum, min=1.0)
+        loss_sum, w_sum = self.cross_entropy(x, labels, head=self._head(lc))
+        loss = loss_sum / torch.clamp(w_sum if tokens is None else tokens, min=1.0)
         if "moe_lb_loss" in aux:
             loss = loss + cfg.moe_lb_coef * aux["moe_lb_loss"] / cfg.n_layers
             loss = loss + cfg.moe_z_coef * aux["moe_z_loss"] / cfg.n_layers

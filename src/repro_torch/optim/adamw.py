@@ -6,7 +6,9 @@ the parameters re-cast from the master. The JAX update is functional; the
 port updates the optimizer state and the parameters in place (a second
 copy of a full-width state would double its memory), under ``no_grad``.
 Parameters, gradients and state are flat ``{path: tensor}`` dicts keyed by
-the JAX tree's paths, in sorted order. A leaf above ``UPDATE_SLICE_ELEMENTS``
+the JAX tree's paths, in sorted order; on a mesh of ranks each holds this
+rank's blocks (``distributed.shard``) and the state inherits the
+parameters' placement (``optimizer_pspecs``). A leaf above ``UPDATE_SLICE_ELEMENTS``
 is updated in slices along its leading axis (as many rows a slice as keep
 it within that size, one row at least), so that the update's fp32
 temporaries are a slice's; the update is elementwise, so the result is
@@ -51,11 +53,23 @@ def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
     return state
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree: dict, shardings: dict | None = None, group=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, in fp32, leaves in
-    sorted path order (the JAX leaf order)."""
+    sorted path order (the JAX leaf order). On a mesh, ``tree`` holds this
+    rank's blocks and ``shardings`` their placements: a block counts on
+    the one rank that owns it (``NamedSharding.owned``; its other holders
+    add 0), and the sum is all-reduced over ``group`` (every rank of the
+    mesh) before the root, so the norm is the whole gradient's."""
     sums = [torch.sum(torch.square(tree[k].to(torch.float32))) for k in sorted(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    if shardings is not None:
+        sums = [s if shardings[k].owned() else torch.zeros_like(s)
+                for k, s in zip(sorted(tree), sums)]
+    total = torch.sum(torch.stack(sums))
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(total, group=group)
+    return torch.sqrt(total)
 
 
 def _f32(x) -> torch.Tensor:
@@ -64,12 +78,15 @@ def _f32(x) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
-                 lr_scale=1.0) -> dict:
+                 lr_scale=1.0, grad_norm: torch.Tensor | None = None) -> dict:
     """Update ``params`` and ``state`` in place. Returns stats
     {"grad_norm": device scalar, "lr": float}. The scalars (step, bias
-    corrections, lr) are host fp32 arithmetic, as JAX's are fp32."""
+    corrections, lr) are host fp32 arithmetic, as JAX's are fp32. On a
+    mesh the leaves are this rank's blocks (the update is elementwise) and
+    ``grad_norm`` is the whole gradient's (``global_norm`` with
+    ``shardings``), which clips every block alike."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
             if cfg.grad_clip else None)
     lr = float(_f32(cfg.lr) * _f32(lr_scale))
@@ -102,3 +119,12 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
             update(*leaf)
     state["step"] = step
     return {"grad_norm": gnorm, "lr": lr}
+
+
+def optimizer_pspecs(param_pspecs, cfg: AdamWConfig) -> dict:
+    """Optimizer state placements mirror the parameters' (ZeRO-3: sharded
+    params => sharded state); the step counter is replicated."""
+    state = {"step": (), "m": param_pspecs, "v": param_pspecs}
+    if cfg.keep_master:
+        state["master"] = param_pspecs
+    return state

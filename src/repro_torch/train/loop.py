@@ -19,11 +19,20 @@ injection). The loop starts from the port's seeded initializer, or from
 ``state`` when given (a state converted from the JAX package with
 ``repro_torch.convert.from_jax_train_state``); a checkpoint in
 ``ckpt_dir`` overrides either.
+
+With ``mesh`` (``launch.mesh.make_host_mesh``) the loop trains on the
+mesh's ranks (``train.make_train_step(mesh=)``): the state is this rank's
+blocks, the resources are the mesh's as the JAX loop reads them (hosts,
+devices per host, the axis sizes, pods), the observer gets the tokens per
+data shard of ``data_shards(mesh)``, checkpoints are gathered to rank 0
+and restored block by block, and rank 0 alone writes the run record.
+Without one it runs on one device and its record says a 1 x 1 mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable
 
@@ -63,17 +72,20 @@ _UNSAMPLED = object()  # heartbeat not yet read for the current step
 class TrainLoop:
     def __init__(self, cfg, tcfg: TrainConfig, data: SyntheticLM, loop_cfg: LoopConfig,
                  device=None, on_straggler: Callable[[int, float], None] | None = None,
-                 state: TrainState | None = None):
-        self.cfg, self.tcfg = cfg, tcfg
-        self.device = state.model.device if state is not None else resolve_device(device)
+                 state: TrainState | None = None, mesh=None):
+        self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
+        if state is not None:
+            self.device = state.model.device
+        elif mesh is not None and device is None:
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.data = data
         self.loop = loop_cfg
         self.on_straggler = on_straggler
         self.straggler_events: list[tuple[int, float]] = []
         self._state = state
-        # the step runs on one device: one host, one device, a 1 x 1 mesh
-        self.resources = ResourceConfig(num_hosts=1, devices_per_host=1,
-                                        mesh={"data": 1, "model": 1}, num_pods=1)
+        self.resources = _resources(mesh)
         self.session = PerfSession(
             SessionConfig(
                 app_name=loop_cfg.monitor_app_name,
@@ -111,9 +123,10 @@ class TrainLoop:
                 self._check_straggler(step, self._host_times)
                 loss = float(metrics["loss"])  # waits for the step's device work
                 self.metrics_history.append(
-                    {"step": step, "loss": loss, "seconds": time.perf_counter() - t0})
+                    {"step": step, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                     "seconds": time.perf_counter() - t0})
                 if self.ckpt and self.loop.ckpt_every and (step + 1) % self.loop.ckpt_every == 0:
-                    self.ckpt.save(state.tree(), step + 1)
+                    self.ckpt.save(state.tree(), step + 1, state.shardings())
         finally:
             if self.ckpt:
                 self.ckpt.wait()
@@ -126,13 +139,14 @@ class TrainLoop:
     def _initialize(self):
         state = self._state
         if state is None:
-            state = init_state(self.cfg, self.tcfg, seed=self.loop.seed, device=self.device)
+            state = init_state(self.cfg, self.tcfg, seed=self.loop.seed, device=self.device,
+                               mesh=self.mesh)
         if self.ckpt and self.ckpt.latest() is not None:
-            tree, _ = self.ckpt.restore(state.tree())
+            tree, _ = self.ckpt.restore(state.tree(), state.shardings())
             state.load_tree(tree)
         example = self.data.batch_at(0)
         step_fn = self.session.wrap_step(
-            make_train_step(self.cfg, self.tcfg),
+            make_train_step(self.cfg, self.tcfg, self.mesh),
             region="train_step",
             derive=True,
             num_devices=self.resources.total_devices,
@@ -175,5 +189,21 @@ class TrainLoop:
     def finalize_run(self, out_dir: str | None = None):
         """Finalize the session's RunRecord and, when a destination resolves
         (``out_dir``, ``TALP_OUT``, or the session config), inject git
-        metadata and save into the CI folder layout."""
-        return self.session.finalize(out_dir)
+        metadata and save into the CI folder layout; on a mesh, rank 0
+        alone saves."""
+        rank = self.mesh.rank if self.mesh is not None else 0
+        return self.session.finalize(out_dir, save=rank == 0)
+
+
+def _resources(mesh) -> ResourceConfig:
+    """The JAX loop's resources of a mesh: ``LOCAL_WORLD_SIZE`` ranks a host
+    (all of them when unset, as under ``torch.multiprocessing.spawn``);
+    without a mesh one host, one device, a 1 x 1 mesh."""
+    if mesh is None:
+        return ResourceConfig(num_hosts=1, devices_per_host=1,
+                              mesh={"data": 1, "model": 1}, num_pods=1)
+    n = mesh.devices.size
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", n))
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    return ResourceConfig(num_hosts=max(1, n // local), devices_per_host=min(n, local),
+                          mesh=sizes, num_pods=sizes.get("pod", 1))

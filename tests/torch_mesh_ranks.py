@@ -1,0 +1,189 @@
+"""The rank program of ``tests/test_torch_distributed.py``: one process a
+rank, ``gloo`` on the CPU, meeting through a ``FileStore`` in the test's
+temporary directory (never a fixed port, so parallel test workers cannot
+clash). It imports no JAX: the test hands it the JAX states as torch
+files and reads back what each rank writes.
+
+    python tests/torch_mesh_ranks.py PHASE RANK WORLD DIR
+
+Phases: ``four`` (4 ranks: the dense steps on (2, 2) and (4, 1), the
+latter through the collectives ``gloo`` has for CUDA tensors, the MoE
+step on (2, 2), a monitored ``TrainLoop`` on (2, 2), a checkpoint saved
+from (2, 2)); ``two`` (2 ranks: that checkpoint restored on (2, 1), the
+same blocks cut by ``reshard_state`` from the full leaves, saved again, a JAX checkpoint restored on (1, 2) and one step more, a
+``TrainLoop`` at world size 2); ``back`` (4 ranks: the 2-rank save
+restored on (2, 2)). Rank 0 writes ``DIR/out_PHASE.pt``.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+
+from repro_torch.checkpoint.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.convert import from_jax_train_state  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.distributed import reshard_state, shard  # noqa: E402
+from repro_torch.distributed.shard import gather_full  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.layers.common import tree_leaves, unflatten  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.train.loop import LoopConfig, TrainLoop  # noqa: E402
+from repro_torch.train.train import TrainConfig, make_train_step, train_state_pspecs  # noqa: E402
+
+F32 = dict(compute_dtype_name="float32", param_dtype_name="float32")
+MIXED = dict(compute_dtype_name="float32")  # bf16 parameters computed in fp32
+# (name, arch, config, mesh (data, model), batch, seq, accum, steps)
+STEPS = {
+    "dense22": ("tinyllama-1.1b", F32, (2, 2), 4, 32, 1, 2),
+    "dense41": ("tinyllama-1.1b", F32, (4, 1), 4, 32, 2, 2),
+    "moe22": ("qwen3-moe-30b-a3b", MIXED, (2, 2), 4, 256, 1, 2),
+}
+LOOP = ("qwen3-moe-30b-a3b", MIXED, 4, 32, 3)  # arch, config, batch, seq, steps
+
+
+def tcfg() -> TrainConfig:
+    return TrainConfig(optimizer=AdamWConfig(), warmup_steps=1, total_steps=10)
+
+
+def data_for(cfg, batch, seq, accum) -> SyntheticLM:
+    return SyntheticLM(DataConfig(global_batch=batch, seq_len=seq, vocab=cfg.vocab,
+                                  accum_steps=accum, pad_fraction=0.2))
+
+
+def full_tree(state) -> dict:
+    """The state gathered to full leaves, on the CPU (every rank takes part)."""
+    sh = dict(tree_leaves(state.shardings()))
+    return {p: (gather_full(t.detach(), sh[p]).cpu().clone()
+                if isinstance(t, torch.Tensor) else t)
+            for p, t in tree_leaves(state.tree())}
+
+
+def held(state, full0: dict, mesh, cfg) -> dict:
+    """This rank's bytes and whether each block is the slice of ``full0`` that
+    its placement names."""
+    sh = dict(tree_leaves(state.shardings()))
+    nbytes, exact = 0, True
+    for p, t in tree_leaves(state.tree()):
+        if isinstance(t, torch.Tensor):
+            nbytes += t.numel() * t.element_size()
+            if p in full0:
+                exact &= torch.equal(sh[p].local(full0[p]), t.detach().cpu())
+    return {"bytes": nbytes, "exact": exact, "coords": mesh.coords(),
+            "pspecs": dict(tree_leaves(train_state_pspecs(cfg, mesh, tcfg())))}
+
+
+def run_steps(name, init, out, rank):
+    arch, kw, shape, B, S, A, steps = STEPS[name]
+    cfg = smoke_config(arch).replace(**kw)
+    mesh = make_host_mesh(model=shape[1], device="cpu")
+    assert mesh.sizes == {"data": shape[0], "model": shape[1]}
+    state = from_jax_train_state(init[name], cfg, mesh=mesh)
+    start = {p: t for p, t in tree_leaves(_state_tree(init[name]))}
+    info = held(state, start, mesh, cfg)
+    step = make_train_step(cfg, tcfg(), mesh)
+    data = data_for(cfg, B, S, A)
+    hist = []
+    for i in range(steps):
+        state, m = step(state, data.batch_at(i))
+        hist.append({k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v)
+                     for k, v in m.items()})
+    infos = [None] * dist.get_world_size()
+    dist.all_gather_object(infos, info)
+    res = {"hist": hist, "held": infos, "final": full_tree(state)}
+    if rank == 0:
+        out[name] = res
+    return state
+
+
+def _state_tree(tree_np) -> dict:
+    from repro_torch.convert import params_from_numpy
+
+    return params_from_numpy({"params": tree_np["params"], "opt_state": {
+        k: v for k, v in tree_np["opt_state"].items() if k != "step"}})
+
+
+def run_loop(init, world, talp_dir, out, rank):
+    arch, kw, B, S, steps = LOOP
+    cfg = smoke_config(arch).replace(**kw)
+    mesh = make_host_mesh(model=2 if world == 4 else 1, device="cpu")
+    state = from_jax_train_state(init["loop"], cfg, mesh=mesh)
+    data = SyntheticLM(DataConfig(global_batch=B, seq_len=S, vocab=cfg.vocab, pad_fraction=0.2))
+    loop = TrainLoop(cfg, TrainConfig(), data, LoopConfig(steps=steps, lb_sample_every=1),
+                     state=state, mesh=mesh)
+    loop.run()
+    loop.finalize_run(talp_dir)
+    if rank == 0:
+        out[f"loop{world}"] = {"path": loop.session.last_record_path,
+                       "history": loop.metrics_history}
+
+
+def restore(directory, cfg, mesh, init_tree):
+    """A state on ``mesh`` restored from ``directory`` block by block."""
+    state = from_jax_train_state(init_tree, cfg, mesh=mesh)
+    tree, step = load_checkpoint(state.tree(), directory, shardings=state.shardings())
+    state.load_tree(tree)
+    return state, step
+
+
+gloo_cuda = shard._gloo_cuda
+
+
+def main() -> None:
+    phase, rank, world, d = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{d}/store_{phase}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    init = torch.load(os.path.join(d, "init.pt"), weights_only=False)
+    out: dict = {}
+    if phase == "four":
+        state = run_steps("dense22", init, out, rank)
+        save_checkpoint(state.tree(), os.path.join(d, "ck4"), 2, shardings=state.shardings())
+        # (4, 1) takes the collectives gloo has for CUDA tensors (a list
+        # all-gather; the reduce-scatter as an all-reduce and a slice): the
+        # path of two ranks sharing one card
+        shard._gloo_cuda = lambda t, group: True
+        run_steps("dense41", init, out, rank)
+        shard._gloo_cuda = gloo_cuda
+        run_steps("moe22", init, out, rank)
+        run_loop(init, world, os.path.join(d, "talp", "qwen3", "train"), out, rank)
+    elif phase == "two":
+        cfg = smoke_config("tinyllama-1.1b").replace(**F32)
+        state, step = restore(os.path.join(d, "ck4"), cfg, make_host_mesh(device="cpu"),
+                              init["dense22"])
+        out["from4"] = {"step": step, "final": full_tree(state)}
+        # the same blocks from the full leaves through reshard_state
+        full = unflatten(out["from4"]["final"])
+        placed = reshard_state(full, state.model.mesh, train_state_pspecs(cfg, state.model.mesh,
+                                                                          tcfg()))
+        out["from4"]["reshard_equal"] = all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for (_, a), (_, b) in zip(tree_leaves(placed), tree_leaves(state.tree())))
+        save_checkpoint(state.tree(), os.path.join(d, "ck2"), step, shardings=state.shardings())
+        state, step = restore(os.path.join(d, "jax_ckpt"), cfg,
+                              make_host_mesh(model=2, device="cpu"), init["dense22"])
+        out["from_jax"] = {"step": step, "final": full_tree(state)}
+        data = data_for(cfg, 4, 32, 1)
+        state, m = make_train_step(cfg, tcfg(), state.model.mesh)(state, data.batch_at(step))
+        out["from_jax"]["loss"] = float(m["loss"])
+        run_loop(init, world, os.path.join(d, "talp", "qwen3", "train"), out, rank)
+    elif phase == "back":
+        cfg = smoke_config("tinyllama-1.1b").replace(**F32)
+        state, step = restore(os.path.join(d, "ck2"), cfg,
+                              make_host_mesh(model=2, device="cpu"), init["dense22"])
+        out["from2"] = {"step": step, "final": full_tree(state)}
+    if rank == 0:
+        torch.save(out, os.path.join(d, f"out_{phase}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
