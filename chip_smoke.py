@@ -157,11 +157,20 @@ exit:
            bitwise), launches exact, the held state its share; (b) two
            ``gloo`` ranks on the one card (this script's ``--mesh-rank``
            subprocesses, killed past MESH_RANK_TIMEOUT) at MESH_REPEATS
-           layers on each of MESH_SHAPES, MESH_PAIR_STEPS steps, each loss
-           within MESH_PAIR_TOL of a one-rank run at that depth, each
-           rank's held bytes its share under the pspecs, rank 0's record
-           in ``results/talp_mesh/`` naming the mesh and passing
-           ``validate_pop``; step times and peak memory a rank;
+           layers on each of MESH_SHAPES, MESH_PAIR_STEPS steps: on
+           (1, 2) tensor-parallel (each rank its heads, MLP columns,
+           vocabulary rows and sequence half), on (2, 1) the batch split;
+           each loss within MESH_PAIR_TOL of a one-rank run at that depth,
+           each rank's held bytes its share under the pspecs, launches
+           exact, on (1, 2) every K2 launch at ``cases.MAIN_FLASH_MESH``
+           and every K1 forward at ``cases.MAIN_RMS_MESH`` and each rank's
+           counted matmul FLOPs half the one-rank count within
+           MESH_FLOP_TOL; rank 0's record in ``results/talp_mesh/``
+           naming the mesh and passing ``validate_pop``; then MESH_MOE
+           (qwen3-moe-30b-a3b at 2 of 48 layers) on (1, 2): each step's
+           ``expert_load`` equal to a one-rank run's, each rank's expert
+           products (``aten.bmm``) half the one-rank FLOPs (its 64 of 128
+           experts); step times and peak memory a rank;
 7. report  the same configuration REPORT_STEPS steps under the tracer
            (record in ``results/talp/<arch>/train_tracer/``) and under the
            null collector, launch counters exact for each; the tracer's
@@ -204,7 +213,7 @@ exit:
            in phase 2's tables (``cases.*_ARCH_*``) and timed in phase 8;
 10. moe    the MoE archs at full width (``MOE_PATHS``), bf16, seeded weights
            drawn on the card (slice by slice for a stacked expert leaf),
-           after every earlier model is freed: qwen3-moe-30b-a3b (24 of 48 layers,
+           after every earlier model is freed: qwen3-moe-30b-a3b (12 of 48 layers,
            qk-norm) and dbrx-132b (8 of 40 layers, GQA group 6) serve
            phase 9's glm4 traffic through ``BatchScheduler`` (every request
            completes, logits finite, launches exact: K1 4L+1 a forward with
@@ -223,8 +232,8 @@ exit:
 11. recurrent the recurrent and hybrid archs at full width
            (``RECURRENT_PATHS``), bf16, weights drawn on the card after
            every earlier model is freed, at fan-in scale (``_fan_in_``:
-           stacked leaves at their per-layer fan-in): zamba2-2.7b (54 layers: 45 mamba2,
-           9 attention at 32/32 heads, head dim 80) serves glm4's traffic
+           stacked leaves at their per-layer fan-in): zamba2-2.7b (30 of 54 layers:
+           25 mamba2, 5 attention at 32/32 heads, head dim 80) serves glm4's traffic
            (launches exact: K3/K4 on the attention layers, K1 on every
            norm, the mamba2 gated norm at 5120 included), 16 requests
            against a 12-page pool that preempts (tokens equal an ample
@@ -233,7 +242,7 @@ exit:
            skipped; tokens equal); greedy speculation with every decoding
            request preempted once, so the replayed history commits through
            the two-pass verify several tokens at a time (no K3, two
-           forwards' K4 and K1 a verify): in bf16 at 54 layers, where the
+           forwards' K4 and K1 a verify): in bf16 at 30 layers, where the
            verify's chunked recurrences and K4 round apart from the decode
            step's beyond a near tie, each request that parts from the
            plain run held to an fp32 witness of the same weights (the two
@@ -244,7 +253,7 @@ exit:
            its record in ``results/talp_recurrent/`` passing ``talp
            validate``; xlstm-350m (21 mLSTM, 3 sLSTM; K1 alone) serves the
            same traffic and a slot-reuse run (tokens equal a fresh
-           scheduler's), and trains at B 4, S 1024: at 16 of its 24 layers
+           scheduler's), and trains at B 4, S 1024: at 8 of its 24 layers
            checkpoint-restart
            (checkpoints every 2 steps, a failure at step 3, the failed
            run's state taking step 3 as the uninterrupted run would, the
@@ -341,17 +350,29 @@ AGREE_TOL = 1e-6
 # Phase 6b (mesh): (a) phase 6's configuration on a 1 x 1 mesh over a
 # one-rank nccl group, MESH_STEPS steps, each loss and grad_norm within
 # MESH_TOL relative of phase 6's same step; (b) two gloo ranks sharing the
-# card at MESH_REPEATS layers on each of MESH_SHAPES, MESH_PAIR_STEPS steps,
-# each loss within MESH_PAIR_TOL relative of a one-rank run at that depth
-# (bf16: the ranks' gradients sum in another order), each rank's held state
-# bytes its share under the pspecs
+# card at MESH_REPEATS layers on each of MESH_SHAPES, MESH_PAIR_STEPS steps
+# ((1, 2): tensor parallel), each loss within MESH_PAIR_TOL relative of a
+# one-rank run at that depth, each rank's held state bytes its share under
+# the pspecs, on (1, 2) each rank's counted matmul FLOPs half the one-rank
+# count within MESH_FLOP_TOL; then MESH_MOE on (1, 2) against one rank.
+# MESH_PAIR_TOL: bf16 runs of one weights part from their fp32 run; the
+# split reorders the bf16 sums (the reduce-scatters add bf16 partials), so
+# the gate is twice the one-rank bf16 loss's distance from the loss of the
+# same weights computed in fp32: 2.106e-4 relative (phase 6b's
+# ``one_rank_bf16_vs_fp32`` on an NVIDIA H100 80GB HBM3, 700.00 W; the
+# split's own distance read 2.8e-5 there)
 MESH_STEPS = 3
 MESH_TOL = 1e-5
 MESH_REPEATS = 4
 MESH_SHAPES = ((1, 2), (2, 1))
 MESH_PAIR_STEPS = 2
-MESH_PAIR_TOL = 2e-2
+MESH_PAIR_TOL = 4.2e-4
+MESH_FLOP_TOL = 1e-2
 MESH_RANK_TIMEOUT = 300
+# qwen3-moe-30b-a3b at 2 of 48 layers, bf16 weights computed in fp32 (in
+# bf16 the split's reordered sums flip the router's near ties, so
+# expert_load could not be held equal), B 1 x S 4096, 2 steps
+MESH_MOE = dict(arch="qwen3-moe-30b-a3b", repeats=2, batch=1, seq=4096, steps=2, seed=75)
 MESH_TALP_DIR = os.path.join("results", "talp_mesh")
 # Phase 4b: the loaded server. Batch 16 at max_len 1024 (a 1024-page
 # dense-equivalent pool), the traffic harness's bursty trace, and a pool of
@@ -425,8 +446,9 @@ ARCH_PATHS = {
 }
 # Phase 10: the MoE archs at full width, bf16, seeded weights drawn on the
 # card (a CPU twin only for the parity run). qwen3-moe-30b-a3b (qk-norm,
-# 128 experts, top 8; 30.5e9 parameters, 61.0 GB of bf16) serves at 24 of
-# 48 layers with glm4's traffic; dbrx-132b (16 experts, top 4, G =
+# 128 experts, top 8; 30.5e9 parameters, 61.0 GB of bf16) serves at 12 of
+# 48 layers with glm4's traffic (24 until tensor parallelism joined phase
+# 6b, for the script's time); dbrx-132b (16 experts, top 4, G =
 # 6) at 8 of 40 layers (40 would be 263 GB: 8 are 55 GB); qwen3 trains at
 # 5 of 48 layers, the deepest that leaves a tenth of the card free (AdamW's
 # state and the fp32 gradients take 18 bytes a parameter: 3.7e9 of them at
@@ -436,7 +458,7 @@ ARCH_PATHS = {
 # the card and the CPU, each allowed only at a CPU near tie (its K-th and
 # (K+1)-th router logits within ROUTE_TIE).
 MOE_PATHS = {
-    "qwen3-moe-30b-a3b": dict(repeats=24, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
+    "qwen3-moe-30b-a3b": dict(repeats=12, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
                               max_new=16, train_repeats=5, train_batch=1, train_seq=4096,
                               train_steps=3, parity_repeats=1, parity_prompt=256),
     "dbrx-132b": dict(repeats=8, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
@@ -454,14 +476,15 @@ MOE_TALP_DIR = os.path.join("results", "talp_moe")
 # tests/test_torch_recurrent.py), so no comparison of two computation
 # orders (speculation on and off, card and CPU) could hold; at fan-in
 # scale they part by 3.9e-5. zamba2-2.7b (2.67e9 parameters) serves at
-# full depth (54 layers) with glm4's traffic, 16 requests against a
+# 30 of 54 layers (full depth until tensor parallelism joined phase 6b, for
+# the script's time) with glm4's traffic, 16 requests against a
 # pool that preempts and a shared system prompt through the prefix cache,
 # two-pass speculation in bf16 (each parting from the plain run held to
 # an fp32 witness) and in fp32 at 12 layers with the copy regime, and
 # trains at B 1, S 4096
 # under the monitor (record in RECURRENT_TALP_DIR); xlstm-350m (0.53e9)
 # serves the same traffic plus a slot-reuse run, and trains at B 4, S 1024
-# with checkpoint-restart (at 16 of 24 layers, for the script's time),
+# with checkpoint-restart (at 8 of 24 layers, for the script's time),
 # remat "dots" and compress_dcn_grads; both run
 # fp32 parity at one pattern repeat (6 and 8 layers), a 256-token prefill
 # in chunks of 64 and DECODE_STEPS decode steps, held as phase 9's.
@@ -469,13 +492,14 @@ RECURRENT_PATHS = {
     "zamba2-2.7b": dict(max_len=2048, prompt_lens=(600, 900, 1300, 1700), max_new=16,
                         pool_requests=16, pool_prompt=(32, 96), pool_new=8, pool_pages=12,
                         prefix_system=128, prefix_tail=(10, 40), prefix_requests=6,
-                        spec_bf16_requests=8, spec_repeats=2, spec_preempt_at=16,
+                        serve_repeats=5, spec_bf16_requests=8, spec_repeats=2,
+                        spec_preempt_at=16,
                         spec_k=4, copy_new=48,
                         train_batch=1, train_seq=4096, train_steps=3,
                         parity_repeats=1, parity_prompt=256),
     "xlstm-350m": dict(max_len=2048, prompt_lens=(600, 900, 1300, 1700), max_new=16,
                        reuse_prompts=(300, 200), train_batch=4, train_seq=1024,
-                       ckpt_repeats=2, ckpt_steps=4, ckpt_every=2, fail_at=3, remat_repeats=1,
+                       ckpt_repeats=1, ckpt_steps=4, ckpt_every=2, fail_at=3, remat_repeats=1,
                        parity_repeats=1, parity_prompt=256),
 }
 RECURRENT_TALP_DIR = os.path.join("results", "talp_recurrent")
@@ -2738,6 +2762,99 @@ def _held_bytes(state) -> int:
                if hasattr(t, "numel"))
 
 
+def _matmul_flops(prof) -> float:
+    """A ``StepProfile``'s matrix-product FLOPs a device: ``aten.mm``,
+    ``aten.addmm``, ``aten.bmm`` and K2's cost sink."""
+    names = ("aten.mm", "aten.addmm", "aten.bmm", "flash_attention", "flash_attention_backward")
+    per = prof.per_computation
+    return sum(per[n].flops for n in names if n in per) / prof.num_devices
+
+
+class _Seen:
+    """While open: the ``StepProfile``s counted, and the shapes K2's forward
+    (q, k) and K1's forward (rows, d) launch at."""
+
+    def __enter__(self):
+        from repro_torch.core.profile import StepProfile
+        from repro_torch.kernels.flash_attention import ops as FA
+        from repro_torch.kernels.rmsnorm import ops as RMS
+
+        self.profiles, self.flash, self.rms = [], set(), set()
+        self._saved = (StepProfile.__dict__["count"], FA.flash_forward, RMS.launch_forward)
+        count, flash, norm = StepProfile.count, FA.flash_forward, RMS.launch_forward
+
+        def counted(*a, **kw):
+            out, prof = count(*a, **kw)
+            self.profiles.append(prof)
+            return out, prof
+
+        def flash_seen(q, k, *a, **kw):
+            self.flash.add((tuple(q.shape), tuple(k.shape)))
+            return flash(q, k, *a, **kw)
+
+        def norm_seen(x, *a, **kw):
+            self.rms.add((x.numel() // x.shape[-1], x.shape[-1]))
+            return norm(x, *a, **kw)
+
+        StepProfile.count, FA.flash_forward, RMS.launch_forward = counted, flash_seen, norm_seen
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.profile import StepProfile
+        from repro_torch.kernels.flash_attention import ops as FA
+        from repro_torch.kernels.rmsnorm import ops as RMS
+
+        StepProfile.count, FA.flash_forward, RMS.launch_forward = self._saved
+        return False
+
+
+def _mesh_moe_run(mesh) -> dict:
+    """MESH_MOE on ``mesh`` (None: one rank, no process group): bf16
+    weights drawn on the card from the seed (a rank keeps its blocks),
+    computed in fp32, its steps through ``make_train_step``, the first
+    counted by ``StepProfile.count``."""
+    import torch
+
+    from repro_torch.core.profile import StepProfile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.train import TrainConfig, TrainState, make_train_step
+
+    m = MESH_MOE
+    cfg = _arch_cfg(m["arch"], m["repeats"]).replace(compute_dtype_name="float32")
+    tcfg = TrainConfig(total_steps=m["steps"])
+    data = SyntheticLM(DataConfig(global_batch=m["batch"], seq_len=m["seq"], vocab=cfg.vocab,
+                                  pad_fraction=0.05))
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer.from_init(cfg, seed=m["seed"], device=DEV, draw_device="cuda", mesh=mesh)
+    state = TrainState(model, adamw_init(model.named_params(), tcfg.optimizer), 0)
+    step = make_train_step(cfg, tcfg, mesh)
+    reset_launch_counts()
+    losses, norms, loads, secs = [], [], [], []
+    for i in range(m["steps"]):
+        t0 = time.perf_counter()
+        if i == 0:
+            (state, met), prof = StepProfile.count(step, state, data.batch_at(i))
+        else:
+            state, met = step(state, data.batch_at(i))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        loads.append(met["expert_load"].tolist())
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    experts = [tuple(t.shape) for p, t in model.named_params().items() if p.endswith("moe/wi_gate")]
+    out = dict(layers=cfg.n_layers, compute="float32", params="bfloat16", losses=losses,
+               grad_norms=norms, expert_load=loads, step_seconds=secs, launches=launch_counts(),
+               expected_launches=_train_expected_launches(cfg, m["steps"], 1),
+               matmul_flops=_matmul_flops(prof), expert_flops=prof.per_computation["aten.bmm"].flops,
+               expert_blocks=experts, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del step, state, model, met
+    _release()
+    return out
+
+
 def _mesh_rank_main(argv) -> int:
     """One of phase 6b (b)'s ranks: ``--mesh-rank RANK WORLD STORE OUT``."""
     import datetime
@@ -2760,7 +2877,8 @@ def _mesh_rank_main(argv) -> int:
         torch.cuda.reset_peak_memory_stats()
         loop = _mesh_loop(cfg, MESH_PAIR_STEPS, mesh)
         reset_launch_counts()
-        loop.run()
+        with _Seen() as seen:
+            loop.run()
         torch.cuda.synchronize()
         label = f"{shape[0]}x{shape[1]}"
         loop.finalize_run(os.path.join(MESH_TALP_DIR, ARCH, f"train_mesh_{label}"))
@@ -2771,9 +2889,12 @@ def _mesh_rank_main(argv) -> int:
             step_seconds=[h["seconds"] for h in loop.metrics_history],
             peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launch_counts(),
             held_bytes=_held_bytes(loop.final_state), share_bytes=_share_bytes(cfg, mesh),
-            record=loop.session.last_record_path)
+            matmul_flops=_matmul_flops(seen.profiles[0]), flash_shapes=sorted(seen.flash),
+            rms_shapes=sorted(seen.rms), record=loop.session.last_record_path)
         del loop
         torch.cuda.empty_cache()
+    res["moe"] = _mesh_moe_run(make_host_mesh(model=2, device=DEV))
+    res["moe"]["rank"] = rank
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -2833,24 +2954,35 @@ def _mesh_one_rank(failures: list) -> tuple[dict, dict]:
                 expected_launches=want), counts
 
 
-def _mesh_pair(failures: list) -> dict:
+def _mesh_pair(failures: list) -> tuple[dict, dict]:
     """(b): two gloo ranks sharing the card (subprocesses of this script,
-    ``--mesh-rank``) at MESH_REPEATS layers on each of MESH_SHAPES, against a
-    one-rank run at that depth in this process."""
+    ``--mesh-rank``) at MESH_REPEATS layers on each of MESH_SHAPES and
+    MESH_MOE on (1, 2), against one-rank runs of both in this process.
+    Returns the phase's fields and rank 0's launches on (1, 2)."""
     import math
 
     import torch
 
     from repro_torch.core.factors import validate_pop
     from repro_torch.core.records import RunRecord
+    from repro_torch.kernels import cases
 
     cfg = _config().replace(repeats=MESH_REPEATS)
     loop = _mesh_loop(cfg, MESH_PAIR_STEPS, None)
-    loop.run()
+    with _Seen() as seen:
+        loop.run()
     ref = [h["loss"] for h in loop.metrics_history]
     ref_norms = [h["grad_norm"] for h in loop.metrics_history]
+    ref_flops = _matmul_flops(seen.profiles[0])
+    del loop
+    # the same weights computed in fp32: how far bf16 alone moves the loss
+    loop = _mesh_loop(cfg.replace(compute_dtype_name="float32"), MESH_PAIR_STEPS, None, "null")
+    loop.run()
+    ref32 = [h["loss"] for h in loop.metrics_history]
+    ref32_norms = [h["grad_norm"] for h in loop.metrics_history]
     del loop
     torch.cuda.empty_cache()
+    moe_ref = _mesh_moe_run(None)
     work = os.path.join(ROOT, "results", "mesh_pair")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -2877,6 +3009,9 @@ def _mesh_pair(failures: list) -> dict:
         with open(os.path.join(work, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     shutil.rmtree(work, ignore_errors=True)
+    want_launches = _train_expected_launches(cfg, MESH_PAIR_STEPS, TRAIN_A)
+    B, Sq, Sk, Hq, Hkv, D = cases.MAIN_FLASH_MESH[:6]
+    tp_shapes = dict(flash=[[[B, Sq, Hq, D], [B, Sk, Hkv, D]]], rms=[list(cases.MAIN_RMS_MESH)])
     out = {}
     for shape in MESH_SHAPES:
         label = f"{shape[0]}x{shape[1]}"
@@ -2884,14 +3019,27 @@ def _mesh_pair(failures: list) -> dict:
         for row in rows:
             rel = max(abs(a - b) / abs(b) for a, b in zip(row["losses"], ref))
             row["max_rel_err"] = rel
+            row["matmul_flops_over_one_rank"] = row["matmul_flops"] / ref_flops
+            where = f"(b) {label} rank {row['rank']}"
             if rel > MESH_PAIR_TOL or not all(map(math.isfinite, row["losses"])):
-                failures.append(f"(b) {label} rank {row['rank']}: losses {row['losses']} vs "
-                                f"one rank's {ref}: {rel:.3g} > {MESH_PAIR_TOL}")
+                failures.append(f"{where}: losses {row['losses']} vs one rank's {ref}: "
+                                f"{rel:.3g} > {MESH_PAIR_TOL}")
             if row["held_bytes"] != row["share_bytes"]:
-                failures.append(f"(b) {label} rank {row['rank']}: held {row['held_bytes']} B "
-                                f"!= its share {row['share_bytes']} B")
+                failures.append(f"{where}: held {row['held_bytes']} B != its share "
+                                f"{row['share_bytes']} B")
             if row["mesh"] != {"data": shape[0], "model": shape[1]}:
-                failures.append(f"(b) {label} rank {row['rank']}: mesh {row['mesh']}")
+                failures.append(f"{where}: mesh {row['mesh']}")
+            got = {k: v for k, v in row["launches"].items() if v}
+            if got != want_launches:
+                failures.append(f"{where}: launches {got} != {want_launches}")
+            if shape[1] > 1:
+                if abs(row["matmul_flops_over_one_rank"] - 0.5) > 0.5 * MESH_FLOP_TOL:
+                    failures.append(f"{where}: matmul FLOPs {row['matmul_flops']} against one "
+                                    f"rank's {ref_flops}: not half within {MESH_FLOP_TOL}")
+                if (row["flash_shapes"], row["rms_shapes"]) != (tp_shapes["flash"],
+                                                                tp_shapes["rms"]):
+                    failures.append(f"{where}: K2 at {row['flash_shapes']}, K1 at "
+                                    f"{row['rms_shapes']}, not the rank's {tp_shapes}")
         rec = RunRecord.load(rows[0]["record"])
         pop_errors = {n: validate_pop(r.pop) for n, r in rec.regions.items()}
         if rec.resources.mesh != {"data": shape[0], "model": shape[1]} or any(pop_errors.values()):
@@ -2901,19 +3049,39 @@ def _mesh_pair(failures: list) -> dict:
         out[label] = dict(ranks=rows, record=os.path.relpath(rows[0]["record"], ROOT),
                           record_resources=rec.resources.to_json(),
                           data_lb=rec.regions["train_step"].measurements.data_lb)
+    moe = [rk["moe"] for rk in ranks]
+    for row in moe:
+        where = f"(b) moe rank {row['rank']}"
+        if row["expert_load"] != moe_ref["expert_load"]:
+            failures.append(f"{where}: expert_load differs from one rank's")
+        if row["expert_flops"] * 2 != moe_ref["expert_flops"]:
+            failures.append(f"{where}: expert products {row['expert_flops']} FLOPs, one rank "
+                            f"{moe_ref['expert_flops']}: not its half")
+        got = {k: v for k, v in row["launches"].items() if v}
+        if got != row["expected_launches"] or not all(map(math.isfinite, row["losses"])):
+            failures.append(f"{where}: launches {got} != {row['expected_launches']}, losses "
+                            f"{row['losses']}")
+        row["max_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(
+            row["losses"] + row["grad_norms"], moe_ref["losses"] + moe_ref["grad_norms"]))
     return dict(repeats=MESH_REPEATS, steps=MESH_PAIR_STEPS, backend="gloo", world=world,
-                one_rank_losses=ref, one_rank_grad_norms=ref_norms, meshes=out)
+                one_rank_losses=ref, one_rank_grad_norms=ref_norms,
+                one_rank_fp32_losses=ref32, one_rank_fp32_grad_norms=ref32_norms,
+                one_rank_bf16_vs_fp32=max(abs(a - b) / abs(b) for a, b in zip(ref, ref32)),
+                one_rank_matmul_flops=ref_flops, meshes=out,
+                moe=dict(config=MESH_MOE, one_rank=moe_ref, ranks=moe)), \
+        ranks[0]["1x2"]["launches"]
 
 
-def phase_mesh() -> dict:
-    """6b: the training step over a mesh of ranks, (a) and (b)."""
+def phase_mesh() -> tuple[dict, dict]:
+    """6b: the training step over a mesh of ranks, (a) and (b); returns the
+    launches of (a) and of (b)'s tensor-parallel rank 0."""
     failures: list = []
     one, counts = _mesh_one_rank(failures)
-    pair = _mesh_pair(failures)
+    pair, tp_counts = _mesh_pair(failures)
     emit("mesh", one_rank_nccl=one, two_ranks_gloo=pair, card=_card())
     if failures:
         raise AssertionError("mesh: " + "; ".join(failures))
-    return counts
+    return counts, tp_counts
 
 
 def _card() -> str:
@@ -3867,9 +4035,10 @@ def _fp32_witness(model, prompts: dict, base: dict, other: dict) -> list:
 
 
 def phase_zamba2_serve(p: dict, seed: int) -> dict:
-    """zamba2-2.7b serving, fan-in weights drawn on the card. At full depth
-    (54 layers: 45 mamba2, 9 attention) in bf16, one model: (a) glm4's
-    traffic (launches exact: K3 and K4 on the 9 attention layers, K1 on
+    """zamba2-2.7b serving, fan-in weights drawn on the card. At
+    ``serve_repeats`` repeats of the pattern (30 layers: 25 mamba2, 5
+    attention) in bf16, one model: (a) glm4's
+    traffic (launches exact: K3 and K4 on the attention layers, K1 on
     every norm); (b) ``pool_requests`` requests against ``pool_pages``
     pages, which preempts, and against an ample pool: tokens equal but at
     a near tie (``_tie_check``); (c) a shared system prompt with the prefix
@@ -3895,7 +4064,7 @@ def phase_zamba2_serve(p: dict, seed: int) -> dict:
     import torch
 
     arch = "zamba2-2.7b"
-    cfg = _arch_cfg(arch)
+    cfg = _arch_cfg(arch, p["serve_repeats"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model, init_s = _card_model(cfg, seed, fan_in=True)
@@ -4390,6 +4559,12 @@ def _arch_kernel_rows() -> list:
              ("rmsnorm", "command_r_decode", "command_r_serve", by_case[(4, 8192)]),
              ("rmsnorm", "hubert_train", "hubert_train", by_case[(4096, 1280)]),
              ("rmsnorm_backward", "hubert_train", "hubert_train", by_case[(4096, 1280)])]
+    # a tensor-parallel rank of phase 6b (b): tinyllama's 16 of 32 heads,
+    # its sequence half of the norms' rows
+    rows += [(name, "mesh_tp", "mesh_tp", cases.MAIN_FLASH_MESH)
+             for name in ("flash_attention", "flash_attention_backward")]
+    rows += [(name, "mesh_tp", "mesh_tp", by_case[cases.MAIN_RMS_MESH])
+             for name in ("rmsnorm", "rmsnorm_backward")]
     # the MoE archs (phase 10): qwen3 at G 8 and dbrx at G 6, qk-norm at
     # head dim 128
     rows += [(name, "qwen3", "qwen3_train", cases.MAIN_FLASH_QWEN3)
@@ -4883,7 +5058,7 @@ def main() -> int:
     phase_train_parity(params)
     del params
     train_counts = phase_train(profile)
-    mesh_counts = phase_mesh()
+    mesh_counts, mesh_tp_counts = phase_mesh()
     phase_report()
     arch_counts = phase_archs()
     moe_counts = phase_moe()
@@ -4891,7 +5066,7 @@ def main() -> int:
     rows = phase_timing(main_err, {"serve": serve_counts, "serve_dense": dense_counts,
                                    "serve_load": load_counts, "serve_spec": spec_counts,
                                    "serve_fault": fault_counts, "train": train_counts,
-                                   "mesh": mesh_counts,
+                                   "mesh": mesh_counts, "mesh_tp": mesh_tp_counts,
                                    **arch_counts, **moe_counts, **recurrent_counts})
     emit("timing", rows=len(rows))
     card = _card()

@@ -4,11 +4,20 @@ The JAX package derives them from the compiled HLO (``repro.core.hlo``);
 PyTorch runs eagerly and has no compiled program to read, so the port
 counts one real execution of the step instead (``StepProfile.count``):
 
-* ``torch.utils.flop_counter.FlopCounterMode`` gives the FLOPs of the
-  matrix products (forward and backward), per operator;
-* a ``TorchDispatchMode`` sums, per operator, the bytes of its tensor
-  inputs and outputs (views move nothing and are skipped): the HBM
-  traffic of an eager program that keeps no intermediate on chip;
+* one ``TorchDispatchMode`` (``_Counter``) sees every operator the step
+  dispatches and runs it as it came. Per operator it sums the bytes of
+  its tensor inputs and outputs (views move nothing and are skipped:
+  the HBM traffic of an eager program that keeps no intermediate on
+  chip), and the FLOPs of the operators that
+  ``torch.utils.flop_counter``'s formula registry knows (the matrix
+  products and attention, forward and backward; a composite operator
+  that reaches the mode whole, as ``aten.einsum`` does in inference
+  mode, counts its parts' FLOPs, read off its decomposition on meta
+  tensors). ``FlopCounterMode`` does not count the step: it runs every
+  operator that its registry lacks through ``func.decompose``, so the
+  counted step would run other maths than the step it describes (bf16
+  ``silu_backward`` became sigmoid, sub, mul and add) and its bytes
+  would be those parts';
 * a kernel launched through ``ctypes`` is invisible to both, so each
   kernel wrapper
   reports its own FLOPs and bytes from its shapes through
@@ -27,7 +36,7 @@ from typing import Any, Callable
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry as _FLOP_FORMULAS
 
 from repro_torch import kernels as K
 from repro_torch.core.records import (
@@ -47,20 +56,57 @@ def _tensor_bytes(obj) -> int:
     return 0
 
 
-class _ByteCounter(TorchDispatchMode):
-    """Per-operator call count and input+output bytes."""
+def _composite(func) -> bool:
+    """Whether ``func`` runs its C++ ``CompositeImplicitAutograd`` kernel:
+    in inference mode such an operator (``aten.matmul``, ``aten.einsum``)
+    reaches a dispatch mode whole, and its parts run below it."""
+    return torch._C._dispatch_has_kernel_for_dispatch_key(
+        func.name(), torch._C.DispatchKey.CompositeImplicitAutograd)
+
+
+def _meta(x):
+    if isinstance(x, torch.Tensor):
+        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device="meta")
+    return x
+
+
+def _composite_flops(func, args, kwargs) -> float:
+    """The FLOPs of a composite operator's parts, read off its decomposition
+    on meta tensors with every dispatch mode set aside: nothing runs on the
+    step's tensors, and no other mode sees the parts. An operator whose
+    shapes depend on its data has no meta decomposition: it counts 0."""
+    from torch.utils._pytree import tree_map
+    from torch.utils._python_dispatch import _disable_current_modes
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with _disable_current_modes(), FlopCounterMode(display=False) as fm:
+        try:
+            func(*tree_map(_meta, args), **tree_map(_meta, kwargs))
+        except (NotImplementedError, RuntimeError):
+            return 0.0
+    return float(fm.get_total_flops())
+
+
+class _Counter(TorchDispatchMode):
+    """Per-operator call count, input+output bytes and FLOPs; every
+    operator runs exactly as it was dispatched."""
 
     def __init__(self) -> None:
         super().__init__()
-        self.ops: dict[str, list] = {}  # name -> [calls, bytes]
+        self.ops: dict[str, list] = {}  # name -> [calls, bytes, flops]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not func.is_view:
-            entry = self.ops.setdefault(str(func.overloadpacket), [0, 0])
+            entry = self.ops.setdefault(str(func.overloadpacket), [0, 0, 0.0])
             entry[0] += 1
             entry[1] += _tensor_bytes(args) + _tensor_bytes(kwargs) + _tensor_bytes(out)
+            formula = _FLOP_FORMULAS.get(func.overloadpacket)
+            if formula is not None:
+                entry[2] += float(formula(*args, **kwargs, out_val=out))
+            elif _composite(func):
+                entry[2] += _composite_flops(func, args, kwargs)
         return out
 
 
@@ -90,9 +136,11 @@ class StepProfile:
               model_bytes: float = 0.0, **kwargs) -> tuple[Any, "StepProfile"]:
         """Run ``fn(*args, **kwargs)`` once under the counters; returns its
         result and the profile of that execution. The count is one
-        device's: on a mesh of ``num_devices`` ranks, each running the
-        same step on its rows, the machine total is ``num_devices`` times
-        it (as the JAX package scales its per-device HLO count)."""
+        device's: on a mesh of ``num_devices`` ranks, each running its
+        equal share of the step (its rows, and on a tensor-parallel mesh
+        its heads, columns, experts and vocabulary block), the machine
+        total is ``num_devices`` times it (as the JAX package scales its
+        per-device HLO count)."""
         kernels: dict[str, list] = {}
 
         def sink(name: str, flops: float, nbytes: float) -> None:
@@ -103,15 +151,12 @@ class StepProfile:
 
         K.COST_SINKS.append(sink)
         try:
-            with _ByteCounter() as bytes_mode, FlopCounterMode(display=False) as flop_mode:
+            with _Counter() as counter:
                 out = fn(*args, **kwargs)
         finally:
             K.COST_SINKS.remove(sink)
-        op_flops = {str(op): float(f)
-                    for op, f in flop_mode.get_flop_counts().get("Global", {}).items()}
         per: dict[str, ComputationCounters] = {}
-        for name, (calls, nbytes) in bytes_mode.ops.items():
-            f = op_flops.get(name, 0.0)
+        for name, (calls, nbytes, f) in counter.ops.items():
             per[name] = ComputationCounters(
                 name=name, kind="op", multiplicity=float(calls), num_instructions=calls,
                 flops=f, dot_flops=f, hbm_bytes=float(nbytes))

@@ -1,5 +1,6 @@
-"""Ranks that hold only their blocks: placements, the batch split, and the
-gather that a layer's weights go through.
+"""Ranks that hold only their blocks: placements, the batch split, the
+gather that a layer's weights go through, and the tensor-parallel split
+of the compute over a megatron mesh's ``"model"`` axis.
 
 A leaf's placement is a ``NamedSharding``: a mesh and a pspec (a tuple,
 one entry a dim: None, an axis name, or a tuple of names, major first).
@@ -8,19 +9,33 @@ size_b + i_b``, as a JAX mesh orders its devices. A rank stores the
 block at its own coordinates as a plain contiguous tensor; ranks that
 differ only along axes the pspec does not name hold equal copies.
 
-The compute splits only the batch: each rank runs its rows of the global
-batch (``BatchRanks``, the rows the ``"batch"`` activation rule gives
-it) against the full weights, which ``gather`` assembles just before
-use. ``gather`` is an ``autograd.Function``: forward, an all-gather over
-the ranks that differ along the leaf's axes; backward, the gradient
-summed over the ranks that hold different rows, and each holder keeps
-its block. When the leaf's axes all split the batch that is a
-reduce-scatter over them (then an all-reduce over the batch axes the
-leaf does not name); otherwise (the ``"model"`` peers of a megatron
-mesh, which compute the same rows) the full gradient is all-reduced over
-the batch axes and each rank cuts its block, so identical gradients
-count once. ``gloo`` has no reduce-scatter for CUDA tensors: there the
-reduce-scatter is an all-reduce and the rank's slice.
+Each rank runs its rows of the global batch (``BatchRanks``, the rows
+the ``"batch"`` activation rule gives it). ``gather`` assembles a leaf
+just before its use: forward, an all-gather over the axes it is asked
+to assemble; backward, the gradient summed over ``sum_axes`` (the ranks
+whose work differs) and cut back to this rank's block: a reduce-scatter
+over the assembled axes, then an all-reduce over the other summed axes;
+when the assembled axes are not all summed (the ``"model"`` peers of a
+megatron mesh without tensor parallelism, which compute the same rows),
+the full gradient is all-reduced over ``sum_axes`` and each rank cuts
+its block, so identical gradients count once. ``gloo`` has no
+reduce-scatter for CUDA tensors: there the reduce-scatter is an
+all-reduce and the rank's slice.
+
+On a megatron mesh whose ``"model"`` axis is above 1 the compute splits
+as JAX's activation rules split it (``TensorParallel``): the residual
+stream is sequence-sharded over ``"model"``; attention runs on the
+rank's query heads, the MLP on its hidden columns, the MoE FFN on its
+experts, the embedding and the logits on its vocabulary rows. A leaf
+that such a layer splits (``"qkv"``, ``"kv"`` when the kv heads divide,
+``"mlp"``, ``"experts"``, ``"vocab"``) is assembled over its other axes
+only and keeps its ``"model"`` block; its gradient is summed over the
+other axes. Every other leaf (norm scales, the router, ``q_norm``, a
+kv projection whose heads do not divide, the blocks this split leaves
+whole) is assembled whole and its gradient summed over every axis: each
+rank's part of it comes from other sequence rows or other heads. The
+layers meet through the collectives of ``TensorParallel``, each an
+``autograd.Function`` whose backward is the matching collective.
 """
 
 from __future__ import annotations
@@ -81,6 +96,19 @@ class NamedSharding:
                 i = i * sizes[a] + c[a]
             out.append(slice(i * blk, (i + 1) * blk))
         return tuple(out)
+
+    def without(self, axis: str) -> "NamedSharding":
+        """The placement with ``axis`` left out: what remains to assemble
+        of a leaf whose ``axis`` block a rank computes with."""
+        def drop(e):
+            if e is None or e == axis:
+                return None
+            if isinstance(e, str):
+                return e
+            rest = tuple(a for a in e if a != axis)
+            return rest[0] if len(rest) == 1 else (rest or None)
+
+        return NamedSharding(self.mesh, tuple(drop(e) for e in self.spec))
 
     def local(self, full):
         """This rank's block of ``full`` (a view)."""
@@ -210,11 +238,11 @@ def gather_full(block: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
 
 
 @torch.no_grad()
-def reduce_to_block(g: torch.Tensor, sh: NamedSharding, batch_axes) -> torch.Tensor:
-    """A full-shape gradient summed over the ranks with other rows of the
-    batch (``batch_axes``), as this rank's block."""
+def reduce_to_block(g: torch.Tensor, sh: NamedSharding, sum_axes) -> torch.Tensor:
+    """A full-shape gradient summed over the ranks along ``sum_axes``, as
+    this rank's block under ``sh``."""
     mesh, dist = sh.mesh, _dist()
-    held, split = set(sh.axes), set(batch_axes)
+    held, split = set(sh.axes), set(sum_axes)
     if held <= split:
         if held:
             blk = _reduce_scatter(_split(g, sh), mesh.group(held))
@@ -231,20 +259,132 @@ def reduce_to_block(g: torch.Tensor, sh: NamedSharding, batch_axes) -> torch.Ten
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, block, sh, batch_axes):
-        ctx.sh, ctx.batch_axes = sh, batch_axes
+    def forward(ctx, block, sh, sum_axes):
+        ctx.sh, ctx.sum_axes = sh, sum_axes
         full = gather_full(block, sh)
         return full.clone() if full is block else full
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_to_block(g, ctx.sh, ctx.batch_axes), None, None
+        return reduce_to_block(g, ctx.sh, ctx.sum_axes), None, None
 
 
-def gather(block: torch.Tensor, sh: NamedSharding, batch_axes=()) -> torch.Tensor:
-    """The full leaf, differentiable: the backward sums the gradient over the
-    ranks with other rows (``batch_axes``) and returns this rank's block.
-    On a mesh without a process group, ``block`` itself."""
+def gather(block: torch.Tensor, sh: NamedSharding, sum_axes=()) -> torch.Tensor:
+    """The leaf assembled over ``sh``'s axes, differentiable: the backward
+    sums the gradient over the ranks along ``sum_axes`` and returns this
+    rank's block. On a mesh without a process group, ``block`` itself."""
     if not sh.mesh.distributed:
         return block
-    return _Gather.apply(block, sh, tuple(batch_axes))
+    return _Gather.apply(block, sh, tuple(sum_axes))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over "model"
+# ---------------------------------------------------------------------------
+
+
+def _seq_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, s, ...) a rank -> (B, n*s, ...), the group's parts in rank order."""
+    return _all_gather(x, group).movedim(0, 1).flatten(1, 2)
+
+
+def _seq_reduce_scatter(y: torch.Tensor, group) -> torch.Tensor:
+    """(B, S, ...) partial sums -> their sum's (B, S/n, ...) part of this rank."""
+    n = _dist().get_world_size(group)
+    stacked = y.unflatten(1, (n, y.shape[1] // n)).movedim(1, 0).contiguous()
+    return _reduce_scatter(stacked, group)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _seq_all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_reduce_scatter(g, ctx.group), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.group = group
+        return _seq_reduce_scatter(y, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_all_gather(g, ctx.group), None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        _dist().all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _dist().all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class TensorParallel:
+    """The compute split over a megatron mesh's ``"model"`` axis: ``size``
+    ranks, this rank's ``index`` along it and their ``group``. The
+    residual stream is split along the sequence, ``part(S)`` a rank;
+    ``others`` are the mesh's other axes (the sums of a split leaf's
+    gradient)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.size = mesh.sizes["model"]
+        self.index = mesh.coords()["model"]
+        self.group = mesh.group(("model",))
+        self.others = tuple(a for a in mesh.axis_names if a != "model")
+
+    @classmethod
+    def of(cls, cfg, mesh) -> "TensorParallel | None":
+        """The split for ``cfg`` on ``mesh``: a mesh over a process group
+        whose ``"model"`` axis is above 1, under the megatron strategy;
+        else None (the compute splits only the batch)."""
+        from repro_torch.distributed.sharding import effective_strategy
+
+        if (mesh is None or not mesh.distributed or mesh.sizes.get("model", 1) == 1
+                or effective_strategy(cfg, mesh) != "megatron"):
+            return None
+        return cls(mesh)
+
+    def part(self, n: int) -> slice:
+        """This rank's ``n // size`` of ``n`` (heads, columns, experts,
+        vocabulary rows, sequence positions)."""
+        if n % self.size:
+            raise ValueError(f"{n} does not split over the model axis ({self.size})")
+        k = n // self.size
+        return slice(self.index * k, (self.index + 1) * k)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's sequence part of a (B, S, ...) tensor that every rank holds."""
+        return x[:, self.part(x.shape[1])]
+
+    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S/n, ...) -> (B, S, ...); backward: the reduce-scatter."""
+        return _SeqGather.apply(x, self.group)
+
+    def seq_scatter(self, y: torch.Tensor) -> torch.Tensor:
+        """(B, S, ...) partial sums -> this rank's (B, S/n, ...) of their
+        sum; backward: the all-gather."""
+        return _SeqScatter.apply(y, self.group)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the ``"model"`` ranks; backward: the same sum of the
+        gradients (each rank's use of the sum is its own term of the loss)."""
+        return _AllReduce.apply(x, self.group)
+
+    def max_(self, x: torch.Tensor) -> torch.Tensor:
+        """In-place maximum over the ``"model"`` ranks (no gradient)."""
+        _dist().all_reduce(x, op=_dist().ReduceOp.MAX, group=self.group)
+        return x

@@ -19,8 +19,10 @@ Rules are plain dicts consumed by ``layers.common.param_pspecs`` and
 axis names and sizes (``mesh.axis_names``, ``mesh.devices.shape``), so
 the port's ``launch.mesh.Mesh`` and a JAX mesh give the same rules. A
 pspec is a tuple (see ``layers.common``). The port stores parameters as
-these rules say; its compute splits only the batch (see
-``distributed.shard``).
+these rules say; its compute splits the batch, and on a megatron mesh
+whose "model" axis is above 1 also the heads, MLP columns, experts,
+vocabulary and the residual stream's sequence as the activation rules do
+(``distributed.shard.TensorParallel``).
 """
 
 from __future__ import annotations

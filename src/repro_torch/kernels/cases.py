@@ -155,9 +155,15 @@ MAIN_FLASH_QWEN3 = (1, 4096, 4096, 32, 4, 128, True, None, None)
 # zamba2-2.7b training (B 1, S 4096): its attention layers at 32/32 heads
 # (G 1), head dim 80 (padded to 128 on the tensor-core route), causal
 MAIN_FLASH_ZAMBA2 = (1, 4096, 4096, 32, 32, 80, True, None, None)
+# tinyllama-1.1b training on a (1, 2) tensor-parallel mesh (chip_smoke.py
+# phase 6b (b)): a rank's 16 of 32 query heads and 2 of 4 kv heads over the
+# whole sequence; its RMSNorms run on its sequence half, 4096 of phase 6's
+# 8192 rows of 2048 (qwen3's training row of RMS_ARCH_CASES)
+MAIN_FLASH_MESH = (4, 2048, 2048, 16, 2, 64, True, None, None)
+MAIN_RMS_MESH = (4096, 2048)
 FLASH_ARCH_CASES = FLASH_ARCH_SMALL + [MAIN_FLASH_GEMMA2, MAIN_FLASH_GEMMA2_GLOBAL,
                                        FLASH_GLM4, MAIN_FLASH_LLAVA, MAIN_FLASH_HUBERT,
-                                       MAIN_FLASH_QWEN3, MAIN_FLASH_ZAMBA2]
+                                       MAIN_FLASH_QWEN3, MAIN_FLASH_ZAMBA2, MAIN_FLASH_MESH]
 
 # K3 (B, Hq, Hkv, D, psize, nL, P, lens, window, softcap)
 PAGED_ARCH_SMALL = [

@@ -156,9 +156,36 @@ def attention_params(cfg) -> dict:
     return p
 
 
+def _rank_heads(params: dict, cfg, tp):
+    """A tensor-parallel rank's attention: its query heads ``tp.part(hq)``
+    and the kv heads they read. ``params`` holds the rank's ``"qkv"``
+    blocks (``wq``, ``bq``, ``wo``'s rows) and, when the kv heads divide
+    the model axis, its ``"kv"`` blocks; otherwise the whole kv leaves,
+    whose columns of the needed kv heads are cut here. Returns (params,
+    query heads, kv heads, kv head of each query head when the rank's
+    heads do not group evenly, else None)."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    qs = tp.part(hq)
+    nq = qs.stop - qs.start
+    if hkv % tp.size == 0:
+        return params, nq, hkv // tp.size, None
+    g = hq // hkv
+    kv0, kv1 = qs.start // g, (qs.stop - 1) // g + 1
+    p = dict(params)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            p[name] = p[name][..., kv0 * hd:kv1 * hd]
+    nkv = kv1 - kv0
+    of_q = [h // g - kv0 for h in range(qs.start, qs.stop)]
+    if nq % nkv == 0 and of_q == [i // (nq // nkv) for i in range(nq)]:
+        return p, nq, nkv, None
+    return p, nq, nkv, of_q
+
+
 def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
                     cache_len, block_tables, seq_mask=None, causal: bool = True,
-                    window: int | None = None, cache_row0: int = 0) -> torch.Tensor:
+                    window: int | None = None, cache_row0: int = 0,
+                    tp=None) -> torch.Tensor:
     """The JAX ``attention_block``'s branches.
 
     ``cache`` None (training, full-sequence forward): project, rotate and
@@ -173,9 +200,21 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
     cut by ``kv_len = cache_len``: one query row a slot for a decode step,
     the chunk against everything written so far (the JAX
     ``cache_attend``) for S > 1. ``positions`` doubles as each row's
-    write index. Returns (B,S,d)."""
-    B, S, _ = x.shape
+    write index. Returns (B,S,d).
+
+    With ``tp`` (``distributed.shard.TensorParallel``; cache-less only),
+    ``x`` is this rank's sequence part: it is all-gathered along the
+    sequence, q/k/v are the rank's heads (column-parallel; ``_rank_heads``),
+    the kernel runs on them at ``positions`` (B,S), and ``wo``'s rows
+    (row-parallel) give partial sums that a reduce-scatter along the
+    sequence turns into this rank's part of the output (B,S/n,d)."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    kv_of_q = None
+    if tp is not None:
+        assert cache is None, "tensor-parallel attention is cache-less"
+        x = tp.seq_gather(x)
+        params, hq, hkv, kv_of_q = _rank_heads(params, cfg, tp)
+    B, S, _ = x.shape
     compute = cfg.compute_dtype
     q = (x @ params["wq"].to(compute)).reshape(B, S, hq, hd)
     k = (x @ params["wk"].to(compute)).reshape(B, S, hkv, hd)
@@ -191,6 +230,8 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
         q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
 
+    if kv_of_q is not None:  # one kv head a query head
+        k, v = k[:, :, kv_of_q], v[:, :, kv_of_q]
     if cache is None:
         o = flash_attention(q, k, v, q_positions=positions, k_positions=positions,
                             causal=causal, window=window, softcap=cfg.attn_softcap)
@@ -220,4 +261,5 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
             k_positions=key_positions(B, k_cache.shape[1], k_cache.device),
             causal=causal, window=window, softcap=cfg.attn_softcap, kv_len=cache_len,
         )
-    return o.reshape(B, S, hq * hd) @ params["wo"].to(compute)
+    out = o.reshape(B, S, hq * hd) @ params["wo"].to(compute)
+    return out if tp is None else tp.seq_scatter(out)

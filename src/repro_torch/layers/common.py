@@ -202,12 +202,17 @@ class LogicalConstraints:
     ``group_count`` (the MoE dispatch's token groups) and nothing else.
     ``ranks``, when set, says that the tensors a layer sees are this rank's
     rows of the batch (``distributed.shard.BatchRanks``): one group of
-    ``ranks.shards``, with the cross-rank sums it needs."""
+    ``ranks.shards``, with the cross-rank sums it needs. ``tp``, when set
+    (``distributed.shard.TensorParallel``), says that the residual stream
+    is this rank's part of the sequence and that the layers compute their
+    ``"model"`` share, meeting through ``tp``'s collectives. Without a
+    mesh both are None and the layers run whole."""
 
-    def __init__(self, mesh, rules: dict[str, Any] | None, ranks=None):
+    def __init__(self, mesh, rules: dict[str, Any] | None, ranks=None, tp=None):
         self.mesh = mesh
         self.rules = rules or {}
         self.ranks = ranks
+        self.tp = tp
 
     def pspec(self, *logical_axes) -> tuple:
         axes, used = [], set()

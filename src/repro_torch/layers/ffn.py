@@ -70,7 +70,19 @@ def _act(name: str):
     }[name]
 
 
-def mlp_block(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp_block(params: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """With ``tp`` (``distributed.shard.TensorParallel``), ``x`` is this
+    rank's sequence part and ``params`` its ``"mlp"`` blocks: the input is
+    all-gathered along the sequence, the rank computes its hidden columns
+    (``wi``: column-parallel) and ``wo``'s rows (row-parallel), and the
+    partial sums reduce-scatter onto its sequence part."""
+    if tp is not None:
+        x = tp.seq_gather(x)
+    out = _mlp(params, x, cfg)
+    return out if tp is None else tp.seq_scatter(out)
+
+
+def _mlp(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     compute = cfg.compute_dtype
     act = _act(cfg.act)
     if "wi_gate" in params:
@@ -101,7 +113,7 @@ def router_topk(logits: torch.Tensor, k: int, normalize: bool):
 
 
 def _dispatch_group(xt: torch.Tensor, logits: torch.Tensor, E: int, K: int, C: int,
-                    normalize: bool, compute):
+                    normalize: bool, compute, mine: slice | None = None):
     """Dispatch one token group, as the JAX ``_dispatch_group``.
 
     xt: (n, d); logits: (n, E) fp32. Returns ``(xbuf (E, C, d), st, sw,
@@ -111,7 +123,9 @@ def _dispatch_group(xt: torch.Tensor, logits: torch.Tensor, E: int, K: int, C: i
     ``expert*C`` when dropped), and the pairs per expert (dropped ones
     counted). The pairs are sorted by expert with a stable sort, so an
     expert's slots go to its tokens in token order and the last ones past
-    C drop.
+    C drop. With ``mine`` (a tensor-parallel rank's experts) the buffer holds
+    those experts' slots alone, ``(len, C, d)``; everything else is the
+    whole group's.
     """
     n, d = xt.shape
     weights, experts = router_topk(logits, K, normalize)           # (n, K)
@@ -129,12 +143,22 @@ def _dispatch_group(xt: torch.Tensor, logits: torch.Tensor, E: int, K: int, C: i
     slot = se * C + torch.where(keep, pos, 0)
     # the pairs' rows in sorted order, gathered through the (n, K) expansion
     # so that the backward sums a token's K rows without atomics; dropped
-    # pairs write the spare row E*C, which is cut off
+    # pairs (and pairs of experts outside ``mine``) write the spare row,
+    # which is cut off
     src = xt.to(compute)[:, None, :].expand(n, K, d).reshape(n * K, d)[order]
-    dest = torch.where(keep, slot, E * C)
-    xbuf = torch.zeros((E * C + 1, d), dtype=compute, device=xt.device).index_put(
+    e = mine or slice(0, E)
+    n_e = e.stop - e.start
+    dest = _local_slots(slot, keep, e.start * C, n_e * C)
+    xbuf = torch.zeros((n_e * C + 1, d), dtype=compute, device=xt.device).index_put(
         (dest,), src)
-    return xbuf[:E * C].reshape(E, C, d), st, sw, keep, slot, expert_counts
+    return xbuf[:n_e * C].reshape(n_e, C, d), st, sw, keep, slot, expert_counts
+
+
+def _local_slots(slot, keep, first: int, n: int) -> torch.Tensor:
+    """Each pair's row in a buffer of the ``n`` slots from ``first``: the
+    spare row ``n`` for a dropped pair or one outside them."""
+    local = slot - first
+    return torch.where(keep & (local >= 0) & (local < n), local, n)
 
 
 def moe_block(params: dict, x: torch.Tensor, cfg,
@@ -151,7 +175,21 @@ def moe_block(params: dict, x: torch.Tensor, cfg,
     ``lc.ranks.shards``: ``expert_load`` is summed over those ranks (the
     global counts), and the losses are this rank's parts (its router
     probabilities and squared log-sum-exps over the global token count,
-    against the global load share), which sum over the ranks to JAX's."""
+    against the global load share), which sum over the ranks to JAX's.
+
+    With ``lc.tp`` (``distributed.shard.TensorParallel``) ``x`` is this
+    rank's sequence part and the experts' leaves its ``E/n`` experts'
+    blocks. The part is all-gathered along the sequence, so every
+    ``"model"`` rank routes its data shard's tokens as one group (the
+    router, the drops, ``expert_load`` and the losses are the same on
+    each, and ``Transformer.forward`` counts the losses once); each rank
+    fills and multiplies the capacity buffers of its own experts, combines
+    its experts' outputs (a pair of another rank's expert adds 0), and the
+    partial sums reduce-scatter onto its sequence part, as the MLP's do.
+    The shared experts' MLP splits as the dense MLP."""
+    tp = lc.tp
+    if tp is not None:
+        x = tp.seq_gather(x)
     m = cfg.moe
     B, S, d = x.shape
     N = B * S
@@ -164,27 +202,30 @@ def moe_block(params: dict, x: torch.Tensor, cfg,
 
     xt = x.reshape(N, d)
     logits = (xt @ params["router"].to(compute)).to(torch.float32)     # (N, E)
+    mine = slice(0, E) if tp is None else tp.part(E)  # this rank's experts
+    n_e = mine.stop - mine.start
     groups = [_dispatch_group(xt[g * n_loc:(g + 1) * n_loc], logits[g * n_loc:(g + 1) * n_loc],
-                              E, K, C, m.normalize_topk, compute) for g in range(G)]
-    # the groups' buffers side by side on the capacity axis: (E, G*C, d)
+                              E, K, C, m.normalize_topk, compute, mine) for g in range(G)]
+    # the groups' buffers side by side on the capacity axis: (n_e, G*C, d)
     xbuf = groups[0][0] if G == 1 else torch.cat([gr[0] for gr in groups], dim=1)
 
     act = _act("swiglu" if m.gated else "gelu")
-    g = torch.bmm(xbuf, params["wi_gate"].to(compute))                 # (E, G*C, f)
+    g = torch.bmm(xbuf, params["wi_gate"].to(compute))               # (n_e, G*C, f)
     if m.gated:
         h = act(g) * torch.bmm(xbuf, params["wi_up"].to(compute))
     else:
         h = act(g)
-    ybuf = torch.bmm(h, params["wo"].to(compute))                      # (E, G*C, d)
+    ybuf = torch.bmm(h, params["wo"].to(compute))                    # (n_e, G*C, d)
 
     outs = []
     for i, (_, st, sw, keep, slot, _) in enumerate(groups):
         yg = ybuf if G == 1 else ybuf[:, i * C:(i + 1) * C]
-        # combine: each pair's expert output (0 for a dropped pair: the
-        # spare row), times its weight, then each token's K rows in expert
-        # order
-        ypad = torch.cat([yg.reshape(E * C, d), yg.new_zeros((1, d))])
-        y = ypad[torch.where(keep, slot, E * C)] * (sw * keep).to(compute)[:, None]
+        # combine: each pair's expert output (0 for a dropped pair, or one
+        # of another rank's experts: the spare row), times its weight, then
+        # each token's K rows in expert order
+        ypad = torch.cat([yg.reshape(n_e * C, d), yg.new_zeros((1, d))])
+        y = ypad[_local_slots(slot, keep, mine.start * C, n_e * C)] * \
+            (sw * keep).to(compute)[:, None]
         # a token's sorted pairs in ascending order are its experts in
         # ascending order: the JAX scatter-add's order, kept by a
         # sequential sum
@@ -196,7 +237,7 @@ def moe_block(params: dict, x: torch.Tensor, cfg,
     out = outs[0] if G == 1 else torch.cat(outs)
 
     if m.n_shared_experts:
-        out = out + mlp_block(params["shared"], xt, cfg)
+        out = out + _mlp(params["shared"], xt, cfg)
 
     counts = groups[0][5]
     for gr in groups[1:]:
@@ -214,4 +255,5 @@ def moe_block(params: dict, x: torch.Tensor, cfg,
     aux = {"expert_load": expert_load,
            "moe_lb_loss": E * torch.sum(me * ce),
            "moe_z_loss": z_loss}
-    return out.reshape(B, S, d), aux
+    out = out.reshape(B, S, d)
+    return (out if tp is None else tp.seq_scatter(out)), aux

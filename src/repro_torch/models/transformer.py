@@ -138,13 +138,6 @@ def _dots_context():
 # ---------------------------------------------------------------------------
 
 
-def _zip_map(fn, a, b):
-    """``fn`` over the leaves of two nested dicts of one structure."""
-    if isinstance(a, dict):
-        return {k: _zip_map(fn, v, b[k]) for k, v in a.items()}
-    return fn(a, b)
-
-
 class Transformer(nn.Module):
     """Decoder (with ``cfg.encoder_only``, encoder) transformer. Weights
     are ``nn.Parameter``s named after their path in the JAX parameter tree
@@ -159,11 +152,15 @@ class Transformer(nn.Module):
     any device, and only the blocks reach ``device``). On a mesh over a
     process group each leaf is gathered just before its use: a stacked
     leaf one layer at a time inside ``_run_stack`` (under remat inside the
-    checkpointed layer, so the backward gathers it again and a rank holds
-    one layer's full weights at a time), the embedding, final norm and
-    head around theirs; the backward returns each rank its block of the
-    gradient (``distributed.shard.gather``). The kernels see plain
-    contiguous tensors."""
+    checkpointed layer, so the backward gathers it again, and recomputes
+    the layer's collectives, and a rank holds one layer's weights at a
+    time), the embedding, final norm and head around theirs; the backward
+    returns each rank its block of the gradient
+    (``distributed.shard.gather``). Under tensor parallelism
+    (``LogicalConstraints.tp``) a leaf that the rank's share computes with
+    keeps its ``"model"`` block (``_gather``, ``_tp_split``), and the
+    residual stream is the rank's part of the sequence. The kernels see
+    plain contiguous tensors."""
 
     def __init__(self, cfg, params: dict, device=None, mesh=None):
         super().__init__()
@@ -212,15 +209,31 @@ class Transformer(nn.Module):
         a process group)."""
         return self.mesh is not None and self.mesh.distributed
 
-    def _leaf(self, path: str, lc: LogicalConstraints = NULL_CONSTRAINTS) -> torch.Tensor:
-        """The full leaf at ``path``: the parameter, or on a mesh of ranks its
-        gather (the backward sums over ``lc.ranks``' batch axes)."""
+    def _leaf(self, path: str, lc: LogicalConstraints = NULL_CONSTRAINTS,
+              split: bool = False) -> torch.Tensor:
+        """The leaf at ``path`` as a layer computes with it: the parameter,
+        or on a mesh of ranks its gather (``_gather``)."""
         t = getattr(self, _attr_name(path))
         if not self.gathers:
             return t
+        return self._gather(t, self.shardings[path], lc, split)
+
+    @staticmethod
+    def _gather(t, sh, lc: LogicalConstraints, split: bool) -> torch.Tensor:
+        """A block assembled for its use. Without ``lc.tp``: the full leaf,
+        its gradient summed over ``lc.ranks``' batch axes. With it: a
+        ``split`` leaf that the mesh stores split over ``"model"`` keeps its
+        ``"model"`` block, assembled over the other axes and its gradient
+        summed over them; any other leaf is the full leaf, its gradient
+        summed over every axis (``distributed.shard``)."""
         from repro_torch.distributed.shard import gather
 
-        return gather(t, self.shardings[path], lc.ranks.axes if lc.ranks else ())
+        tp = lc.tp
+        if tp is None:
+            return gather(t, sh, lc.ranks.axes if lc.ranks else ())
+        if split and "model" in sh.axes:
+            return gather(t, sh.without("model"), tp.others)
+        return gather(t, sh, sh.mesh.axis_names)
 
     @classmethod
     def from_init(cls, cfg, seed: int = 0, device=None,
@@ -320,24 +333,52 @@ class Transformer(nn.Module):
                       lc: LogicalConstraints = NULL_CONSTRAINTS) -> torch.Tensor:
         """Stub frontend embeddings (B,P,d) first, then the tokens' (B,S)
         embeddings, concatenated along the sequence; ``embed_scale`` after
-        the concatenation, as in the JAX package."""
+        the concatenation, as in the JAX package. With ``lc.tp``, this
+        rank's sequence part of it (``_embed_split``)."""
         cfg = self.cfg
-        parts = []
-        if frontend is not None:
-            parts.append(frontend.to(self.device, cfg.compute_dtype, non_blocking=True))
-        if tokens is not None:
-            tokens = tokens.to(self.device, non_blocking=True)
-            parts.append(self._leaf("embed", lc)[tokens.long()].to(cfg.compute_dtype))
-        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        if lc.tp is not None:
+            x = self._embed_split(tokens, frontend, lc)
+        else:
+            parts = []
+            if frontend is not None:
+                parts.append(frontend.to(self.device, cfg.compute_dtype, non_blocking=True))
+            if tokens is not None:
+                tokens = tokens.to(self.device, non_blocking=True)
+                parts.append(self._leaf("embed", lc)[tokens.long()].to(cfg.compute_dtype))
+            x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
         return x
 
+    def _embed_split(self, tokens, frontend, lc: LogicalConstraints) -> torch.Tensor:
+        """The vocab-parallel lookup onto the sequence-sharded residual: each
+        rank looks every token up in its vocabulary rows (0 for a token
+        outside them), and a reduce-scatter along the sequence sums the
+        ranks' rows onto each rank's part. Frontend rows enter the sum from
+        the first rank alone; a model without tokens (hubert's frames)
+        takes its part of them as they are. Returns (B, S/n, d)."""
+        cfg, tp = self.cfg, lc.tp
+        fe = None
+        if frontend is not None:
+            fe = frontend.to(self.device, cfg.compute_dtype, non_blocking=True)
+        if tokens is None:
+            return tp.local(fe)
+        emb = self._leaf("embed", lc, split=True)          # (V/n, d)
+        local = tokens.to(self.device, non_blocking=True).long() - tp.part(cfg.vocab_padded).start
+        inside = (local >= 0) & (local < emb.shape[0])
+        rows = emb[local.clamp(0, emb.shape[0] - 1)].to(cfg.compute_dtype)
+        x = torch.where(inside[..., None], rows, rows.new_zeros(()))
+        if fe is not None:
+            x = torch.cat([fe if tp.index == 0 else torch.zeros_like(fe), x], dim=1)
+        return tp.seq_scatter(x)
+
     def _head(self, lc: LogicalConstraints = NULL_CONSTRAINTS) -> torch.Tensor:
-        """(d, V): the head, or the tied embedding's transpose."""
+        """(d, V): the head, or the tied embedding's transpose; with
+        ``lc.tp`` this rank's vocabulary columns (d, V/n)."""
+        split = lc.tp is not None
         if self.cfg.tie_embeddings:
-            return self._leaf("embed", lc).T
-        return self._leaf("head", lc)
+            return self._leaf("embed", lc, split).T
+        return self._leaf("head", lc, split)
 
     def _logits(self, x: torch.Tensor, head: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.cfg
@@ -361,46 +402,80 @@ class Transformer(nn.Module):
         aux): the MoE block's aux, else {}. Every position is routed,
         padding included, as in the JAX block. A recurrent block reads and
         writes the state rows ``cache_row0 .. cache_row0+B-1`` in place
-        (with ``commit_state`` False it reads them and writes nothing)."""
-        cfg = self.cfg
-        h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
+        (with ``commit_state`` False it reads them and writes nothing).
+
+        With ``lc.tp``, ``x`` is this rank's sequence part: the norms run
+        on it, attention, the MLP and the MoE FFN compute the rank's share
+        and return its part; a recurrent block, which this split leaves
+        whole, runs on the all-gathered rows and keeps its part."""
+        cfg, tp = self.cfg, lc.tp
         if kind in R.CACHE_KEYS:
-            key = R.CACHE_KEYS[kind]
-            rows = None
-            if cache is not None:
-                B = x.shape[0]
-                rows = {k: v[cache_row0:cache_row0 + B] for k, v in cache[key].items()}
-            block = {"mamba2": R.mamba2_block, "mlstm": R.mlstm_block,
-                     "slstm": R.slstm_block}[kind]
-            o, new = block(sp[key], h, cfg, cache=rows, seq_mask=seq_mask)
-            if new is not None and commit_state:
-                for k, v in new.items():
-                    rows[k].copy_(v)
-            x = x + o
-            if kind == "slstm":
-                h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
-                x = x + FFN.mlp_block(sp["mlp"], h2, cfg)
-            return x, {}
+            if tp is not None:
+                return tp.local(self._recurrent_slot(sp, tp.seq_gather(x), kind, cache,
+                                                     seq_mask, cache_row0, commit_state)), {}
+            return self._recurrent_slot(sp, x, kind, cache, seq_mask, cache_row0,
+                                        commit_state), {}
+        h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         x = x + A.attention_block(
             sp["attn"], h, cfg, positions=positions,
             cache=None if cache is None else cache["attn"],
             cache_len=cache_len, block_tables=block_tables, seq_mask=seq_mask,
             causal=not cfg.encoder_only,
             window=cfg.window if kind == "local_attn" else None, cache_row0=cache_row0,
+            tp=tp,
         )
         h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         if kind == "moe":
             o, aux = FFN.moe_block(sp["moe"], h2, cfg, lc)
             return x + o, aux
-        return x + FFN.mlp_block(sp["mlp"], h2, cfg), {}
+        return x + FFN.mlp_block(sp["mlp"], h2, cfg, tp), {}
+
+    def _recurrent_slot(self, sp: dict, x, kind, cache, seq_mask, cache_row0,
+                        commit_state):
+        cfg = self.cfg
+        h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
+        key = R.CACHE_KEYS[kind]
+        rows = None
+        if cache is not None:
+            B = x.shape[0]
+            rows = {k: v[cache_row0:cache_row0 + B] for k, v in cache[key].items()}
+        block = {"mamba2": R.mamba2_block, "mlstm": R.mlstm_block,
+                 "slstm": R.slstm_block}[kind]
+        o, new = block(sp[key], h, cfg, cache=rows, seq_mask=seq_mask)
+        if new is not None and commit_state:
+            for k, v in new.items():
+                rows[k].copy_(v)
+        x = x + o
+        if kind == "slstm":
+            h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
+            x = x + FFN.mlp_block(sp["mlp"], h2, cfg)
+        return x
 
     def _gathered_slot(self, name: str, layer: dict, x, lc, **kw):
-        """``_apply_slot`` on a layer's blocks gathered to full leaves."""
-        from repro_torch.distributed.shard import gather
-
-        axes = lc.ranks.axes if lc.ranks else ()
-        full = _zip_map(lambda t, sh: gather(t, sh, axes), layer, self._layer_shardings[name])
+        """``_apply_slot`` on a layer's blocks assembled for their use: with
+        ``lc.tp`` the leaves that the rank's share computes with keep their
+        ``"model"`` block (``_tp_split``), the rest are whole."""
+        kind = name.split("_", 1)[1]
+        flat = dict(tree_leaves(self._layer_shardings[name]))
+        full = unflatten({sub: self._gather(t, flat[sub], lc, self._tp_split(kind, sub, lc))
+                          for sub, t in tree_leaves(layer)})
         return self._apply_slot(full, x, lc=lc, **kw)
+
+    def _tp_split(self, kind: str, sub: str, lc) -> bool:
+        """Whether a layer's leaf enters the tensor-parallel compute as this
+        rank's ``"model"`` block: attention's q and o (and kv when the kv
+        heads divide the model axis), the MLPs, the experts; never in a
+        recurrent block, which this split leaves whole."""
+        tp = lc.tp
+        if tp is None or kind in R.CACHE_KEYS:
+            return False
+        leaf = sub.rsplit("/", 1)[1]
+        if sub.startswith("attn/"):
+            if leaf in ("wk", "wv", "bk", "bv"):
+                return self.cfg.n_kv_heads % tp.size == 0
+            return leaf in ("wq", "wo", "bq")
+        return sub.startswith(("mlp/", "moe/shared/")) or sub in (
+            "moe/wi_gate", "moe/wi_up", "moe/wo")
 
     def _run_stack(self, x, caches, *, positions, cache_len, seq_mask,
                    block_tables, cache_row0=0, commit_state=True,
@@ -416,7 +491,9 @@ class Transformer(nn.Module):
         Returns (x, aux): each aux entry summed over layers
         (``expert_load`` stays per expert), as the JAX ``_run_stack``
         reduces the scan's. On a mesh of ranks each layer's blocks are
-        gathered inside the (checkpointed) layer (``_gathered_slot``)."""
+        gathered inside the (checkpointed) layer (``_gathered_slot``), and
+        under tensor parallelism its sequence collectives run there too:
+        the recompute reruns both, in the same order on every rank."""
         cfg = self.cfg
         if cfg.remat not in ("none", "full", "dots"):
             raise ValueError(f"remat={cfg.remat!r}: one of 'none', 'full', 'dots'")
@@ -451,25 +528,56 @@ class Transformer(nn.Module):
         t = x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=torch.int32)
         return t.to(self.device, torch.int32, non_blocking=True).reshape(-1).expand(B)
 
-    def _chunk_loss(self, xi, li, z_coef: float, head):
+    def _chunk_loss(self, xi, li, z_coef: float, head, wi=None, tp=None):
         logits = self._logits(xi, head)
         logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li.clamp(min=0).long()[..., None])[..., 0]
-        w = (li >= 0).to(logits.dtype)
+        w = (li >= 0).to(logits.dtype) if wi is None else wi.to(logits.dtype)
+        if tp is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, li.clamp(min=0).long()[..., None])[..., 0]
+        else:
+            lse, gold = self._split_lse_gold(logits, li, tp)
         nll = (lse - gold) * w
         zl = z_coef * lse**2 * w if z_coef else 0.0
         return torch.sum(nll + zl), torch.sum(w)
 
+    def _split_lse_gold(self, logits, li, tp):
+        """The log-sum-exp and the gold logit over the whole vocabulary from
+        this rank's columns ``logits`` (..., V/n): the maximum and the sum
+        of exponentials all-reduced over ``"model"``, the gold logit from
+        the rank whose rows hold the label (the others add 0)."""
+        m = tp.max_(logits.detach().amax(dim=-1))
+        lse = torch.log(tp.all_reduce(torch.sum(torch.exp(logits - m[..., None]), dim=-1))) + m
+        n = logits.shape[-1]
+        local = li.long() - tp.index * n
+        inside = (local >= 0) & (local < n)
+        g = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        return lse, tp.all_reduce(torch.where(inside, g, g.new_zeros(())))
+
     def cross_entropy(self, x, labels, *, seq_chunk: int = 512,
-                      z_loss: float | None = None, head: torch.Tensor | None = None):
+                      z_loss: float | None = None, head: torch.Tensor | None = None,
+                      tp=None):
         """Chunked CE over the sequence: never materializes (B,S,V) logits.
         labels: (B,S) int; negative labels are masked out; the log-sum-exp
         runs over the padded vocabulary, with the z-loss ``z_loss *
         lse**2``. Each chunk is checkpointed (its logits are recomputed in
         the backward), as the JAX scan's ``jax.checkpoint`` does. Returns
         (loss_sum, weight_sum) in fp32 (float64 for a float64 model).
-        ``head`` (d, V) defaults to ``_head()``."""
+        ``head`` (d, V) defaults to ``_head()``.
+
+        With ``tp`` (vocab-parallel, ``distributed.shard.TensorParallel``),
+        ``x`` is this rank's sequence part (B,S/n,d) and ``head`` its
+        vocabulary columns (d,V/n): ``x`` is all-gathered along the
+        sequence, every rank computes its columns' logits of every row,
+        the log-sum-exp and the gold logit are summed over the ranks
+        (``_split_lse_gold``), and each rank counts the rows of its own
+        sequence part, so the ranks' sums add up to the whole CE."""
+        own = None
+        if tp is not None:
+            x = tp.seq_gather(x)
+            own = torch.zeros(labels.shape, dtype=torch.bool, device=labels.device)
+            own[:, tp.part(labels.shape[1])] = True
+            own = own & (labels >= 0)
         B, S, _ = x.shape
         head = self._head() if head is None else head
         z_coef = self.cfg.z_loss if z_loss is None else z_loss
@@ -478,24 +586,30 @@ class Transformer(nn.Module):
         if n * c > S:
             x = nn.functional.pad(x, (0, 0, 0, n * c - S))
             labels = nn.functional.pad(labels, (0, n * c - S), value=-1)
+            if own is not None:
+                own = nn.functional.pad(own, (0, n * c - S), value=False)
         acc = torch.promote_types(x.dtype, torch.float32)
         loss_sum = torch.zeros((), dtype=acc, device=x.device)
         w_sum = torch.zeros((), dtype=acc, device=x.device)
         for i in range(n):
-            xi, li = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+            cut = slice(i * c, (i + 1) * c)
+            xi, li = x[:, cut], labels[:, cut]
+            wi = None if own is None else own[:, cut]
             if torch.is_grad_enabled():
-                ls, ws = checkpoint(self._chunk_loss, xi, li, z_coef, head,
+                ls, ws = checkpoint(self._chunk_loss, xi, li, z_coef, head, wi, tp,
                                     use_reentrant=False)
             else:
-                ls, ws = self._chunk_loss(xi, li, z_coef, head)
+                ls, ws = self._chunk_loss(xi, li, z_coef, head, wi, tp)
             loss_sum, w_sum = loss_sum + ls, w_sum + ws
         return loss_sum, w_sum
 
     def _full_sequence(self, batch: dict, lc: LogicalConstraints = NULL_CONSTRAINTS):
         """Embed, run the stack cache-less at positions 0..S-1, final norm.
-        Returns (x, aux)."""
+        Returns (x, aux); with ``lc.tp`` x is this rank's sequence part."""
         x = self._embed_inputs(batch.get("tokens"), batch.get("frontend"), lc)
         B, S, _ = x.shape
+        if lc.tp is not None:
+            S *= lc.tp.size
         positions = torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
         x, aux = self._run_stack(x, None, positions=positions, cache_len=None,
                                  seq_mask=None, block_tables=None, lc=lc)
@@ -518,15 +632,19 @@ class Transformer(nn.Module):
         and ``tokens`` the global batch's labelled-token count: the CE sum
         is divided by it, and the router terms are this rank's parts
         (``layers.ffn.moe_block``), so the ranks' losses add up to the
-        global batch's loss and their gradients to its gradient."""
-        cfg = self.cfg
+        global batch's loss and their gradients to its gradient. With
+        ``lc.tp`` the CE sum is the rank's sequence part's, and the router
+        terms, which every ``"model"`` rank computes alike, enter each
+        rank's loss divided by the model axis, so they count once."""
+        cfg, tp = self.cfg, lc.tp
         x, aux = self._full_sequence(batch, lc)
         labels = batch["labels"].to(self.device, non_blocking=True)
-        loss_sum, w_sum = self.cross_entropy(x, labels, head=self._head(lc))
+        loss_sum, w_sum = self.cross_entropy(x, labels, head=self._head(lc), tp=tp)
         loss = loss_sum / torch.clamp(w_sum if tokens is None else tokens, min=1.0)
         if "moe_lb_loss" in aux:
-            loss = loss + cfg.moe_lb_coef * aux["moe_lb_loss"] / cfg.n_layers
-            loss = loss + cfg.moe_z_coef * aux["moe_z_loss"] / cfg.n_layers
+            share = cfg.n_layers * (1 if tp is None else tp.size)
+            loss = loss + cfg.moe_lb_coef * aux["moe_lb_loss"] / share
+            loss = loss + cfg.moe_z_coef * aux["moe_z_loss"] / share
         aux["tokens"] = w_sum
         return loss, aux
 

@@ -23,18 +23,23 @@ rank holds its blocks of the parameters, gradients and AdamW state
 (``train_state_pspecs``; ``init_state(mesh=)``), plain tensors with
 their ``NamedSharding``s beside them. Every rank gets the global batch
 (``SyntheticLM.batch_at``) and runs the rows that JAX's ``"batch"``
-activation rule gives it (``BatchRanks``); ranks that the rule does not
-split (the ``"model"`` peers of a megatron mesh) run the same rows. The
-loss is each rank's CE sum over the global batch's labelled-token count
-plus its share of the router terms, so the ranks' losses and gradients
-sum to the global ones; the layers' gathers sum the gradients over the
-ranks with other rows (``distributed.shard``), so identical rows count
-once. ``grad_norm`` is the whole gradient's (each block counted on one
-rank, all-reduced). Metrics are the global batch's, equal on every rank:
-``loss`` and ``moe_lb_loss`` summed over the ranks with other rows,
-``tokens`` and ``tokens_per_shard`` (over ``data_shards(mesh)``) from the
-global labels, ``expert_load`` summed in the MoE block. On a mesh
-without a process group (world size 1) the step is the plain step.
+activation rule gives it (``BatchRanks``). On a megatron mesh whose
+``"model"`` axis is above 1 the ``"model"`` peers split those rows'
+work as JAX's activation rules do (``TensorParallel``: the sequence of
+the residual stream, heads, MLP columns, experts, vocabulary); on any
+other mesh ranks that the batch rule does not split run the same rows.
+The loss is each rank's CE sum over the global batch's labelled-token
+count plus its share of the router terms, so the ranks' losses and
+gradients sum to the global ones; the layers' gathers sum each
+gradient over the ranks whose part of it differs (``distributed.shard``),
+so identical parts count once. ``grad_norm`` is the whole gradient's
+(each block counted on one rank, all-reduced). Metrics are the global
+batch's, equal on every rank: ``loss`` summed over the ranks with other
+rows (every rank under tensor parallelism), ``moe_lb_loss`` over the
+ranks with other rows of the batch, ``tokens`` and ``tokens_per_shard``
+(over ``data_shards(mesh)``) from the global labels, ``expert_load``
+summed in the MoE block. On a mesh without a process group (world size
+1) the step is the plain step.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import dataclasses
 import torch
 
 from repro_torch.distributed import sharding as SH
-from repro_torch.distributed.shard import BatchRanks, gather_full
+from repro_torch.distributed.shard import BatchRanks, TensorParallel, gather_full
 from repro_torch.layers.common import (
     LogicalConstraints,
     param_pspecs,
@@ -151,6 +156,7 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
     ranked = mesh is not None and mesh.distributed
     rules = SH.activation_rules(cfg, mesh) if ranked else None
     split = LogicalConstraints(mesh, rules) if ranked else None  # reads the batch split
+    tp = TensorParallel.of(cfg, mesh)
     n_shards = SH.data_shards(mesh) if mesh is not None else 1
 
     def train_step(state: TrainState, batch: dict):
@@ -174,7 +180,7 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
                 n_real = torch.sum(mb["labels"] >= 0).to(torch.float32)
                 rows = ranks.rows(mb["labels"].shape[0])
                 loss, aux = model({k: v[rows] for k, v in mb.items()},
-                                  LogicalConstraints(mesh, rules, ranks), n_real)
+                                  LogicalConstraints(mesh, rules, ranks, tp), n_real)
             else:
                 loss, aux = model(mb)
             grads = torch.autograd.grad(loss, leaves)
@@ -193,7 +199,12 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
             t = tokens_per_shard(mb["labels"], n_shards)
             tps = t if tps is None else tps + t
         if ranks is not None:  # each rank's parts -> the global batch's
-            ranks.sum_(loss_sum)
+            if tp is None:
+                ranks.sum_(loss_sum)
+            else:
+                import torch.distributed as dist
+
+                dist.all_reduce(loss_sum, group=mesh.group(mesh.axis_names))
             if "moe_lb_loss" in kept:
                 ranks.sum_(kept["moe_lb_loss"])
         inv = 1.0 / A

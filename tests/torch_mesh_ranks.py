@@ -13,6 +13,13 @@ from (2, 2)); ``two`` (2 ranks: that checkpoint restored on (2, 1), the
 same blocks cut by ``reshard_state`` from the full leaves, saved again, a JAX checkpoint restored on (1, 2) and one step more, a
 ``TrainLoop`` at world size 2); ``back`` (4 ranks: the 2-rank save
 restored on (2, 2)). Rank 0 writes ``DIR/out_PHASE.pt``.
+
+The tensor-parallel phases of ``tests/test_torch_tensor_parallel.py``:
+``tp4`` (4 ranks: glm4-9b's steps on (1, 4)) and ``tp2`` (2 ranks:
+command-r-35b's steps on (1, 2); one step of every megatron arch on
+(1, 2) from the weights the test hands over; a tinyllama step counted
+by ``StepProfile.count``, with the shapes that reach the attention
+kernel, the RMSNorm and the gathers).
 """
 
 from __future__ import annotations
@@ -47,6 +54,15 @@ STEPS = {
     "moe22": ("qwen3-moe-30b-a3b", MIXED, (2, 2), 4, 256, 1, 2),
 }
 LOOP = ("qwen3-moe-30b-a3b", MIXED, 4, 32, 3)  # arch, config, batch, seq, steps
+# tensor parallel over "model": glm4's 2 kv heads do not divide 4;
+# command-r ties its embedding
+TP_STEPS = {
+    "glm4_14": ("glm4-9b", F32, (1, 4), 4, 32, 1, 2),
+    "commandr_12": ("command-r-35b", F32, (1, 2), 4, 32, 1, 2),
+}
+# every arch whose smoke config takes the megatron strategy on (1, 2)
+MEGATRON_ARCHS = ("tinyllama-1.1b", "glm4-9b", "command-r-35b", "llava-next-mistral-7b",
+                  "hubert-xlarge", "qwen3-moe-30b-a3b", "dbrx-132b", "zamba2-2.7b")
 
 
 def tcfg() -> TrainConfig:
@@ -80,8 +96,8 @@ def held(state, full0: dict, mesh, cfg) -> dict:
             "pspecs": dict(tree_leaves(train_state_pspecs(cfg, mesh, tcfg())))}
 
 
-def run_steps(name, init, out, rank):
-    arch, kw, shape, B, S, A, steps = STEPS[name]
+def run_steps(name, init, out, rank, table=STEPS):
+    arch, kw, shape, B, S, A, steps = table[name]
     cfg = smoke_config(arch).replace(**kw)
     mesh = make_host_mesh(model=shape[1], device="cpu")
     assert mesh.sizes == {"data": shape[0], "model": shape[1]}
@@ -133,6 +149,65 @@ def restore(directory, cfg, mesh, init_tree):
     return state, step
 
 
+def arch_steps(init, out, rank):
+    """One step of each megatron arch on (1, 2) from ``init["archs"]``'s
+    weights and batch: the loss and ``grad_norm`` (the test holds them to
+    the port's one-rank step)."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.train import TrainState
+
+    mesh = make_host_mesh(model=2, device="cpu")
+    res = {}
+    for arch, (params, batch) in init["archs"].items():
+        cfg = smoke_config(arch).replace(**F32)
+        model = Transformer(cfg, params, "cpu", mesh)
+        state = TrainState(model, adamw_init(model.named_params(), tcfg().optimizer))
+        _, m = make_train_step(cfg, tcfg(), mesh)(state, batch)
+        res[arch] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    if rank == 0:
+        out["archs"] = res
+
+
+def counted_step(out, rank):
+    """tinyllama smoke (bf16) on (1, 2), one step under ``StepProfile.count``:
+    the counted FLOPs per operator, and the shapes that reach the attention
+    kernel's wrapper, the RMSNorm and the gathers."""
+    from repro_torch.core.profile import StepProfile
+    from repro_torch.layers import attention as A
+    from repro_torch.layers import norms as N
+    from repro_torch.train.train import init_state
+
+    seen = {"flash": [], "rmsnorm": [], "gather": []}
+    flash, norm, gather = A.flash_attention, N._rmsnorm_op, shard.gather
+
+    def flash_seen(q, k, v, **kw):
+        seen["flash"].append((tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, v, **kw)
+
+    def norm_seen(x, *a):
+        seen["rmsnorm"].append(tuple(x.shape))
+        return norm(x, *a)
+
+    def gather_seen(block, sh, sum_axes=()):
+        full = gather(block, sh, sum_axes)
+        seen["gather"].append((sh.spec, tuple(full.shape), tuple(sum_axes)))
+        return full
+
+    cfg = smoke_config("tinyllama-1.1b")
+    mesh = make_host_mesh(model=2, device="cpu")
+    state = init_state(cfg, tcfg(), seed=0, mesh=mesh)
+    A.flash_attention, N._rmsnorm_op, shard.gather = flash_seen, norm_seen, gather_seen
+    try:
+        _, prof = StepProfile.count(make_train_step(cfg, tcfg(), mesh), state,
+                                    data_for(cfg, 4, 32, 1).batch_at(0))
+    finally:
+        A.flash_attention, N._rmsnorm_op, shard.gather = flash, norm, gather
+    if rank == 0:
+        out["counted"] = {"flops": {k: c.flops for k, c in prof.per_computation.items()},
+                          **seen}
+
+
 gloo_cuda = shard._gloo_cuda
 
 
@@ -174,6 +249,12 @@ def main() -> None:
         state, m = make_train_step(cfg, tcfg(), state.model.mesh)(state, data.batch_at(step))
         out["from_jax"]["loss"] = float(m["loss"])
         run_loop(init, world, os.path.join(d, "talp", "qwen3", "train"), out, rank)
+    elif phase == "tp4":
+        run_steps("glm4_14", init, out, rank, TP_STEPS)
+    elif phase == "tp2":
+        run_steps("commandr_12", init, out, rank, TP_STEPS)
+        arch_steps(init, out, rank)
+        counted_step(out, rank)
     elif phase == "back":
         cfg = smoke_config("tinyllama-1.1b").replace(**F32)
         state, step = restore(os.path.join(d, "ck2"), cfg,
