@@ -67,7 +67,8 @@ exit:
            before and read after: paged decode 22 per decode step, paged
            prefill 22 per chunk, RMSNorm 45 per forward. Then the same
            trace again, flushing every tick, for time to first token;
-4b. serve-load  phase 4's model under load (batch 16, max_len 1024, page
+4b. serve-load  phase 4's weights at LOAD_REPEATS (6) of its 22 layers,
+           as phases 4c and 4d, under load (batch 16, max_len 1024, page
            16, chunk 64, overlap): (a) a 250-token system prompt and 16
            requests, the prefix cache on: 15 hits with copy-on-write, every
            trie page's bytes unchanged from its insert to the end, pages in
@@ -170,7 +171,21 @@ exit:
            (qwen3-moe-30b-a3b at 2 of 48 layers) on (1, 2): each step's
            ``expert_load`` equal to a one-rank run's, each rank's expert
            products (``aten.bmm``) half the one-rank FLOPs (its 64 of 128
-           experts); step times and peak memory a rank;
+           experts); step times and peak memory a rank; (c) MESH_SSM
+           (zamba2-2.7b at full width, 6 of 54 layers, weights at fan-in)
+           on (1, 2), mamba2 split over its SSM heads: losses and grad
+           norms within MESH_PAIR_TOL of a one-rank run, each rank's
+           counted ``in_proj`` FLOPs (2 d_inner/n + 2gN + h/n) / (2 d_inner
+           + 2gN + h) = 0.5061 and ``out_proj`` 0.500 of one rank's within
+           MESH_FLOP_TOL, K2 only at the rank's 16/16 heads, launches exact
+           (the split gated norm's K1 launches gone); (d) MESH_CP
+           (gemma2-2b at 4 of 26 layers, fsdp, B 1 x S 8192) on (1, 2),
+           where the ranks split the sequence: losses and grad norms within
+           MESH_PAIR_TOL of one rank's, K2 only at the 4096-query block
+           against 8192 keys, each rank's counted K2 FLOPs those of
+           ``launch_costs`` at its positions, launches exact; each rank's
+           K2 milliseconds and the record's host load balance printed
+           (record in ``results/talp_mesh_cp/``);
 7. report  the same configuration REPORT_STEPS steps under the tracer
            (record in ``results/talp/<arch>/train_tracer/``) and under the
            null collector, launch counters exact for each; the tracer's
@@ -191,10 +206,10 @@ exit:
            ``ci-report`` seconds;
 9. archs   the other dense archs at full width (``ARCH_PATHS``), bf16,
            seeded weights drawn on the card: gemma2-2b (the slice's main
-           path, 26 layers) serves 4 prompts of 4,200-6,000 tokens through
+           path; 8 of 26 layers) serves 4 prompts of 4,200-6,000 tokens through
            ``BatchScheduler`` (batch 4, max_len 8192, page 16, chunk 64), so
            the local layers' window of 4096 cuts keys in K3 and K4, and
-           trains 5 steps at B 1, S 8192 through ``TrainLoop`` under the
+           trains 5 steps at B 1, S 8192 (26 layers) through ``TrainLoop`` under the
            monitor (K2 at head dim 256), its record in
            ``results/talp_archs/gemma2-2b/train_monitor/`` passing the
            ``talp validate`` CLI; an fp32 parity run of gemma2-2b at depth 2
@@ -232,8 +247,8 @@ exit:
 11. recurrent the recurrent and hybrid archs at full width
            (``RECURRENT_PATHS``), bf16, weights drawn on the card after
            every earlier model is freed, at fan-in scale (``_fan_in_``:
-           stacked leaves at their per-layer fan-in): zamba2-2.7b (30 of 54 layers:
-           25 mamba2, 5 attention at 32/32 heads, head dim 80) serves glm4's traffic
+           stacked leaves at their per-layer fan-in): zamba2-2.7b (6 of 54 layers:
+           5 mamba2, 1 attention at 32/32 heads, head dim 80) serves glm4's traffic
            (launches exact: K3/K4 on the attention layers, K1 on every
            norm, the mamba2 gated norm at 5120 included), 16 requests
            against a 12-page pool that preempts (tokens equal an ample
@@ -242,7 +257,7 @@ exit:
            skipped; tokens equal); greedy speculation with every decoding
            request preempted once, so the replayed history commits through
            the two-pass verify several tokens at a time (no K3, two
-           forwards' K4 and K1 a verify): in bf16 at 30 layers, where the
+           forwards' K4 and K1 a verify): in bf16 at 6 layers, where the
            verify's chunked recurrences and K4 round apart from the decode
            step's beyond a near tie, each request that parts from the
            plain run held to an fp32 witness of the same weights (the two
@@ -252,7 +267,7 @@ exit:
            steps at B 1, S 4096 under the monitor (K2 at head dim 80, G 1),
            its record in ``results/talp_recurrent/`` passing ``talp
            validate``; xlstm-350m (21 mLSTM, 3 sLSTM; K1 alone) serves the
-           same traffic and a slot-reuse run (tokens equal a fresh
+           same traffic at 8 of its 24 layers and a slot-reuse run (tokens equal a fresh
            scheduler's), and trains at B 4, S 1024: at 8 of its 24 layers
            checkpoint-restart
            (checkpoints every 2 steps, a failure at step 3, the failed
@@ -368,18 +383,32 @@ MESH_SHAPES = ((1, 2), (2, 1))
 MESH_PAIR_STEPS = 2
 MESH_PAIR_TOL = 4.2e-4
 MESH_FLOP_TOL = 1e-2
-MESH_RANK_TIMEOUT = 300
+MESH_RANK_TIMEOUT = 480
 # qwen3-moe-30b-a3b at 2 of 48 layers, bf16 weights computed in fp32 (in
 # bf16 the split's reordered sums flip the router's near ties, so
 # expert_load could not be held equal), B 1 x S 4096, 2 steps
 MESH_MOE = dict(arch="qwen3-moe-30b-a3b", repeats=2, batch=1, seq=4096, steps=2, seed=75)
 MESH_TALP_DIR = os.path.join("results", "talp_mesh")
+# (c) zamba2-2.7b at full width, one repeat of its pattern (5 mamba2 + 1
+# attention of 54 layers), weights at their per-layer fan-in (``_fan_in_``),
+# bf16 computed in fp32, B 1 x S 4096 on (1, 2): mamba2 split over its 80
+# SSM heads. (d) gemma2-2b at 4 of 26 layers (2 local + 2 global), fsdp,
+# B 1 x S 8192 on (1, 2): the batch cannot split over "model", so the two
+# ranks split the sequence (context parallelism); its record, with each
+# rank's K2 milliseconds as the hosts' work, in MESH_CP_TALP_DIR
+MESH_SSM = dict(arch="zamba2-2.7b", repeats=1, batch=1, seq=4096, steps=2, seed=76)
+MESH_CP = dict(arch="gemma2-2b", repeats=2, batch=1, seq=8192, steps=2, seed=77)
+MESH_CP_TALP_DIR = os.path.join("results", "talp_mesh_cp")
 # Phase 4b: the loaded server. Batch 16 at max_len 1024 (a 1024-page
 # dense-equivalent pool), the traffic harness's bursty trace, and a pool of
 # LOAD_PAGES pages: at 384 (37.5%) the trace never fills it (peak 349 pages,
 # every preemption a priority one), so it is cut to 256, which the trace
 # fills (PERF.md).
 LOAD_BATCH, LOAD_MAX_LEN, LOAD_PAGES = 16, 1024, 256
+# phases 4b-4d serve at full width on LOAD_REPEATS of tinyllama's 22 layers
+# (phase 4's weights, its first layers; 22 until phase 6b's (c) and (d),
+# for the script's time: a host-bound tick's time follows the layer count)
+LOAD_REPEATS = 6
 PROFILE_LOAD_FROM, PROFILE_LOAD_TICKS = 200, 40
 LOAD_TRAFFIC = dict(n_requests=64, seed=0, arrival="burst", rate=0.25, burst_mult=6,
                     prompt_short=(32, 128), prompt_long=(384, 768), long_frac=0.25,
@@ -418,9 +447,9 @@ FAULT_SHED_N, FAULT_SHED_DEPTH = 24, 4
 FAULT_SPEC_TICKS = (6, 20, 40)
 # Phase 9: the other dense archs at full width, seeded random weights drawn
 # on the card (a CPU twin only for the parity runs). gemma2-2b is the
-# slice's main path, at full depth (26 layers): serving with prompts of
+# slice's main path: serving at 8 of its 26 layers with prompts of
 # 4,200-6,000 tokens, so the local layers' window of 4096 cuts keys in K3
-# and K4 (the pool ~3.5 GB); training at B 1, S 8192 (K2 at head dim 256,
+# and K4; training at full depth at B 1, S 8192 (K2 at head dim 256,
 # the window on the local layers) under the monitor; an fp32 parity run at
 # depth 2 (one local and one global layer) with the window cut to 1024,
 # whose 1,088-token prefill in chunks of 64 ends past it (the CPU fp32 and
@@ -432,7 +461,8 @@ FAULT_SPEC_TICKS = (6, 20, 40)
 # parameters fit beside the activations, 7.24e9 do not). hubert-xlarge
 # trains at full depth on frame batches (``FrameStream``).
 ARCH_PATHS = {
-    "gemma2-2b": dict(max_len=8192, prompt_lens=(4200, 4800, 5400, 6000), max_new=16,
+    "gemma2-2b": dict(serve_repeats=4, max_len=8192, prompt_lens=(4200, 4800, 5400, 6000),
+                      max_new=16,
                       train_batch=1, train_seq=8192, train_steps=5,
                       parity_repeats=1, parity_prompt=1088, parity_window=1024),
     "glm4-9b": dict(repeats=20, max_len=2048, prompt_lens=(600, 900, 1300, 1700),
@@ -476,14 +506,14 @@ MOE_TALP_DIR = os.path.join("results", "talp_moe")
 # tests/test_torch_recurrent.py), so no comparison of two computation
 # orders (speculation on and off, card and CPU) could hold; at fan-in
 # scale they part by 3.9e-5. zamba2-2.7b (2.67e9 parameters) serves at
-# 30 of 54 layers (full depth until tensor parallelism joined phase 6b, for
-# the script's time) with glm4's traffic, 16 requests against a
+# 6 of 54 layers (full depth until tensor parallelism joined phase 6b, 30
+# until phase 6b's (c) and (d), for the script's time) with glm4's traffic, 16 requests against a
 # pool that preempts and a shared system prompt through the prefix cache,
 # two-pass speculation in bf16 (each parting from the plain run held to
 # an fp32 witness) and in fp32 at 12 layers with the copy regime, and
 # trains at B 1, S 4096
 # under the monitor (record in RECURRENT_TALP_DIR); xlstm-350m (0.53e9)
-# serves the same traffic plus a slot-reuse run, and trains at B 4, S 1024
+# serves the same traffic at 8 of 24 layers plus a slot-reuse run, and trains at B 4, S 1024
 # with checkpoint-restart (at 8 of 24 layers, for the script's time),
 # remat "dots" and compress_dcn_grads; both run
 # fp32 parity at one pattern repeat (6 and 8 layers), a 256-token prefill
@@ -492,13 +522,13 @@ RECURRENT_PATHS = {
     "zamba2-2.7b": dict(max_len=2048, prompt_lens=(600, 900, 1300, 1700), max_new=16,
                         pool_requests=16, pool_prompt=(32, 96), pool_new=8, pool_pages=12,
                         prefix_system=128, prefix_tail=(10, 40), prefix_requests=6,
-                        serve_repeats=5, spec_bf16_requests=8, spec_repeats=2,
+                        serve_repeats=1, spec_bf16_requests=8, spec_repeats=2,
                         spec_preempt_at=16,
                         spec_k=4, copy_new=48,
                         train_batch=1, train_seq=4096, train_steps=3,
                         parity_repeats=1, parity_prompt=256),
     "xlstm-350m": dict(max_len=2048, prompt_lens=(600, 900, 1300, 1700), max_new=16,
-                       reuse_prompts=(300, 200), train_batch=4, train_seq=1024,
+                       serve_repeats=1, reuse_prompts=(300, 200), train_batch=4, train_seq=1024,
                        ckpt_repeats=1, ckpt_steps=4, ckpt_every=2, fail_at=3, remat_repeats=1,
                        parity_repeats=1, parity_prompt=256),
 }
@@ -1053,7 +1083,8 @@ def _check_training_kernels(checks: dict, main_err: dict) -> bool:
         checks[k] = []
     flash_cases = ([c + (0, None) for c in cases.FLASH_CASES] + cases.FLASH_KVLEN_CASES
                    + [cases.MAIN_FLASH + (0, None)]
-                   + [c + (0, None) for c in cases.FLASH_ARCH_CASES])
+                   + [c + (0, None) for c in cases.FLASH_ARCH_CASES]
+                   + cases.MAIN_FLASH_CP_LOCAL + cases.MAIN_FLASH_CP_GLOBAL)
     deterministic = True
     checks["flash_routes"] = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1711,6 +1742,17 @@ def phase_serve_load(model):
     if failures:
         raise AssertionError("serve_load: " + "; ".join(failures))
     return runs["tight"]["launches"]
+
+
+def _shallow(model, repeats: int):
+    """``model``'s first ``repeats`` layers as a model of its own, its
+    stacked leaves views of ``model``'s (no copy)."""
+    from repro_torch.layers.common import tree_leaves, unflatten
+    from repro_torch.models.transformer import Transformer
+
+    cut = {p: (t[:repeats] if p.startswith("slots/") else t).detach()
+           for p, t in tree_leaves(model.params())}
+    return Transformer(model.cfg.replace(repeats=repeats), unflatten(cut), model.device)
 
 
 def phase_profile_load(model):
@@ -2816,20 +2858,15 @@ def _mesh_moe_run(mesh) -> dict:
     import torch
 
     from repro_torch.core.profile import StepProfile
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.transformer import Transformer
-    from repro_torch.optim import adamw_init
-    from repro_torch.train.train import TrainConfig, TrainState, make_train_step
+    from repro_torch.train.train import TrainConfig, make_train_step
 
     m = MESH_MOE
-    cfg = _arch_cfg(m["arch"], m["repeats"]).replace(compute_dtype_name="float32")
     tcfg = TrainConfig(total_steps=m["steps"])
-    data = SyntheticLM(DataConfig(global_batch=m["batch"], seq_len=m["seq"], vocab=cfg.vocab,
-                                  pad_fraction=0.05))
     torch.cuda.reset_peak_memory_stats()
-    model = Transformer.from_init(cfg, seed=m["seed"], device=DEV, draw_device="cuda", mesh=mesh)
-    state = TrainState(model, adamw_init(model.named_params(), tcfg.optimizer), 0)
+    cfg, state = _mesh_arch_state(m, tcfg, mesh, fan_in=False)
+    data = _mesh_data_of(m, cfg)
+    model = state.model
     step = make_train_step(cfg, tcfg, mesh)
     reset_launch_counts()
     losses, norms, loads, secs = [], [], [], []
@@ -2855,8 +2892,238 @@ def _mesh_moe_run(mesh) -> dict:
     return out
 
 
+def _mesh_arch_state(m: dict, tcfg, mesh, fan_in: bool):
+    """``m``'s config (bf16 weights computed in fp32) and a train state of
+    weights drawn on the card from ``m["seed"]`` (a rank keeps its blocks;
+    ``fan_in``: ``_fan_in_`` after the draw)."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.train import TrainState
+
+    cfg = _arch_cfg(m["arch"], m["repeats"]).replace(compute_dtype_name="float32")
+    model = Transformer.from_init(cfg, seed=m["seed"], device=DEV, draw_device="cuda", mesh=mesh)
+    if fan_in:
+        _fan_in_(model)
+    return cfg, TrainState(model, adamw_init(model.named_params(), tcfg.optimizer), 0)
+
+
+def _mesh_data_of(m: dict, cfg):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    return SyntheticLM(DataConfig(global_batch=m["batch"], seq_len=m["seq"], vocab=cfg.vocab,
+                                  pad_fraction=0.05))
+
+
+class _Projections:
+    """While open: the FLOPs that ``StepProfile.count`` counts in each call
+    of a mamba2 block's ``in_projection`` and ``out_projection`` (forward
+    calls: a remat rerun counts again)."""
+
+    def __enter__(self):
+        from repro_torch.core.profile import StepProfile
+        from repro_torch.layers import recurrent as R
+
+        self.flops = {"in_proj": 0.0, "out_proj": 0.0}
+        self._saved = (R.in_projection, R.out_projection)
+
+        def counting(fn, key):
+            def run(*a, **kw):
+                out, prof = StepProfile.count(fn, *a, **kw)
+                self.flops[key] += prof.flops
+                return out
+            return run
+
+        R.in_projection = counting(self._saved[0], "in_proj")
+        R.out_projection = counting(self._saved[1], "out_proj")
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import recurrent as R
+
+        R.in_projection, R.out_projection = self._saved
+        return False
+
+
+def _split_ssm_launches(cfg, steps: int) -> dict:
+    """``_train_expected_launches`` of a tensor-parallel rank whose mamba2
+    blocks split: their gated norm is torch ops there (its mean sums over
+    the ranks, which K1 cannot take), one K1 forward (and its rerun) and
+    one backward fewer a mamba2 layer."""
+    want = _train_expected_launches(cfg, steps, 1)
+    n = cfg.repeats * cfg.pattern.count("mamba2")
+    want["rmsnorm"] -= (1 if cfg.remat == "none" else 2) * n * steps
+    want["rmsnorm_backward"] -= n * steps
+    return want
+
+
+def _mesh_ssm_run(mesh) -> dict:
+    """(c): MESH_SSM on ``mesh`` (None: one rank), its steps through
+    ``make_train_step``, the first with the mamba2 projections counted."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train.train import TrainConfig, make_train_step
+
+    m = MESH_SSM
+    tcfg = TrainConfig(total_steps=m["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    cfg, state = _mesh_arch_state(m, tcfg, mesh, fan_in=True)
+    data = _mesh_data_of(m, cfg)
+    step = make_train_step(cfg, tcfg, mesh)
+    reset_launch_counts()
+    losses, norms, secs = [], [], []
+    with _Seen() as seen:
+        for i in range(m["steps"]):
+            t0 = time.perf_counter()
+            with (_Projections() if i == 0 else contextlib.nullcontext()) as counted:
+                state, met = step(state, data.batch_at(i))
+                losses.append(float(met["loss"]))
+            if i == 0:
+                proj = counted.flops
+            norms.append(float(met["grad_norm"]))
+            secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    split = mesh is not None and mesh.sizes["model"] > 1
+    out = dict(layers=cfg.n_layers, compute="float32", params="bfloat16", fan_in=True,
+               losses=losses, grad_norms=norms, step_seconds=secs, launches=launch_counts(),
+               expected_launches=(_split_ssm_launches(cfg, m["steps"]) if split
+                                  else _train_expected_launches(cfg, m["steps"], 1)),
+               in_proj_flops=proj["in_proj"], out_proj_flops=proj["out_proj"],
+               flash_shapes=sorted(seen.flash), peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del step, state, met
+    _release()
+    return out
+
+
+class _K2Timer:
+    """While open: each K2 forward and backward launch timed by CUDA events
+    on its stream; ``take()`` returns the milliseconds since the last take."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as FA
+
+        self.events, self.steps = [], []
+        self._saved = (FA.flash_forward, FA.flash_backward)
+
+        def timed(fn):
+            def run(*a, **kw):
+                import torch
+
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                self.events.append((e0, e1))
+                return out
+            return run
+
+        FA.flash_forward, FA.flash_backward = timed(self._saved[0]), timed(self._saved[1])
+        return self
+
+    def take(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        ms = sum(e0.elapsed_time(e1) for e0, e1 in self.events)
+        self.events = []
+        self.steps.append(ms)
+        return ms
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops as FA
+
+        FA.flash_forward, FA.flash_backward = self._saved
+        return False
+
+
+def _cp_k2_flops(cfg, m: dict, index: int, size: int) -> tuple:
+    """(forward, backward) K2 FLOPs of one step of the rank at ``index`` of
+    ``size`` along "model" (its query block against every key) as
+    ``launch_costs`` counts them from its positions: each attention layer's
+    forward (and its remat rerun) and backward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    B, S = m["batch"], m["seq"]
+    blk = S // size
+    q = torch.empty((B, blk, cfg.n_heads, cfg.head_dim_), device="meta")
+    k = torch.empty((B, S, cfg.n_kv_heads, cfg.head_dim_), device="meta")
+    qpos = np.broadcast_to(np.arange(index * blk, (index + 1) * blk), (B, blk))
+    kpos = np.broadcast_to(np.arange(S), (B, S))
+    fwd = bwd = 0.0
+    for kind in cfg.pattern * cfg.repeats:
+        if kind not in _ATTN_KINDS:
+            continue
+        win = cfg.window if kind == "local_attn" else None
+        fwd += (1 if cfg.remat == "none" else 2) * FA.launch_costs(
+            q, k, True, win, False, qpos, kpos)[0]
+        bwd += FA.launch_costs(q, k, True, win, True, qpos, kpos)[0]
+    return fwd, bwd
+
+
+def _mesh_cp_run(mesh) -> dict:
+    """(d): MESH_CP on ``mesh`` (None: one rank) in a monitored
+    ``TrainLoop`` whose hosts' work is each rank's K2 milliseconds of the
+    step (``_K2Timer``), so the record's host load balance reads the
+    imbalance of a contiguous sequence split; the record (on the mesh) in
+    MESH_CP_TALP_DIR."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.train import TrainConfig
+
+    m = MESH_CP
+    tcfg = TrainConfig(total_steps=m["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    cfg, state = _mesh_arch_state(m, tcfg, mesh, fan_in=False)
+    timer = _K2Timer()
+
+    def k2_ms(step):
+        ms = timer.take()
+        if mesh is None:
+            return [ms]
+        import torch.distributed as dist
+
+        every = [None] * mesh.devices.size
+        dist.all_gather_object(every, ms)
+        return every
+
+    loop = TrainLoop(cfg, tcfg, _mesh_data_of(m, cfg),
+                     LoopConfig(steps=m["steps"], lb_sample_every=1, monitor_app_name=m["arch"],
+                                host_times_fn=k2_ms), state=state, mesh=mesh)
+    reset_launch_counts()
+    with timer, _Seen() as seen:
+        loop.run()
+    torch.cuda.synchronize()
+    index, size = (0, 1) if mesh is None else (mesh.coords()["model"], mesh.sizes["model"])
+    record = None
+    if mesh is not None:
+        label = f"{mesh.sizes['data']}x{mesh.sizes['model']}"
+        loop.finalize_run(os.path.join(MESH_CP_TALP_DIR, m["arch"], f"train_cp_{label}"))
+        record = loop.session.last_record_path
+    prof = seen.profiles[0]  # the record's count: machine totals over num_devices ranks
+    k2 = [prof.per_computation[n].flops / prof.num_devices
+          for n in ("flash_attention", "flash_attention_backward")]
+    hist = loop.metrics_history
+    out = dict(layers=cfg.n_layers, compute="float32", params="bfloat16", rank_index=index,
+               losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+               step_seconds=[h["seconds"] for h in hist], k2_ms=timer.steps,
+               launches=launch_counts(), expected_launches=_train_expected_launches(
+                   cfg, m["steps"], 1),
+               flash_shapes=sorted(seen.flash),
+               k2_flops=k2,
+               expected_k2_flops=list(_cp_k2_flops(cfg, m, index, size)), record=record,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del loop, state
+    _release()
+    return out
+
+
 def _mesh_rank_main(argv) -> int:
-    """One of phase 6b (b)'s ranks: ``--mesh-rank RANK WORLD STORE OUT``."""
+    """One of phase 6b (b) to (d)'s ranks: ``--mesh-rank RANK WORLD STORE OUT``."""
     import datetime
 
     import torch
@@ -2895,6 +3162,10 @@ def _mesh_rank_main(argv) -> int:
         torch.cuda.empty_cache()
     res["moe"] = _mesh_moe_run(make_host_mesh(model=2, device=DEV))
     res["moe"]["rank"] = rank
+    res["ssm"] = _mesh_ssm_run(make_host_mesh(model=2, device=DEV))
+    res["cp"] = _mesh_cp_run(make_host_mesh(model=2, device=DEV))
+    for key in ("ssm", "cp"):
+        res[key]["rank"] = rank
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -2955,10 +3226,11 @@ def _mesh_one_rank(failures: list) -> tuple[dict, dict]:
 
 
 def _mesh_pair(failures: list) -> tuple[dict, dict]:
-    """(b): two gloo ranks sharing the card (subprocesses of this script,
-    ``--mesh-rank``) at MESH_REPEATS layers on each of MESH_SHAPES and
-    MESH_MOE on (1, 2), against one-rank runs of both in this process.
-    Returns the phase's fields and rank 0's launches on (1, 2)."""
+    """(b) to (d): two gloo ranks sharing the card (subprocesses of this
+    script, ``--mesh-rank``) at MESH_REPEATS layers on each of MESH_SHAPES,
+    then MESH_MOE, MESH_SSM and MESH_CP on (1, 2), against one-rank runs of
+    each in this process. Returns the phase's fields and rank 0's launches
+    on (1, 2) by path (``mesh_tp``, ``mesh_ssm``, ``mesh_cp``)."""
     import math
 
     import torch
@@ -2983,6 +3255,7 @@ def _mesh_pair(failures: list) -> tuple[dict, dict]:
     del loop
     torch.cuda.empty_cache()
     moe_ref = _mesh_moe_run(None)
+    ssm_ref, cp_ref = _mesh_ssm_run(None), _mesh_cp_run(None)
     work = os.path.join(ROOT, "results", "mesh_pair")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -3063,25 +3336,107 @@ def _mesh_pair(failures: list) -> tuple[dict, dict]:
                             f"{row['losses']}")
         row["max_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(
             row["losses"] + row["grad_norms"], moe_ref["losses"] + moe_ref["grad_norms"]))
+    ssm, cp = _mesh_ssm_gates(ranks, ssm_ref, failures), _mesh_cp_gates(ranks, cp_ref, failures)
     return dict(repeats=MESH_REPEATS, steps=MESH_PAIR_STEPS, backend="gloo", world=world,
                 one_rank_losses=ref, one_rank_grad_norms=ref_norms,
                 one_rank_fp32_losses=ref32, one_rank_fp32_grad_norms=ref32_norms,
                 one_rank_bf16_vs_fp32=max(abs(a - b) / abs(b) for a, b in zip(ref, ref32)),
                 one_rank_matmul_flops=ref_flops, meshes=out,
-                moe=dict(config=MESH_MOE, one_rank=moe_ref, ranks=moe)), \
-        ranks[0]["1x2"]["launches"]
+                moe=dict(config=MESH_MOE, one_rank=moe_ref, ranks=moe), ssm=ssm, cp=cp), \
+        {"mesh_tp": ranks[0]["1x2"]["launches"], "mesh_ssm": ranks[0]["ssm"]["launches"],
+         "mesh_cp": ranks[0]["cp"]["launches"]}
 
 
-def phase_mesh() -> tuple[dict, dict]:
-    """6b: the training step over a mesh of ranks, (a) and (b); returns the
-    launches of (a) and of (b)'s tensor-parallel rank 0."""
+def _pair_gates(row: dict, ref: dict, where: str, failures: list) -> None:
+    """A rank's losses and grad norms within MESH_PAIR_TOL relative of the
+    one-rank run's (``row["max_rel_err"]``), finite, and its launches
+    exactly ``row["expected_launches"]``."""
+    import math
+
+    pairs = list(zip(row["losses"] + row["grad_norms"], ref["losses"] + ref["grad_norms"]))
+    row["max_rel_err"] = max(abs(a - b) / abs(b) for a, b in pairs)
+    if row["max_rel_err"] > MESH_PAIR_TOL or not all(math.isfinite(a) for a, _ in pairs):
+        failures.append(f"{where}: losses {row['losses']}, grad norms {row['grad_norms']} vs "
+                        f"one rank's {ref['losses']}, {ref['grad_norms']}: "
+                        f"{row['max_rel_err']:.3g} > {MESH_PAIR_TOL}")
+    got = {k: v for k, v in row["launches"].items() if v}
+    want = {k: v for k, v in row["expected_launches"].items() if v}
+    if got != want:
+        failures.append(f"{where}: launches {got} != {want}")
+
+
+def _mesh_ssm_gates(ranks: list, ref: dict, failures: list) -> dict:
+    """(c): each rank's steps against one rank's, its counted in_proj FLOPs
+    ``(2 d_inner/n + 2 g N + h/n) / (2 d_inner + 2 g N + h)`` and out_proj
+    FLOPs half of one rank's within MESH_FLOP_TOL, K2 at the rank's heads."""
+    cfg = _arch_cfg(MESH_SSM["arch"])
+    s, n = cfg.ssm, 2
+    di, gn, h = s.d_inner(cfg.d_model), s.n_groups * s.d_state, s.n_heads(cfg.d_model)
+    in_share = (2 * di / n + 2 * gn + h / n) / (2 * di + 2 * gn + h)
+    B, S = MESH_SSM["batch"], MESH_SSM["seq"]
+    flash = [[[B, S, cfg.n_heads // n, cfg.head_dim_], [B, S, cfg.n_kv_heads // n, cfg.head_dim_]]]
+    rows = [rk["ssm"] for rk in ranks]
+    for row in rows:
+        where = f"(c) zamba2 rank {row['rank']}"
+        _pair_gates(row, ref, where, failures)
+        row["in_proj_over_one_rank"] = row["in_proj_flops"] / ref["in_proj_flops"]
+        row["out_proj_over_one_rank"] = row["out_proj_flops"] / ref["out_proj_flops"]
+        for key, want in (("in_proj", in_share), ("out_proj", 0.5)):
+            got = row[f"{key}_over_one_rank"]
+            if abs(got / want - 1) > MESH_FLOP_TOL:
+                failures.append(f"{where}: {key} FLOPs {got:.5f} of one rank's, not "
+                                f"{want:.5f} within {MESH_FLOP_TOL}")
+        if row["flash_shapes"] != flash:
+            failures.append(f"{where}: K2 at {row['flash_shapes']}, not the rank's {flash}")
+    return dict(config=MESH_SSM, in_proj_share=in_share, one_rank=ref, ranks=rows)
+
+
+def _mesh_cp_gates(ranks: list, ref: dict, failures: list) -> dict:
+    """(d): each rank's steps against one rank's, K2 only at the rank's
+    4096-query block against 8192 keys, its counted K2 FLOPs those of
+    ``launch_costs`` at its positions; the record's host load balance (the
+    ranks' K2 milliseconds) and each rank's K2 time printed."""
+    from repro_torch.core.factors import validate_pop
+    from repro_torch.core.records import RunRecord
+
+    cfg = _arch_cfg(MESH_CP["arch"])
+    B, S = MESH_CP["batch"], MESH_CP["seq"]
+    flash = [[[B, S // 2, cfg.n_heads, cfg.head_dim_], [B, S, cfg.n_kv_heads, cfg.head_dim_]]]
+    rows = [rk["cp"] for rk in ranks]
+    for row in rows:
+        where = f"(d) gemma2 rank {row['rank']}"
+        _pair_gates(row, ref, where, failures)
+        if row["flash_shapes"] != flash:
+            failures.append(f"{where}: K2 at {row['flash_shapes']}, not the block {flash}")
+        if any(abs(a - b) > 1e-9 * b for a, b in zip(row["k2_flops"], row["expected_k2_flops"])):
+            failures.append(f"{where}: counted K2 FLOPs {row['k2_flops']} != launch_costs at "
+                            f"its positions {row['expected_k2_flops']}")
+    rec = RunRecord.load(rows[0]["record"])
+    region = rec.regions["train_step"]
+    pop_errors = validate_pop(region.pop)
+    if rec.resources.mesh != {"data": 1, "model": 2} or pop_errors or rows[1]["record"]:
+        failures.append(f"(d) record: mesh {rec.resources.mesh}, POP {pop_errors}, rank 1's "
+                        f"record {rows[1]['record']}")
+    host_lb = region.measurements.host_lb
+    k2_ms = {row["rank"]: row["k2_ms"] for row in rows}
+    print(f"mesh (d) gemma2 context parallel: K2 ms a step by rank {k2_ms}, "
+          f"record host load balance {host_lb}", flush=True)
+    return dict(config=MESH_CP, one_rank=ref, ranks=rows, k2_ms_by_rank=k2_ms,
+                record=os.path.relpath(rows[0]["record"], ROOT), record_host_lb=host_lb,
+                k2_flops_rank0_over_rank1=rows[0]["k2_flops"][0] / rows[1]["k2_flops"][0])
+
+
+def phase_mesh() -> dict:
+    """6b: the training step over a mesh of ranks, (a) to (d); returns the
+    launches of (a) (``"mesh"``) and of rank 0 of (b)'s tensor-parallel
+    mesh, (c) and (d) (``"mesh_tp"``, ``"mesh_ssm"``, ``"mesh_cp"``)."""
     failures: list = []
     one, counts = _mesh_one_rank(failures)
-    pair, tp_counts = _mesh_pair(failures)
+    pair, rank0 = _mesh_pair(failures)
     emit("mesh", one_rank_nccl=one, two_ranks_gloo=pair, card=_card())
     if failures:
         raise AssertionError("mesh: " + "; ".join(failures))
-    return counts, tp_counts
+    return {"mesh": counts, **rank0}
 
 
 def _card() -> str:
@@ -3750,7 +4105,7 @@ def phase_archs() -> dict:
 
     counts = {}
     g = ARCH_PATHS["gemma2-2b"]
-    counts["gemma2_serve"] = phase_arch_serve("gemma2-2b", None, g["max_len"],
+    counts["gemma2_serve"] = phase_arch_serve("gemma2-2b", g["serve_repeats"], g["max_len"],
                                               g["prompt_lens"], g["max_new"], seed=51)
     record_dir = os.path.join(ROOT, ARCH_TALP_DIR, "gemma2-2b", "train_monitor")
     shutil.rmtree(os.path.join(ROOT, ARCH_TALP_DIR), ignore_errors=True)
@@ -4036,7 +4391,7 @@ def _fp32_witness(model, prompts: dict, base: dict, other: dict) -> list:
 
 def phase_zamba2_serve(p: dict, seed: int) -> dict:
     """zamba2-2.7b serving, fan-in weights drawn on the card. At
-    ``serve_repeats`` repeats of the pattern (30 layers: 25 mamba2, 5
+    ``serve_repeats`` repeats of the pattern (6 layers: 5 mamba2, 1
     attention) in bf16, one model: (a) glm4's
     traffic (launches exact: K3 and K4 on the attention layers, K1 on
     every norm); (b) ``pool_requests`` requests against ``pool_pages``
@@ -4108,7 +4463,7 @@ def phase_zamba2_serve(p: dict, seed: int) -> dict:
             and on["prefill_chunks"] == off["prefill_chunks"]):
         failures.append(f"zamba2 prefix: the hybrid rule does not hold: {pc}, chunks "
                         f"{on['prefill_chunks']} vs {off['prefill_chunks']}")
-    # (d) speculation in bf16 at full depth, the two-pass verify, every
+    # (d) speculation in bf16 at serve_repeats, the two-pass verify, every
     # decoding request preempted once, on the first ``spec_bf16_requests``
     # of (b)'s requests against their ample run; where they part, the fp32
     # witness of the same weights
@@ -4174,8 +4529,9 @@ def phase_zamba2_serve(p: dict, seed: int) -> dict:
 
 
 def phase_xlstm_serve(p: dict, seed: int) -> dict:
-    """xlstm-350m serving (24 layers: 21 mLSTM, 3 sLSTM; no attention, so
-    K1 alone), bf16, fan-in weights on the card: glm4's traffic
+    """xlstm-350m serving at ``serve_repeats`` repeats of its pattern (8 of
+    24 layers: 7 mLSTM, 1 sLSTM; no attention, so K1 alone), bf16, fan-in
+    weights on the card: glm4's traffic
     (launches exact), then slot reuse: a batch-1 scheduler serves request
     "a" and then "b" in the slot "a" left, and "b"'s tokens equal a fresh
     scheduler's (the reset restores the initial carries, ``m`` -1e30).
@@ -4184,7 +4540,7 @@ def phase_xlstm_serve(p: dict, seed: int) -> dict:
     import torch
 
     arch = "xlstm-350m"
-    cfg = _arch_cfg(arch)
+    cfg = _arch_cfg(arch, p["serve_repeats"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model, init_s = _card_model(cfg, seed, fan_in=True)
@@ -4585,6 +4941,13 @@ def _arch_kernel_rows() -> list:
     # xlstm's norms (no attention)
     rows += [(name, "zamba2", "zamba2_train", cases.MAIN_FLASH_ZAMBA2)
              for name in ("flash_attention", "flash_attention_backward")]
+    # phase 6b (c) and (d): zamba2's attention at a tensor-parallel rank's
+    # 16 heads; gemma2's context-parallel block of rank 1 (queries 4096..8191,
+    # the heavier one), local and global
+    for name in ("flash_attention", "flash_attention_backward"):
+        rows += [(name, "zamba2_tp", "mesh_ssm", cases.MAIN_FLASH_ZAMBA2_TP),
+                 (name, "gemma2_cp_local", "mesh_cp", cases.MAIN_FLASH_CP_LOCAL[1]),
+                 (name, "gemma2_cp_global", "mesh_cp", cases.MAIN_FLASH_CP_GLOBAL[1])]
     rows += [("paged_attention", "zamba2", "zamba2_serve", cases.PAGED_ZAMBA2),
              ("paged_prefill_attention", "zamba2", "zamba2_serve", cases.PREFILL_ZAMBA2),
              ("paged_prefill_attention", "zamba2_verify", "zamba2_spec",
@@ -4660,7 +5023,9 @@ def _sdpa_mask(qpos, kpos, causal: bool, window, kv_len=None):
 
 def _flash_arch_timing(case, backward: bool, seed: int, ms_iters=(20, 3), dev_iters=10,
                        plain_iters=None) -> dict:
-    """K2's forward or backward at one training shape (index positions), bf16:
+    """K2's forward or backward at one training shape, bf16 (index positions;
+    a case with a 10th field, a query block at that offset against keys
+    0..Sk-1, masked, counted and bound by its positions):
     the kernel, its plain version and, without a soft-cap, SDPA on the same
     mask (k/v repeated to the q heads outside the timing; the backward's
     library call is the autograd of one saved SDPA output). ``ms_iters``
@@ -4677,29 +5042,35 @@ def _flash_arch_timing(case, backward: bool, seed: int, ms_iters=(20, 3), dev_it
     )
 
     bf = torch.bfloat16
-    B, S, _, Hq, Hkv, D, causal, win, cap = case
-    c = cases.flash_case(B, S, S, Hq, Hkv, D, seed=seed)
+    B, Sq, Sk, Hq, Hkv, D, causal, win, cap = case[:9]
+    off = case[9] if len(case) > 9 else 0
+    c = cases.flash_case(B, Sq, Sk, Hq, Hkv, D, seed=seed, q_offset=off)
     q, k, v, do = (torch.from_numpy(c[n]).to(DEV, bf) for n in ("q", "k", "v", "dout"))
-    pos = FA.positions_rows(None, B, S, DEV)
+    qpos, kpos = (torch.from_numpy(c[n]).to(DEV) for n in ("q_positions", "k_positions"))
+    # a query block off the diagonal (context parallelism): the mask, the
+    # pairs and the key span follow the positions
+    blocked = bool(off) or Sq != Sk
     G = Hq // Hkv
     qt, dot = q.transpose(1, 2).contiguous(), do.transpose(1, 2).contiguous()
     kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for t in (k, v))
-    sdpa_kw = (dict(attn_mask=_sdpa_mask(pos, pos, causal, win)) if win
+    sdpa_kw = (dict(attn_mask=_sdpa_mask(qpos, kpos, causal, win)) if win or blocked
                else dict(is_causal=causal))
-    kw = dict(causal=causal, window=win, softcap=cap)
-    flops, nbytes = FA.launch_costs(q, k, causal, win, backward)
+    kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=win, softcap=cap)
+    flops, nbytes = FA.launch_costs(q, k, causal, win, backward,
+                                    *((qpos, kpos) if blocked else ()))
     bound, by = _bound_ms(nbytes, flops, "bfloat16")
-    shape = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} " + ("causal" if causal else "bidirectional")
+    shape = (f"B={B} S={Sq}" + (f" Sk={Sk} q_offset={off}" if blocked else "")
+             + f" Hq={Hq} Hkv={Hkv} D={D} " + ("causal" if causal else "bidirectional")
              + (f" window={win}" if win else "") + (f" softcap={cap}" if cap else "") + " bf16")
     if not backward:
-        kernel = lambda: FA.flash_forward(q, k, v, pos, pos, None, causal, win, cap)  # noqa: E731
+        kernel = lambda: FA.flash_forward(q, k, v, qpos, kpos, None, causal, win, cap)  # noqa: E731
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)  # noqa: E731
         plain = lambda: flash_attention_reference(q, k, v, **kw)  # noqa: E731
         lib_ms, lib_dev = cuda_ms(lib, iters=20, warmup=3), graph_ms(lib, iters=10)
         plain_ms, via = cuda_ms(plain, *(plain_iters or (3, 1))), "cuda graph"
     else:
-        o, lse = FA.flash_forward(q, k, v, pos, pos, None, causal, win, cap)
-        kernel = lambda: FA.flash_backward(q, k, v, o, lse, do, pos, pos, None,  # noqa: E731
+        o, lse = FA.flash_forward(q, k, v, qpos, kpos, None, causal, win, cap)
+        kernel = lambda: FA.flash_backward(q, k, v, o, lse, do, qpos, kpos, None,  # noqa: E731
                                            causal, win, cap)
         leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
         out_lib = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
@@ -5046,11 +5417,13 @@ def main() -> int:
     model, serve_counts, serve_tokens, serve_tps = phase_serve(params)
     if profile:
         phase_profile(model)
-    load_counts = phase_serve_load(model)
+    shallow = _shallow(model, LOAD_REPEATS)
+    load_counts = phase_serve_load(shallow)
     if profile:
-        phase_profile_load(model)
-    spec_counts, copy_ctx = phase_serve_spec(model)
-    fault_counts = phase_serve_fault(model, copy_ctx)
+        phase_profile_load(shallow)
+    spec_counts, copy_ctx = phase_serve_spec(shallow)
+    fault_counts = phase_serve_fault(shallow, copy_ctx)
+    del shallow
     del copy_ctx
     dense_counts = phase_serve_dense(model, params, serve_tokens, serve_tps, dense_parity)
     del model
@@ -5058,7 +5431,7 @@ def main() -> int:
     phase_train_parity(params)
     del params
     train_counts = phase_train(profile)
-    mesh_counts, mesh_tp_counts = phase_mesh()
+    mesh_counts = phase_mesh()
     phase_report()
     arch_counts = phase_archs()
     moe_counts = phase_moe()
@@ -5066,7 +5439,7 @@ def main() -> int:
     rows = phase_timing(main_err, {"serve": serve_counts, "serve_dense": dense_counts,
                                    "serve_load": load_counts, "serve_spec": spec_counts,
                                    "serve_fault": fault_counts, "train": train_counts,
-                                   "mesh": mesh_counts, "mesh_tp": mesh_tp_counts,
+                                   **mesh_counts,
                                    **arch_counts, **moe_counts, **recurrent_counts})
     emit("timing", rows=len(rows))
     card = _card()

@@ -1,4 +1,4 @@
-from repro_torch.configs.archs import ARCHS, get_config, smoke_config
+from repro_torch.configs.archs import ARCHS, get_config, optimized_config, smoke_config
 from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
@@ -15,5 +15,6 @@ def list_archs() -> list[str]:
 
 __all__ = [
     "ARCHS", "ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig",
-    "check_supported", "get_config", "list_archs", "smoke_config", "torch_dtype",
+    "check_supported", "get_config", "list_archs", "optimized_config", "smoke_config",
+    "torch_dtype",
 ]

@@ -1,4 +1,5 @@
-"""The JAX package's architectures, copied as data, plus the smoke variants.
+"""The JAX package's architectures, copied as data, plus the smoke variants
+and the optimized presets.
 
 All ten run through the port's model: the dense archs (tinyllama-1.1b,
 gemma2-2b, glm4-9b, command-r-35b, llava-next-mistral-7b, hubert-xlarge),
@@ -8,6 +9,8 @@ and sLSTM).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig, XLSTMConfig
 
@@ -173,6 +176,27 @@ def smoke_config(name: str) -> ModelConfig:
         kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=16, chunk=32)
     if cfg.xlstm:
         kw["xlstm"] = XLSTMConfig(proj_factor=2.0, d_conv=4, chunk=32)
+    return cfg.replace(**kw)
+
+
+def optimized_config(name: str, base: ModelConfig | None = None) -> ModelConfig:
+    """The JAX package's optimized preset (``repro.configs.archs
+    .optimized_config``), field for field: ``causal_skip`` (but for an
+    encoder), ``q_chunk`` and ``kv_chunk`` 1024, the fsdp strategy for a
+    megatron arch under 5e9 active parameters, and an MoE capacity factor
+    of 1.0. Applied to ``base`` (default: the arch's own config;
+    ``smoke_config(name)`` for the train launcher's ``--smoke
+    --optimized``), with the fsdp choice read from the full arch's active
+    parameters either way. ``causal_skip`` and the chunks shape only the
+    JAX package's jnp attention; the port's kernels skip the tiles no row
+    sees at any setting."""
+    full = ARCHS[name]()
+    cfg = full if base is None else base
+    kw: dict = {"causal_skip": not cfg.encoder_only, "q_chunk": 1024, "kv_chunk": 1024}
+    if full.active_param_count() < 5e9 and full.sharding == "megatron":
+        kw["sharding"] = "fsdp"
+    if cfg.moe:
+        kw["moe"] = dataclasses.replace(cfg.moe, capacity_factor=1.0)
     return cfg.replace(**kw)
 
 

@@ -1,6 +1,7 @@
 """Ranks that hold only their blocks: placements, the batch split, the
-gather that a layer's weights go through, and the tensor-parallel split
-of the compute over a megatron mesh's ``"model"`` axis.
+gather that a layer's weights go through, and the splits of the compute
+over the mesh's ``"model"`` axis: tensor parallelism on a megatron mesh,
+context parallelism on an fsdp mesh whose batch leaves that axis whole.
 
 A leaf's placement is a ``NamedSharding``: a mesh and a pspec (a tuple,
 one entry a dim: None, an axis name, or a tuple of names, major first).
@@ -26,16 +27,26 @@ On a megatron mesh whose ``"model"`` axis is above 1 the compute splits
 as JAX's activation rules split it (``TensorParallel``): the residual
 stream is sequence-sharded over ``"model"``; attention runs on the
 rank's query heads, the MLP on its hidden columns, the MoE FFN on its
-experts, the embedding and the logits on its vocabulary rows. A leaf
-that such a layer splits (``"qkv"``, ``"kv"`` when the kv heads divide,
-``"mlp"``, ``"experts"``, ``"vocab"``) is assembled over its other axes
-only and keeps its ``"model"`` block; its gradient is summed over the
-other axes. Every other leaf (norm scales, the router, ``q_norm``, a
-kv projection whose heads do not divide, the blocks this split leaves
-whole) is assembled whole and its gradient summed over every axis: each
-rank's part of it comes from other sequence rows or other heads. The
-layers meet through the collectives of ``TensorParallel``, each an
-``autograd.Function`` whose backward is the matching collective.
+experts, the embedding and the logits on its vocabulary rows, a mamba2
+block on its SSM heads. A leaf that such a layer splits (``"qkv"``,
+``"kv"`` when the kv heads divide, ``"mlp"``, ``"experts"``,
+``"vocab"``, a split mamba2's ``out_proj``, gated-norm scale and
+per-head leaves) is assembled over its other axes only and keeps its
+``"model"`` block; its gradient is summed over the ranks with other rows
+of the batch. Every other leaf (norm scales, the router, ``q_norm``, a
+kv projection whose heads do not divide, mamba2's ``in_proj`` and conv,
+whose B/C columns every head reads, the blocks this split leaves whole)
+is assembled whole and its gradient summed over those ranks and the
+``"model"`` peers: each rank's part of it comes from other sequence
+rows or other heads. Under the fsdp strategy, where the batch does not
+split over ``"model"`` (JAX's ``"batch"`` rule backs off to a prefix
+without it), the ``"model"`` peers split the sequence instead
+(``ContextParallel``): every leaf is whole and its gradient summed over
+the ranks with other rows and the ``"model"`` peers. The ``"data"``
+peers of a batch too small for that axis hold the same rows and sum no
+gradient between them. The layers meet through the collectives of
+``SequenceSplit``, each an ``autograd.Function`` whose backward is the
+matching collective.
 """
 
 from __future__ import annotations
@@ -332,31 +343,18 @@ class _AllReduce(torch.autograd.Function):
         return g, None
 
 
-class TensorParallel:
-    """The compute split over a megatron mesh's ``"model"`` axis: ``size``
-    ranks, this rank's ``index`` along it and their ``group``. The
-    residual stream is split along the sequence, ``part(S)`` a rank;
-    ``others`` are the mesh's other axes (the sums of a split leaf's
-    gradient)."""
+class SequenceSplit:
+    """The residual stream split along the sequence over the mesh's
+    ``"model"`` axis: ``size`` ranks, this rank's ``index`` along it and
+    their ``group``; a rank holds ``part(S)`` of every (B, S, ...) row.
+    ``TensorParallel`` and ``ContextParallel`` say what the layers split
+    besides."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.size = mesh.sizes["model"]
         self.index = mesh.coords()["model"]
         self.group = mesh.group(("model",))
-        self.others = tuple(a for a in mesh.axis_names if a != "model")
-
-    @classmethod
-    def of(cls, cfg, mesh) -> "TensorParallel | None":
-        """The split for ``cfg`` on ``mesh``: a mesh over a process group
-        whose ``"model"`` axis is above 1, under the megatron strategy;
-        else None (the compute splits only the batch)."""
-        from repro_torch.distributed.sharding import effective_strategy
-
-        if (mesh is None or not mesh.distributed or mesh.sizes.get("model", 1) == 1
-                or effective_strategy(cfg, mesh) != "megatron"):
-            return None
-        return cls(mesh)
 
     def part(self, n: int) -> slice:
         """This rank's ``n // size`` of ``n`` (heads, columns, experts,
@@ -388,3 +386,52 @@ class TensorParallel:
         """In-place maximum over the ``"model"`` ranks (no gradient)."""
         _dist().all_reduce(x, op=_dist().ReduceOp.MAX, group=self.group)
         return x
+
+
+def _model_axis_over_ranks(mesh) -> bool:
+    return mesh is not None and mesh.distributed and mesh.sizes.get("model", 1) > 1
+
+
+class TensorParallel(SequenceSplit):
+    """The compute split over a megatron mesh's ``"model"`` axis: the
+    residual stream along the sequence, attention over its query heads,
+    the MLP over its hidden columns, the MoE FFN over its experts, the
+    embedding and the logits over its vocabulary rows, and a mamba2 block
+    whose SSM heads divide the axis over its heads (``layers.recurrent``)."""
+
+    @classmethod
+    def of(cls, cfg, mesh) -> "TensorParallel | None":
+        """The split for ``cfg`` on ``mesh``: a mesh over a process group
+        whose ``"model"`` axis is above 1, under the megatron strategy;
+        else None (the compute splits only the batch)."""
+        from repro_torch.distributed.sharding import effective_strategy
+
+        if not _model_axis_over_ranks(mesh) or effective_strategy(cfg, mesh) != "megatron":
+            return None
+        return cls(mesh)
+
+
+class ContextParallel(SequenceSplit):
+    """fsdp's context-parallel fallback (JAX's fsdp activation rules,
+    ``"seq": "model"``, ``"seq_q": "model"``, ``"seq_kv": None``, where the
+    batch does not split over ``"model"``): the residual stream, the
+    norms, the MLP and the CE run on the rank's sequence part with whole
+    weights; attention keeps the rank's query block at its true positions
+    and all-gathers K and V (``seq_gather``: the backward reduce-scatters
+    each rank's partial dK, dV); a recurrent block or the MoE FFN, which
+    need the whole sequence, run on the gathered rows and keep their part.
+    Each ``"model"`` peer's weight gradient is then a partial over other
+    rows, so it is summed over ``"model"`` too."""
+
+    @classmethod
+    def of(cls, cfg, mesh, ranks) -> "ContextParallel | None":
+        """The split for ``cfg`` on ``mesh`` for a batch that ``ranks``
+        (``BatchRanks``) splits: the fsdp strategy, a ``"model"`` axis
+        above 1 over a process group, and a batch split that backs off to
+        axes without ``"model"``; else None."""
+        from repro_torch.distributed.sharding import effective_strategy
+
+        if (not _model_axis_over_ranks(mesh) or effective_strategy(cfg, mesh) != "fsdp"
+                or "model" in ranks.axes):
+            return None
+        return cls(mesh)

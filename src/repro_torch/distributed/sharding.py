@@ -21,8 +21,10 @@ the port's ``launch.mesh.Mesh`` and a JAX mesh give the same rules. A
 pspec is a tuple (see ``layers.common``). The port stores parameters as
 these rules say; its compute splits the batch, and on a megatron mesh
 whose "model" axis is above 1 also the heads, MLP columns, experts,
-vocabulary and the residual stream's sequence as the activation rules do
-(``distributed.shard.TensorParallel``).
+vocabulary, SSM heads and the residual stream's sequence as the
+activation rules do (``distributed.shard.TensorParallel``); on an fsdp
+mesh whose batch does not split over "model", the sequence
+(``distributed.shard.ContextParallel``).
 """
 
 from __future__ import annotations

@@ -161,9 +161,22 @@ MAIN_FLASH_ZAMBA2 = (1, 4096, 4096, 32, 32, 80, True, None, None)
 # 8192 rows of 2048 (qwen3's training row of RMS_ARCH_CASES)
 MAIN_FLASH_MESH = (4, 2048, 2048, 16, 2, 64, True, None, None)
 MAIN_RMS_MESH = (4096, 2048)
+# gemma2-2b training on a (1, 2) fsdp mesh at B 1 x S 8192 (chip_smoke.py
+# phase 6b (d), context parallelism): a rank's 4096-query block against the
+# gathered 8192 keys, at its true positions (rank 0 from 0, rank 1 from
+# 4096), local (window 4096) and global layers. Rows as FLASH_KVLEN_CASES:
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset, kv_len)
+MAIN_FLASH_CP_LOCAL = [(1, 4096, 8192, 8, 4, 256, True, 4096, 50.0, off, None)
+                       for off in (0, 4096)]
+MAIN_FLASH_CP_GLOBAL = [(1, 4096, 8192, 8, 4, 256, True, None, 50.0, off, None)
+                        for off in (0, 4096)]
+# zamba2-2.7b training on a (1, 2) megatron mesh (phase 6b (c)): its
+# attention layer at a rank's 16 of 32 heads (G 1, head dim 80)
+MAIN_FLASH_ZAMBA2_TP = (1, 4096, 4096, 16, 16, 80, True, None, None)
 FLASH_ARCH_CASES = FLASH_ARCH_SMALL + [MAIN_FLASH_GEMMA2, MAIN_FLASH_GEMMA2_GLOBAL,
                                        FLASH_GLM4, MAIN_FLASH_LLAVA, MAIN_FLASH_HUBERT,
-                                       MAIN_FLASH_QWEN3, MAIN_FLASH_ZAMBA2, MAIN_FLASH_MESH]
+                                       MAIN_FLASH_QWEN3, MAIN_FLASH_ZAMBA2, MAIN_FLASH_MESH,
+                                       MAIN_FLASH_ZAMBA2_TP]
 
 # K3 (B, Hq, Hkv, D, psize, nL, P, lens, window, softcap)
 PAGED_ARCH_SMALL = [

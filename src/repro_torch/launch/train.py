@@ -21,6 +21,18 @@ trains on a (2, 2) mesh, each rank holding its blocks of the state
 (``train.train``); rank 0 prints and writes the record. Without
 ``torchrun`` the mesh is 1 x 1.
 
+``--optimized`` applies the JAX package's optimized preset
+(``configs.optimized_config``): among other fields, the fsdp strategy for
+a megatron arch under 5e9 active parameters. With ``--smoke`` it applies
+the same fields to the smoke config (the JAX launcher drops
+``--optimized`` under ``--smoke``). Under fsdp, where the global batch
+does not split over ``data x model`` (``--global-batch 1 --model-axis
+2``), the ``"model"`` ranks split the sequence (context parallelism,
+``distributed.shard.ContextParallel``):
+
+    torchrun --nproc_per_node 2 -m repro_torch.launch.train --device cpu \\
+        --smoke --optimized --arch tinyllama-1.1b --model-axis 2 --global-batch 1
+
 ``--ckpt-dir``/``--ckpt-every`` checkpoint the state every so many steps
 (``checkpoint``, the JAX package's format), and a run started over a
 directory that holds one resumes from the latest.
@@ -48,6 +60,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--optimized", action="store_true",
+                    help="apply the optimized preset (configs.optimized_config)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain PyTorch versions)")
     ap.add_argument("--steps", type=int, default=100)
@@ -67,9 +81,10 @@ def main(argv=None) -> int:
 
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs import get_config, optimized_config, smoke_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.sharding import effective_strategy
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import AdamWConfig
@@ -77,6 +92,8 @@ def main(argv=None) -> int:
     from repro_torch.train.train import TrainConfig
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.optimized:
+        cfg = optimized_config(args.arch, cfg)
     if cfg.frontend == "audio":
         raise SystemExit(
             f"{args.arch} takes audio frame embeddings (batch['frontend']) and has no "
@@ -111,7 +128,8 @@ def main(argv=None) -> int:
     h = loop.metrics_history
     print(f"[launch] {args.arch} on {loop.device}: steps {h[0]['step']}..{h[-1]['step']} "
           f"loss {h[0]['loss']:.3f} -> {h[-1]['loss']:.3f}")
-    print(f"[launch] mesh {mesh.sizes} over {mesh.devices.size} rank(s)")
+    print(f"[launch] mesh {mesh.sizes} over {mesh.devices.size} rank(s), "
+          f"{effective_strategy(cfg, mesh)} strategy")
     route = "kernel launches" if loop.device.type == "cuda" else \
         "kernel launches (0 on the CPU: plain versions ran)"
     print(f"[launch] {route}: " + ", ".join(f"{k} {v}" for k, v in launch_counts().items()))

@@ -185,7 +185,7 @@ def _rank_heads(params: dict, cfg, tp):
 def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
                     cache_len, block_tables, seq_mask=None, causal: bool = True,
                     window: int | None = None, cache_row0: int = 0,
-                    tp=None) -> torch.Tensor:
+                    tp=None, cp=None) -> torch.Tensor:
     """The JAX ``attention_block``'s branches.
 
     ``cache`` None (training, full-sequence forward): project, rotate and
@@ -207,13 +207,26 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
     sequence, q/k/v are the rank's heads (column-parallel; ``_rank_heads``),
     the kernel runs on them at ``positions`` (B,S), and ``wo``'s rows
     (row-parallel) give partial sums that a reduce-scatter along the
-    sequence turns into this rank's part of the output (B,S/n,d)."""
+    sequence turns into this rank's part of the output (B,S/n,d).
+
+    With ``cp`` (``distributed.shard.ContextParallel``; cache-less only),
+    ``x`` is this rank's sequence part and ``positions`` the whole
+    sequence's: q, k and v are projected and rotated at the rank's own
+    positions, K and V are all-gathered along the sequence (backward: a
+    reduce-scatter of the rank's partial dK, dV), and the kernel runs the
+    rank's query block against every key at their true positions, so the
+    causal bound, the window and the tiles it skips follow the positions,
+    never the indices. Returns the rank's rows (B,S/n,d)."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     kv_of_q = None
+    k_positions = positions
     if tp is not None:
         assert cache is None, "tensor-parallel attention is cache-less"
         x = tp.seq_gather(x)
         params, hq, hkv, kv_of_q = _rank_heads(params, cfg, tp)
+    if cp is not None:
+        assert cache is None, "context-parallel attention is cache-less"
+        positions = cp.local(positions)
     B, S, _ = x.shape
     compute = cfg.compute_dtype
     q = (x @ params["wq"].to(compute)).reshape(B, S, hq, hd)
@@ -232,8 +245,10 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
 
     if kv_of_q is not None:  # one kv head a query head
         k, v = k[:, :, kv_of_q], v[:, :, kv_of_q]
+    if cp is not None:
+        k, v = cp.seq_gather(k).contiguous(), cp.seq_gather(v).contiguous()
     if cache is None:
-        o = flash_attention(q, k, v, q_positions=positions, k_positions=positions,
+        o = flash_attention(q, k, v, q_positions=positions, k_positions=k_positions,
                             causal=causal, window=window, softcap=cfg.attn_softcap)
     elif "k_pages" in cache:
         k_pool, v_pool = cache["k_pages"], cache["v_pages"]

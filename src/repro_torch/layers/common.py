@@ -205,14 +205,33 @@ class LogicalConstraints:
     ``ranks.shards``, with the cross-rank sums it needs. ``tp``, when set
     (``distributed.shard.TensorParallel``), says that the residual stream
     is this rank's part of the sequence and that the layers compute their
-    ``"model"`` share, meeting through ``tp``'s collectives. Without a
-    mesh both are None and the layers run whole."""
+    ``"model"`` share, meeting through ``tp``'s collectives. ``cp``, when
+    set (``distributed.shard.ContextParallel``), says that the residual
+    stream is this rank's part of the sequence and that the layers keep
+    their weights whole (attention gathers K and V). Without a mesh all
+    three are None and the layers run whole."""
 
-    def __init__(self, mesh, rules: dict[str, Any] | None, ranks=None, tp=None):
+    def __init__(self, mesh, rules: dict[str, Any] | None, ranks=None, tp=None, cp=None):
         self.mesh = mesh
         self.rules = rules or {}
         self.ranks = ranks
         self.tp = tp
+        self.cp = cp
+
+    @property
+    def seq(self):
+        """The split of the residual stream's sequence (``tp`` or ``cp``), or None."""
+        return self.tp or self.cp
+
+    def sum_axes(self, split: bool = False) -> tuple:
+        """The mesh axes along which a leaf's gradient is summed: the ranks
+        with other rows of the batch, and, where the sequence is split,
+        the ``"model"`` peers, unless the leaf is ``split`` (a tensor-
+        parallel rank's own ``"model"`` block, which no peer uses)."""
+        axes = self.ranks.axes if self.ranks is not None else ()
+        if self.seq is not None and not split:
+            axes = axes + ("model",)
+        return axes
 
     def pspec(self, *logical_axes) -> tuple:
         axes, used = [], set()

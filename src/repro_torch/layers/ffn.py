@@ -186,10 +186,16 @@ def moe_block(params: dict, x: torch.Tensor, cfg,
     fills and multiplies the capacity buffers of its own experts, combines
     its experts' outputs (a pair of another rank's expert adds 0), and the
     partial sums reduce-scatter onto its sequence part, as the MLP's do.
-    The shared experts' MLP splits as the dense MLP."""
-    tp = lc.tp
-    if tp is not None:
-        x = tp.seq_gather(x)
+    The shared experts' MLP splits as the dense MLP.
+
+    With ``lc.cp`` (``distributed.shard.ContextParallel``) ``x`` is this
+    rank's sequence part and the leaves are whole: the part is
+    all-gathered along the sequence, the block runs on its data shard's
+    tokens as one group, as JAX's dispatch groups them, and the rank keeps
+    its part of the output."""
+    tp, seq = lc.tp, lc.seq
+    if seq is not None:
+        x = seq.seq_gather(x)
     m = cfg.moe
     B, S, d = x.shape
     N = B * S
@@ -256,4 +262,6 @@ def moe_block(params: dict, x: torch.Tensor, cfg,
            "moe_lb_loss": E * torch.sum(me * ce),
            "moe_z_loss": z_loss}
     out = out.reshape(B, S, d)
-    return (out if tp is None else tp.seq_scatter(out)), aux
+    if tp is not None:
+        return tp.seq_scatter(out), aux
+    return (out if seq is None else seq.local(out)), aux

@@ -145,11 +145,81 @@ def _ssd_chunked(x, dt, A, B, C, chunk, init_state=None):
     return y.reshape(b, s, h, p), state
 
 
-def mamba2_block(params, x, cfg, cache=None, seq_mask=None):
+# a tensor-parallel rank's blocks of a split mamba2 (``mamba2_block``):
+# its heads' rows of ``out_proj``, its part of the gated norm's scale, and
+# its heads' scalars
+MAMBA2_SPLIT_LEAVES = ("out_proj", "norm", "A_log", "D", "dt_bias")
+
+
+def mamba2_splits(cfg, tp) -> bool:
+    """Whether a tensor-parallel rank (``tp``, None for none) runs its share
+    of a mamba2 block: its SSM heads divide the model axis, as JAX's
+    ``"ssm_heads"`` rule asks."""
+    return tp is not None and cfg.ssm.n_heads(cfg.d_model) % tp.size == 0
+
+
+def _own(t: torch.Tensor, n: int, part: slice) -> torch.Tensor:
+    """A leaf of leading dim ``n`` as a rank computes with it: its rows
+    ``part`` of the whole leaf, or the leaf itself when it arrives as that
+    block already."""
+    return t[part] if t.shape[0] == n else t
+
+
+def in_projection(x, w, cfg, heads: slice):
+    """``x @ in_proj`` over the columns the heads ``heads`` need: their
+    ``z``, ``x`` and ``dt`` columns and the ``B``/``C`` columns whole, in
+    the fused layout's order (all columns for all heads)."""
+    s = cfg.ssm
+    d_inner, h = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+    if heads.stop - heads.start < h:
+        p, gn = s.head_dim, s.n_groups * s.d_state
+        cols = slice(heads.start * p, heads.stop * p)
+        w = torch.cat([w[:, cols], w[:, d_inner + cols.start:d_inner + cols.stop],
+                       w[:, 2 * d_inner:2 * d_inner + 2 * gn],
+                       w[:, 2 * d_inner + 2 * gn + heads.start:2 * d_inner + 2 * gn + heads.stop]],
+                      dim=1)
+    return x @ w.to(cfg.compute_dtype)
+
+
+def out_projection(y, w, cfg):
+    """``y @ out_proj``: with a rank's ``d_inner`` block of ``y`` and the
+    rows of ``w`` that match it, the rank's partial sums."""
+    return y @ w.to(cfg.compute_dtype)
+
+
+def _gated_norm_split(y, scale, eps: float, d: int, tp):
+    """The gated RMSNorm over the whole ``d_inner`` (``d``) from a rank's
+    block of it: the rank's fp32 sum of squares, all-reduced over
+    ``"model"`` (backward: the same sum of each rank's term), then the
+    rank's block of the scale. The JAX norm is plain jnp whose mean GSPMD
+    sums over the shards; K1 takes no variance from outside, so this norm
+    stays torch ops."""
+    yf = y.to(_acc(y.dtype))
+    var = tp.all_reduce(torch.sum(yf * yf, dim=-1, keepdim=True)) / d
+    return (yf * (var + eps) ** -0.5 * scale.to(yf.dtype)).to(y.dtype)
+
+
+def mamba2_block(params, x, cfg, cache=None, seq_mask=None, tp=None):
     """Returns (out, new_state): ``{"conv": (B,K-1,C), "ssm": (B,h,p,n)}``
     with a cache, else None. Masked positions get ``dt`` 0 (decay 1, input
-    0) and the conv carry ends at each row's valid end: an exact freeze."""
+    0) and the conv carry ends at each row's valid end: an exact freeze.
+
+    With ``tp`` (``distributed.shard.TensorParallel``, cache-less; see
+    ``mamba2_splits``), ``x`` is this rank's sequence part: it is
+    all-gathered along the sequence, the rank computes its heads
+    ``tp.part(h)`` over the whole sequence (``in_proj``'s and the conv's
+    ``z``/``x``/``dt`` columns of those heads, ``B`` and ``C`` whole, since
+    every head reads the groups), the gated norm's mean is summed over the
+    ranks (``_gated_norm_split``), and ``out_proj``'s rows give partial
+    sums that a reduce-scatter along the sequence turns into the rank's
+    part of the output (B,S/n,d). ``in_proj`` and the conv leaves arrive
+    whole (their columns are cut here); the per-head leaves, the norm's
+    scale and ``out_proj`` arrive whole or as the rank's block
+    (``MAMBA2_SPLIT_LEAVES``)."""
     s = cfg.ssm
+    if tp is not None:
+        assert cache is None, "tensor-parallel mamba2 is cache-less"
+        x = tp.seq_gather(x)
     Bsz, S, d = x.shape
     d_inner = s.d_inner(d)
     h = s.n_heads(d)
@@ -157,29 +227,40 @@ def mamba2_block(params, x, cfg, cache=None, seq_mask=None):
     g, n = s.n_groups, s.d_state
     compute = cfg.compute_dtype
     acc = _acc(compute)
+    heads = slice(0, h) if tp is None else tp.part(h)
+    cols = slice(heads.start * p, heads.stop * p)
+    hr, dr = heads.stop - heads.start, (heads.stop - heads.start) * p
 
-    proj = x @ params["in_proj"].to(compute)
-    z, xconv_in, dt_raw = torch.split(proj, [d_inner, d_inner + 2 * g * n, h], dim=-1)
+    proj = in_projection(x, params["in_proj"], cfg, heads)
+    z, xconv_in, dt_raw = torch.split(proj, [dr, dr + 2 * g * n, hr], dim=-1)
+    conv_w, conv_b = params["conv_w"], params["conv_b"]
+    if hr < h:  # the rank's x channels, B and C whole
+        conv_w = torch.cat([conv_w[:, cols], conv_w[:, d_inner:]], dim=1)
+        conv_b = torch.cat([conv_b[cols], conv_b[d_inner:]])
     xconv, new_conv = causal_conv1d(
-        xconv_in, params["conv_w"].to(compute), params["conv_b"].to(compute),
+        xconv_in, conv_w.to(compute), conv_b.to(compute),
         state=None if cache is None else cache["conv"],
         valid_len=None if seq_mask is None else seq_mask.sum(dim=1),
     )
     xconv = F.silu(xconv)
-    xs, B_, C_ = torch.split(xconv, [d_inner, g * n, g * n], dim=-1)
-    xs = xs.reshape(Bsz, S, h, p)
+    xs, B_, C_ = torch.split(xconv, [dr, g * n, g * n], dim=-1)
+    xs = xs.reshape(Bsz, S, hr, p)
     B_ = B_.reshape(Bsz, S, g, n).to(acc)
     C_ = C_.reshape(Bsz, S, g, n).to(acc)
-    dt = F.softplus(dt_raw.to(acc) + params["dt_bias"].to(acc))    # (B,S,h)
+    if hr < h and g > 1:  # each of the rank's heads with its own group
+        B_ = B_.repeat_interleave(h // g, dim=2)[:, :, heads]
+        C_ = C_.repeat_interleave(h // g, dim=2)[:, :, heads]
+    gr = B_.shape[2]
+    dt = F.softplus(dt_raw.to(acc) + _own(params["dt_bias"], h, heads).to(acc))    # (B,S,hr)
     if seq_mask is not None:
         dt = dt * seq_mask[..., None]
-    A = -torch.exp(params["A_log"].to(acc))
+    A = -torch.exp(_own(params["A_log"], h, heads).to(acc))
 
     if cache is not None and S == 1:
         state = cache["ssm"].to(acc)                                # (B,h,p,n)
         dA = torch.exp(dt[:, 0, :] * A[None, :])
-        Bh = B_[:, 0].repeat_interleave(h // g, dim=1)              # (B,h,n)
-        Ch = C_[:, 0].repeat_interleave(h // g, dim=1)
+        Bh = B_[:, 0].repeat_interleave(hr // gr, dim=1)            # (B,h,n)
+        Ch = C_[:, 0].repeat_interleave(hr // gr, dim=1)
         xf = xs[:, 0].to(acc)                                       # (B,h,p)
         state = state * dA[..., None, None] + (
             (dt[:, 0][..., None] * xf)[..., :, None] * Bh[:, :, None, :])
@@ -188,13 +269,18 @@ def mamba2_block(params, x, cfg, cache=None, seq_mask=None):
     else:
         init = None if cache is None else cache["ssm"]
         y, new_ssm = _ssd_chunked(xs.to(acc), dt, A, B_, C_, chunk=s.chunk, init_state=init)
-    y = y + params["D"].to(acc)[None, None, :, None] * xs.to(acc)
-    y = y.reshape(Bsz, S, d_inner).to(compute)
+    y = y + _own(params["D"], h, heads).to(acc)[None, None, :, None] * xs.to(acc)
+    y = y.reshape(Bsz, S, dr).to(compute)
 
     # gated RMSNorm (mamba2 style), over d_inner
     y = y * F.silu(z)
-    y = rmsnorm(y, params["norm"], cfg.norm_eps)
-    out = y @ params["out_proj"].to(compute)
+    if tp is None:
+        y = rmsnorm(y, params["norm"], cfg.norm_eps)
+    else:
+        y = _gated_norm_split(y, _own(params["norm"], d_inner, cols), cfg.norm_eps, d_inner, tp)
+    out = out_projection(y, _own(params["out_proj"], d_inner, cols), cfg)
+    if tp is not None:
+        return tp.seq_scatter(out), None
     new_state = None
     if cache is not None:
         new_state = {"conv": new_conv.to(cache["conv"].dtype), "ssm": new_ssm}

@@ -159,6 +159,8 @@ class Transformer(nn.Module):
     (``distributed.shard.gather``). Under tensor parallelism
     (``LogicalConstraints.tp``) a leaf that the rank's share computes with
     keeps its ``"model"`` block (``_gather``, ``_tp_split``), and the
+    residual stream is the rank's part of the sequence; under context
+    parallelism (``LogicalConstraints.cp``) every leaf is whole and the
     residual stream is the rank's part of the sequence. The kernels see
     plain contiguous tensors."""
 
@@ -220,20 +222,18 @@ class Transformer(nn.Module):
 
     @staticmethod
     def _gather(t, sh, lc: LogicalConstraints, split: bool) -> torch.Tensor:
-        """A block assembled for its use. Without ``lc.tp``: the full leaf,
-        its gradient summed over ``lc.ranks``' batch axes. With it: a
-        ``split`` leaf that the mesh stores split over ``"model"`` keeps its
-        ``"model"`` block, assembled over the other axes and its gradient
-        summed over them; any other leaf is the full leaf, its gradient
-        summed over every axis (``distributed.shard``)."""
+        """A block assembled for its use. With ``lc.tp``, a ``split`` leaf
+        that the mesh stores split over ``"model"`` keeps its ``"model"``
+        block, assembled over the other axes; any other leaf is the full
+        leaf. The gradient is summed over ``lc.sum_axes``: the ranks with
+        other rows, and the ``"model"`` peers where the sequence is split
+        (``lc.tp`` or ``lc.cp``) and the leaf is whole
+        (``distributed.shard``)."""
         from repro_torch.distributed.shard import gather
 
-        tp = lc.tp
-        if tp is None:
-            return gather(t, sh, lc.ranks.axes if lc.ranks else ())
-        if split and "model" in sh.axes:
-            return gather(t, sh.without("model"), tp.others)
-        return gather(t, sh, sh.mesh.axis_names)
+        if lc.tp is not None and split and "model" in sh.axes:
+            return gather(t, sh.without("model"), lc.sum_axes(split=True))
+        return gather(t, sh, lc.sum_axes())
 
     @classmethod
     def from_init(cls, cfg, seed: int = 0, device=None,
@@ -334,7 +334,8 @@ class Transformer(nn.Module):
         """Stub frontend embeddings (B,P,d) first, then the tokens' (B,S)
         embeddings, concatenated along the sequence; ``embed_scale`` after
         the concatenation, as in the JAX package. With ``lc.tp``, this
-        rank's sequence part of it (``_embed_split``)."""
+        rank's sequence part of it (``_embed_split``); with ``lc.cp``, the
+        rank's part of the whole lookup."""
         cfg = self.cfg
         if lc.tp is not None:
             x = self._embed_split(tokens, frontend, lc)
@@ -346,6 +347,8 @@ class Transformer(nn.Module):
                 tokens = tokens.to(self.device, non_blocking=True)
                 parts.append(self._leaf("embed", lc)[tokens.long()].to(cfg.compute_dtype))
             x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            if lc.cp is not None:
+                x = lc.cp.local(x)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
         return x
@@ -404,15 +407,20 @@ class Transformer(nn.Module):
         writes the state rows ``cache_row0 .. cache_row0+B-1`` in place
         (with ``commit_state`` False it reads them and writes nothing).
 
-        With ``lc.tp``, ``x`` is this rank's sequence part: the norms run
-        on it, attention, the MLP and the MoE FFN compute the rank's share
-        and return its part; a recurrent block, which this split leaves
-        whole, runs on the all-gathered rows and keeps its part."""
-        cfg, tp = self.cfg, lc.tp
+        With ``lc.tp`` or ``lc.cp``, ``x`` is this rank's sequence part:
+        the norms and (under ``cp``) the MLP run on it, and the other layers
+        compute the rank's share and return its part (``layers``). Under
+        ``tp`` a mamba2 block whose SSM heads divide the model axis runs
+        the rank's heads (``R.mamba2_splits``); any other recurrent block
+        runs on the all-gathered rows and keeps its part."""
+        cfg, tp, seq = self.cfg, lc.tp, lc.seq
         if kind in R.CACHE_KEYS:
-            if tp is not None:
-                return tp.local(self._recurrent_slot(sp, tp.seq_gather(x), kind, cache,
-                                                     seq_mask, cache_row0, commit_state)), {}
+            if kind == "mamba2" and R.mamba2_splits(cfg, tp):
+                h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
+                return x + R.mamba2_block(sp["mamba"], h, cfg, tp=tp)[0], {}
+            if seq is not None:
+                return seq.local(self._recurrent_slot(sp, seq.seq_gather(x), kind, cache,
+                                                      seq_mask, cache_row0, commit_state)), {}
             return self._recurrent_slot(sp, x, kind, cache, seq_mask, cache_row0,
                                         commit_state), {}
         h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
@@ -422,7 +430,7 @@ class Transformer(nn.Module):
             cache_len=cache_len, block_tables=block_tables, seq_mask=seq_mask,
             causal=not cfg.encoder_only,
             window=cfg.window if kind == "local_attn" else None, cache_row0=cache_row0,
-            tp=tp,
+            tp=tp, cp=lc.cp,
         )
         h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         if kind == "moe":
@@ -464,12 +472,19 @@ class Transformer(nn.Module):
     def _tp_split(self, kind: str, sub: str, lc) -> bool:
         """Whether a layer's leaf enters the tensor-parallel compute as this
         rank's ``"model"`` block: attention's q and o (and kv when the kv
-        heads divide the model axis), the MLPs, the experts; never in a
+        heads divide the model axis), the MLPs, the experts, and a split
+        mamba2's per-head and ``d_inner`` leaves (its ``in_proj`` and conv
+        are whole: their B/C columns serve every head); never in another
         recurrent block, which this split leaves whole."""
         tp = lc.tp
-        if tp is None or kind in R.CACHE_KEYS:
+        if tp is None:
             return False
         leaf = sub.rsplit("/", 1)[1]
+        if kind == "mamba2":
+            return (R.mamba2_splits(self.cfg, tp) and sub.startswith("mamba/")
+                    and leaf in R.MAMBA2_SPLIT_LEAVES)
+        if kind in R.CACHE_KEYS:
+            return False
         if sub.startswith("attn/"):
             if leaf in ("wk", "wv", "bk", "bv"):
                 return self.cfg.n_kv_heads % tp.size == 0
@@ -605,11 +620,13 @@ class Transformer(nn.Module):
 
     def _full_sequence(self, batch: dict, lc: LogicalConstraints = NULL_CONSTRAINTS):
         """Embed, run the stack cache-less at positions 0..S-1, final norm.
-        Returns (x, aux); with ``lc.tp`` x is this rank's sequence part."""
+        Returns (x, aux); with ``lc.tp`` or ``lc.cp`` x is this rank's
+        sequence part (the positions stay the whole sequence's: each layer
+        takes its part of them)."""
         x = self._embed_inputs(batch.get("tokens"), batch.get("frontend"), lc)
         B, S, _ = x.shape
-        if lc.tp is not None:
-            S *= lc.tp.size
+        if lc.seq is not None:
+            S *= lc.seq.size
         positions = torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
         x, aux = self._run_stack(x, None, positions=positions, cache_len=None,
                                  seq_mask=None, block_tables=None, lc=lc)
@@ -633,16 +650,19 @@ class Transformer(nn.Module):
         is divided by it, and the router terms are this rank's parts
         (``layers.ffn.moe_block``), so the ranks' losses add up to the
         global batch's loss and their gradients to its gradient. With
-        ``lc.tp`` the CE sum is the rank's sequence part's, and the router
-        terms, which every ``"model"`` rank computes alike, enter each
-        rank's loss divided by the model axis, so they count once."""
-        cfg, tp = self.cfg, lc.tp
+        ``lc.tp`` or ``lc.cp`` the CE sum is the rank's sequence part's
+        (under ``cp`` its labels' part against the whole head), and the
+        router terms, which every ``"model"`` rank computes alike, enter
+        each rank's loss divided by the model axis, so they count once."""
+        cfg, tp, seq = self.cfg, lc.tp, lc.seq
         x, aux = self._full_sequence(batch, lc)
         labels = batch["labels"].to(self.device, non_blocking=True)
+        if lc.cp is not None:
+            labels = lc.cp.local(labels)
         loss_sum, w_sum = self.cross_entropy(x, labels, head=self._head(lc), tp=tp)
         loss = loss_sum / torch.clamp(w_sum if tokens is None else tokens, min=1.0)
         if "moe_lb_loss" in aux:
-            share = cfg.n_layers * (1 if tp is None else tp.size)
+            share = cfg.n_layers * (1 if seq is None else seq.size)
             loss = loss + cfg.moe_lb_coef * aux["moe_lb_loss"] / share
             loss = loss + cfg.moe_z_coef * aux["moe_z_loss"] / share
         aux["tokens"] = w_sum

@@ -26,17 +26,21 @@ their ``NamedSharding``s beside them. Every rank gets the global batch
 activation rule gives it (``BatchRanks``). On a megatron mesh whose
 ``"model"`` axis is above 1 the ``"model"`` peers split those rows'
 work as JAX's activation rules do (``TensorParallel``: the sequence of
-the residual stream, heads, MLP columns, experts, vocabulary); on any
-other mesh ranks that the batch rule does not split run the same rows.
-The loss is each rank's CE sum over the global batch's labelled-token
+the residual stream, heads, MLP columns, experts, vocabulary, a mamba2
+block's SSM heads). Under the fsdp strategy, where the batch does not
+split over ``"model"``, the ``"model"`` peers split the sequence of their
+rows (``ContextParallel``: JAX's context parallelism, each rank's query
+block against the gathered K and V). Ranks that neither rule splits
+(the ``"data"`` peers of a batch too small for that axis) run the same
+rows. The loss is each rank's CE sum over the global batch's labelled-token
 count plus its share of the router terms, so the ranks' losses and
 gradients sum to the global ones; the layers' gathers sum each
 gradient over the ranks whose part of it differs (``distributed.shard``),
 so identical parts count once. ``grad_norm`` is the whole gradient's
 (each block counted on one rank, all-reduced). Metrics are the global
 batch's, equal on every rank: ``loss`` summed over the ranks with other
-rows (every rank under tensor parallelism), ``moe_lb_loss`` over the
-ranks with other rows of the batch, ``tokens`` and ``tokens_per_shard``
+rows (and over ``"model"`` where the sequence splits), ``moe_lb_loss``
+over the ranks with other rows of the batch, ``tokens`` and ``tokens_per_shard``
 (over ``data_shards(mesh)``) from the global labels, ``expert_load``
 summed in the MoE block. On a mesh without a process group (world size
 1) the step is the plain step.
@@ -49,7 +53,12 @@ import dataclasses
 import torch
 
 from repro_torch.distributed import sharding as SH
-from repro_torch.distributed.shard import BatchRanks, TensorParallel, gather_full
+from repro_torch.distributed.shard import (
+    BatchRanks,
+    ContextParallel,
+    TensorParallel,
+    gather_full,
+)
 from repro_torch.layers.common import (
     LogicalConstraints,
     param_pspecs,
@@ -171,16 +180,17 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
         tokens = torch.zeros((), dtype=torch.float32, device=dev)
         tps = None
         kept: dict = {}  # the router's totals, summed over microbatches
-        ranks = None
+        lc = None
         for a in range(A):
             mb = {k: v[a] for k, v in batch.items()}
             n_real = None
             if ranked:
                 ranks = BatchRanks.for_batch(split, mb["labels"].shape)
+                cp = None if tp is not None else ContextParallel.of(cfg, mesh, ranks)
+                lc = LogicalConstraints(mesh, rules, ranks, tp, cp)
                 n_real = torch.sum(mb["labels"] >= 0).to(torch.float32)
                 rows = ranks.rows(mb["labels"].shape[0])
-                loss, aux = model({k: v[rows] for k, v in mb.items()},
-                                  LogicalConstraints(mesh, rules, ranks, tp), n_real)
+                loss, aux = model({k: v[rows] for k, v in mb.items()}, lc, n_real)
             else:
                 loss, aux = model(mb)
             grads = torch.autograd.grad(loss, leaves)
@@ -198,15 +208,14 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
                     kept[k] = v if k not in kept else kept[k] + v
             t = tokens_per_shard(mb["labels"], n_shards)
             tps = t if tps is None else tps + t
-        if ranks is not None:  # each rank's parts -> the global batch's
-            if tp is None:
-                ranks.sum_(loss_sum)
-            else:
+        if lc is not None:  # each rank's parts -> the global batch's
+            group = mesh.group(lc.sum_axes())
+            if group is not None:
                 import torch.distributed as dist
 
-                dist.all_reduce(loss_sum, group=mesh.group(mesh.axis_names))
+                dist.all_reduce(loss_sum, group=group)
             if "moe_lb_loss" in kept:
-                ranks.sum_(kept["moe_lb_loss"])
+                lc.ranks.sum_(kept["moe_lb_loss"])
         inv = 1.0 / A
         for g in gsum.values():
             g.mul_(inv)

@@ -15,7 +15,7 @@ states (``convert.from_jax_train_state``). Checked:
   seeded weights (stacked leaves at their fan-in, as
   ``tests/test_torch_recurrent.py`` draws them): loss and ``grad_norm``
   within 1e-4 of the port's one-rank step (llava's frontend, hubert's
-  frames and bidirectional attention, dbrx, zamba2's unsplit mamba2);
+  frames and bidirectional attention, dbrx, zamba2's mamba2 split over its SSM heads);
 * tinyllama smoke on a (1, 2) rank: the counted matmul FLOPs half the
   one-rank count; the attention kernel's wrapper sees the rank's 2 of 4
   heads, every RMSNorm the rank's sequence half, and no gather names

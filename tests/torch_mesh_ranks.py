@@ -20,6 +20,17 @@ command-r-35b's steps on (1, 2); one step of every megatron arch on
 (1, 2) from the weights the test hands over; a tinyllama step counted
 by ``StepProfile.count``, with the shapes that reach the attention
 kernel, the RMSNorm and the gathers).
+
+The phases of ``tests/test_torch_ssm_parallel.py``: ``ssm2`` (2 ranks:
+zamba2-2.7b's steps on (1, 2), mamba2 split over its SSM heads; a step
+whose mamba2 projections are counted by ``StepProfile.count``) and
+``ssm4`` (4 ranks: the same on (1, 4)). The phases of
+``tests/test_torch_context_parallel.py``: ``cp2`` (2 ranks: gemma2-2b,
+xlstm-350m, tinyllama-1.1b and qwen3-moe-30b-a3b under ``optimized_config``
+on (1, 2) at B 1, where fsdp splits the sequence, and (but qwen3) at B 2,
+where it splits the rows)
+and ``cp4`` (4 ranks on (2, 2): gemma2 at B 1, the ``"data"`` peers on
+the same row, and at B 2; tinyllama's megatron step at B 1).
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
 
 from repro_torch.checkpoint.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
-from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.configs import optimized_config, smoke_config  # noqa: E402
 from repro_torch.convert import from_jax_train_state  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.distributed import reshard_state, shard  # noqa: E402
@@ -63,6 +74,30 @@ TP_STEPS = {
 # every arch whose smoke config takes the megatron strategy on (1, 2)
 MEGATRON_ARCHS = ("tinyllama-1.1b", "glm4-9b", "command-r-35b", "llava-next-mistral-7b",
                   "hubert-xlarge", "qwen3-moe-30b-a3b", "dbrx-132b", "zamba2-2.7b")
+# mamba2 split over "model" (16 SSM heads)
+SSM_STEPS = {
+    "zamba2_12": ("zamba2-2.7b", F32, (1, 2), 2, 32, 1, 2),
+    "zamba2_14": ("zamba2-2.7b", F32, (1, 4), 2, 32, 1, 2),
+}
+# fsdp on a "model" axis: at B 1 the batch cannot split over it and the
+# ranks split the sequence; at B 2 they split the rows. gemma2's window is
+# cut to 8 so that it bites at S 32; "optimized" takes optimized_config
+OPT = dict(F32, optimized=True)
+GEMMA2 = dict(F32, window=8)
+CP_STEPS = {
+    "gemma2_cp": ("gemma2-2b", GEMMA2, (1, 2), 1, 32, 1, 2),
+    "xlstm_cp": ("xlstm-350m", F32, (1, 2), 1, 32, 1, 2),
+    "tinyllama_opt_cp": ("tinyllama-1.1b", OPT, (1, 2), 1, 32, 1, 2),
+    "gemma2_rows": ("gemma2-2b", GEMMA2, (1, 2), 2, 32, 1, 2),
+    "xlstm_rows": ("xlstm-350m", F32, (1, 2), 2, 32, 1, 2),
+    "tinyllama_opt_rows": ("tinyllama-1.1b", OPT, (1, 2), 2, 32, 1, 2),
+    "gemma2_cp22": ("gemma2-2b", GEMMA2, (2, 2), 1, 32, 1, 2),
+    "gemma2_cp22_b2": ("gemma2-2b", GEMMA2, (2, 2), 2, 32, 1, 2),
+    "tinyllama_tp22": ("tinyllama-1.1b", F32, (2, 2), 1, 32, 1, 2),
+    # the MoE FFN under context parallelism: the gathered sequence routed
+    # as its data shard's one group
+    "qwen3_opt_cp": ("qwen3-moe-30b-a3b", OPT, (1, 2), 1, 32, 1, 2),
+}
 
 
 def tcfg() -> TrainConfig:
@@ -96,9 +131,22 @@ def held(state, full0: dict, mesh, cfg) -> dict:
             "pspecs": dict(tree_leaves(train_state_pspecs(cfg, mesh, tcfg())))}
 
 
-def run_steps(name, init, out, rank, table=STEPS):
-    arch, kw, shape, B, S, A, steps = table[name]
+def config_for(arch, kw):
+    """``arch``'s smoke config with ``kw``; ``optimized`` applies
+    ``optimized_config`` to it."""
+    kw = dict(kw)
+    opt = kw.pop("optimized", False)
     cfg = smoke_config(arch).replace(**kw)
+    return optimized_config(arch, cfg) if opt else cfg
+
+
+def run_steps(name, init, out, rank, table=STEPS, seen=None):
+    """``table[name]``'s steps on its mesh from ``init[name]``; rank 0 keeps
+    the metrics, each rank's holdings and the gathered final state. With
+    ``seen``, each rank's shapes and positions that reach the attention
+    kernel's wrapper."""
+    arch, kw, shape, B, S, A, steps = table[name]
+    cfg = config_for(arch, kw)
     mesh = make_host_mesh(model=shape[1], device="cpu")
     assert mesh.sizes == {"data": shape[0], "model": shape[1]}
     state = from_jax_train_state(init[name], cfg, mesh=mesh)
@@ -107,13 +155,16 @@ def run_steps(name, init, out, rank, table=STEPS):
     step = make_train_step(cfg, tcfg(), mesh)
     data = data_for(cfg, B, S, A)
     hist = []
-    for i in range(steps):
-        state, m = step(state, data.batch_at(i))
-        hist.append({k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v)
-                     for k, v in m.items()})
-    infos = [None] * dist.get_world_size()
+    flash = set()
+    with _FlashSeen(flash if seen is not None else None):
+        for i in range(steps):
+            state, m = step(state, data.batch_at(i))
+            hist.append({k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v)
+                         for k, v in m.items()})
+    infos, flashes = [None] * dist.get_world_size(), [None] * dist.get_world_size()
     dist.all_gather_object(infos, info)
-    res = {"hist": hist, "held": infos, "final": full_tree(state)}
+    dist.all_gather_object(flashes, sorted(flash))
+    res = {"hist": hist, "held": infos, "final": full_tree(state), "flash": flashes}
     if rank == 0:
         out[name] = res
     return state
@@ -208,6 +259,77 @@ def counted_step(out, rank):
                           **seen}
 
 
+class _FlashSeen:
+    """While open, the (q, k) shapes, and the first and last query and key
+    positions of row 0, that reach the attention kernel's wrapper go into
+    ``into`` (nothing with ``into`` None)."""
+
+    def __init__(self, into):
+        self.into = into
+
+    def __enter__(self):
+        from repro_torch.layers import attention as A
+
+        self.saved = flash = A.flash_attention
+        if self.into is None:
+            return self
+
+        def seen(q, k, v, **kw):
+            qp, kp = kw["q_positions"][0], kw["k_positions"][0]
+            self.into.add((tuple(q.shape), tuple(k.shape), int(qp[0]), int(qp[-1]),
+                           int(kp[0]), int(kp[-1])))
+            return flash(q, k, v, **kw)
+
+        A.flash_attention = seen
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import attention as A
+
+        A.flash_attention = self.saved
+        return False
+
+
+def counted_projections(init, out, rank):
+    """zamba2 on (1, 2), one step from ``init["zamba2_12"]`` with each
+    mamba2 projection counted by ``StepProfile.count``: rank 0 keeps the
+    forward FLOPs of ``in_projection`` and ``out_projection``."""
+    from repro_torch.layers import recurrent as R
+
+    arch, kw, shape, B, S, A, _ = SSM_STEPS["zamba2_12"]
+    cfg = config_for(arch, kw)
+    mesh = make_host_mesh(model=shape[1], device="cpu")
+    state = from_jax_train_state(init["zamba2_12"], cfg, mesh=mesh)
+    flops, saved = count_projections(R)
+    try:
+        make_train_step(cfg, tcfg(), mesh)(state, data_for(cfg, B, S, A).batch_at(0))
+    finally:
+        R.in_projection, R.out_projection = saved
+    if rank == 0:
+        out["projections"] = flops
+
+
+def count_projections(R):
+    """Patch ``R.in_projection`` and ``R.out_projection`` to add each call's
+    counted FLOPs (``StepProfile.count``) to the returned dict; returns
+    (that dict, the original pair)."""
+    from repro_torch.core.profile import StepProfile
+
+    flops = {"in_proj": 0.0, "out_proj": 0.0}
+    saved = (R.in_projection, R.out_projection)
+
+    def counting(fn, key):
+        def run(*a, **k):
+            res, prof = StepProfile.count(fn, *a, **k)
+            flops[key] += prof.flops
+            return res
+        return run
+
+    R.in_projection = counting(saved[0], "in_proj")
+    R.out_projection = counting(saved[1], "out_proj")
+    return flops, saved
+
+
 gloo_cuda = shard._gloo_cuda
 
 
@@ -255,6 +377,14 @@ def main() -> None:
         run_steps("commandr_12", init, out, rank, TP_STEPS)
         arch_steps(init, out, rank)
         counted_step(out, rank)
+    elif phase in ("ssm2", "ssm4"):
+        run_steps("zamba2_1" + phase[-1], init, out, rank, SSM_STEPS, seen=True)
+        if phase == "ssm2":
+            counted_projections(init, out, rank)
+    elif phase in ("cp2", "cp4"):
+        for name, row in CP_STEPS.items():
+            if row[2][0] * row[2][1] == world:
+                run_steps(name, init, out, rank, CP_STEPS, seen=True)
     elif phase == "back":
         cfg = smoke_config("tinyllama-1.1b").replace(**F32)
         state, step = restore(os.path.join(d, "ck2"), cfg,
