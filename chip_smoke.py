@@ -38,7 +38,11 @@ exit:
            flash attention forward and backward (dq, dk,
            dv against the plain version's autograd), the flash attention
            forward at the dense KV layout's decode and chunk shapes
-           (``cases.MAIN_FLASH_DENSE``), and the RMSNorm
+           (``cases.MAIN_FLASH_DENSE``) and at the one-shot steps' (the
+           32,768-token prefill against the plain version in 1024-query
+           blocks, and a rank's key block of a split decode with its LSE:
+           -inf and a 0 output where a row sees no key of the block), and
+           the RMSNorm
            backward within 1e-4 (f32) and 2e-2 (bf16) of the largest
            |value| (at least of 1), flash attention also within
            ``cases.TOL_L2`` and the RMSNorm backward within
@@ -186,6 +190,28 @@ exit:
            ``launch_costs`` at its positions, launches exact; each rank's
            K2 milliseconds and the record's host load balance printed
            (record in ``results/talp_mesh_cp/``);
+6c. oneshot the one-shot serving steps (``serve.serve.make_prefill_step``,
+           ``make_decode_step``, ``make_encoder_step``), weights at their
+           per-layer fan-in: (a) ONESHOT, tinyllama-1.1b at full width and
+           depth in bf16: a 32,768-token prompt into a dense cache of
+           32,784 positions, 16 decode steps, against ``prefill_chunk`` in
+           2,048-token chunks and the same decode inputs (tokens equal but
+           at a top-2 gap under LOGIT_TOL; the largest logit difference
+           printed), launches exact (22 K2 and 45 K1 for the prefill, 22
+           and 45 a decode step); the prefill's seconds, decode tokens/s
+           and peak memory; the same at 2 layers in fp32 (the prefill's
+           logits within ONESHOT_TOL, every token equal); (b)
+           ONESHOT_ENCODER, hubert-xlarge's encoder step at 48 layers in
+           bf16, B 4 x S 1024 (48 bidirectional K2 launches, 97 K1), and at
+           2 layers in fp32 against the plain versions on the card (tokens
+           equal, logits within ONESHOT_TOL); (c) ONESHOT_MESH, gloo ranks
+           sharing the card (this script's ``--oneshot-rank``
+           subprocesses): tinyllama at 4 layers on (1, 2) and glm4-9b at 2
+           layers on (1, 4) (the sequence-split cache, the LSE combine),
+           bf16 weights computed in fp32, ONESHOT_MESH_RUN's 2 rows, 4,096-
+           token prefill and 8 decode steps: every token equal one rank's,
+           logits within ONESHOT_TOL, launches those of one rank, each
+           rank's K2 shapes its share, its cache bytes 1/n of one rank's;
 7. report  the same configuration REPORT_STEPS steps under the tracer
            (record in ``results/talp/<arch>/train_tracer/``) and under the
            null collector, launch counters exact for each; the tracer's
@@ -289,7 +315,10 @@ exit:
            L2 cache flushed before each call, as the serving step finds it,
            and K4 at the speculative verify's shape too (``verify_shape``);
            K2's forward also at the dense layout's decode and chunk shapes
-           (rows with ``path`` ``serve_dense``, SDPA on the same mask);
+           (rows with ``path`` ``serve_dense``, SDPA on the same mask) and
+           at the one-shot steps' (``path`` ``oneshot``: the 32,768-token
+           prefill, its plain version in 1024-query blocks; and
+           ``oneshot_glm4_1x4``: the split decode's key block);
            for the K1 backward the row pass's and the combine's device times
            apart, from the profiler's kernel names; then each kernel at phase
            9's shapes (rows with their ``path``; a soft-capped attention has
@@ -399,6 +428,29 @@ MESH_TALP_DIR = os.path.join("results", "talp_mesh")
 MESH_SSM = dict(arch="zamba2-2.7b", repeats=1, batch=1, seq=4096, steps=2, seed=76)
 MESH_CP = dict(arch="gemma2-2b", repeats=2, batch=1, seq=8192, steps=2, seed=77)
 MESH_CP_TALP_DIR = os.path.join("results", "talp_mesh_cp")
+# Phase 6c (oneshot): the one-shot serving steps, every weight drawn at its
+# per-layer fan-in (``_fan_in_``: under the reference draw attention is near
+# one-hot, and the fp32 kernels' rounding moved hubert's 2-layer logits
+# 5.8e-3 from the plain versions', PERF.md section 6). (a) tinyllama-1.1b at
+# full width and depth in bf16, one 32,768-token prompt (prefill_32k's
+# length) into a dense cache of 32,768 + 16 positions, 16 decode steps,
+# against ``prefill_chunk`` in 2,048-token chunks; again in fp32 at 2 of its
+# 22 layers. (b) hubert-xlarge's encoder step at 48 layers, bf16, B 4 x S
+# 1024; in fp32 at 2 layers against the plain versions. (c) gloo ranks
+# sharing the card (``--oneshot-rank``), bf16 weights computed in fp32, 2 rows,
+# a 4,096-token prefill and 8 decode steps into a cache of 4,160 positions:
+# tinyllama at 4 of 22 layers on (1, 2) (KV heads over "model") and glm4-9b
+# at 2 of 40 on (1, 4) (2 KV heads: the cache's sequence over "model", the
+# ranks' attention combined through the LSE)
+ONESHOT = dict(arch="tinyllama-1.1b", prompt=32768, decode=16, chunk=2048, fp32_repeats=2,
+               seed=81)
+ONESHOT_TOL = 1e-4
+ONESHOT_ENCODER = dict(arch="hubert-xlarge", batch=4, seq=1024, fp32_repeats=2, seed=82)
+ONESHOT_MESH = {
+    "tinyllama_1x2": dict(arch="tinyllama-1.1b", repeats=4, mesh=(1, 2), seed=83),
+    "glm4_1x4": dict(arch="glm4-9b", repeats=2, mesh=(1, 4), seed=84),
+}
+ONESHOT_MESH_RUN = dict(batch=2, prompt=4096, decode=8, max_len=4160)
 # Phase 4b: the loaded server. Batch 16 at max_len 1024 (a 1024-page
 # dense-equivalent pool), the traffic harness's bursty trace, and a pool of
 # LOAD_PAGES pages: at 384 (37.5%) the trace never fills it (peak 349 pages,
@@ -886,6 +938,7 @@ def phase_kernels():
                         main_err[key], main_err["l2_rel_err"][key] = e, l2
     deterministic = _check_training_kernels(checks, main_err)
     _check_dense_flash(checks, main_err)
+    _check_oneshot_flash(checks, main_err)
     _check_nan(checks)
     emit("kernels", tf32=False, tolerance={"float32": 1e-4, "bfloat16": 2e-2},
          training_tolerance="of the largest |value|, at least of 1",
@@ -894,7 +947,8 @@ def phase_kernels():
          max_abs_err={k: max(c[2] for c in v) for k, v in checks.items()
                       if not k.endswith("_routes") and k != "nan"},
          flash_routes=checks["flash_routes"], paged_routes=checks["paged_routes"],
-         flash_dense_routes=checks["flash_dense_routes"], nan=checks["nan"],
+         flash_dense_routes=checks["flash_dense_routes"],
+         flash_oneshot_routes=checks["flash_oneshot_routes"], nan=checks["nan"],
          paged_bitwise_repeatable=True,
          main_shape_bf16_err=main_err, flash_backward_bitwise_repeatable=deterministic,
          rmsnorm_backward_bitwise_repeatable=True, cases=checks)
@@ -1191,6 +1245,103 @@ def _check_dense_flash(checks: dict, main_err: dict) -> None:
         checks["flash_dense_routes"][dn] = moved
         if moved != want_r:
             raise AssertionError(f"flash attention dense {dn}: route launches {moved}")
+
+
+def _oneshot_reference(q, k, v, kw, block: int = 1024):
+    """The plain K2 over ``q``'s rows ``block`` queries at a time (at 32,768
+    queries the whole score tensor would not fit the card): each block at
+    its own positions against every key, in float64 on the card."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    qpos = kw["q_positions"]
+    parts = []
+    for i in range(0, q.shape[1], block):
+        parts.append(_f64(flash_attention_reference(
+            q[:, i:i + block], k, v, **dict(kw, q_positions=qpos[:, i:i + block]))))
+    return torch.cat(parts, dim=1)
+
+
+def _split_case_inputs(case, dtype, seed: int):
+    """q, k, v on the card and the keyword arguments of a 12-field K2 row
+    (``cases.MAIN_FLASH_ONESHOT``, ``cases.MAIN_FLASH_SPLIT_DECODE``: the
+    keys' first position last)."""
+    import torch
+
+    from repro_torch.kernels import cases
+
+    B, Sq, Sk, Hq, Hkv, D, causal, win, cap, off, kvl, koff = case
+    c = cases.flash_case(B, Sq, Sk, Hq, Hkv, D, seed=seed, q_offset=off, kv_len=kvl,
+                         k_offset=koff)
+    q, k, v = (torch.from_numpy(c[n]).to(DEV, dtype) for n in ("q", "k", "v"))
+    kw = dict(q_positions=torch.from_numpy(c["q_positions"]).to(DEV),
+              k_positions=torch.from_numpy(c["k_positions"]).to(DEV),
+              kv_len=None if kvl is None else torch.from_numpy(c["kv_len"]).to(DEV),
+              causal=causal, window=win, softcap=cap)
+    return q, k, v, kw
+
+
+def _check_oneshot_flash(checks: dict, main_err: dict) -> None:
+    """K2 at the one-shot steps' shapes, both routes, both gates
+    (``cases.TOL_MAX``, ``cases.TOL_L2``), two calls bitwise equal, each
+    dtype on its own route: the one-shot prefill (``cases.MAIN_FLASH_ONESHOT``,
+    against the plain version in 1024-query blocks) and a rank's block of a
+    split decode (``cases.MAIN_FLASH_SPLIT_DECODE``, through
+    ``flash_attention_lse``): its LSE too (finite where the plain version's
+    is, within the gates there, ``-inf`` at the row that sees no key of the
+    block, whose output is 0)."""
+    import torch
+
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    checks["flash_attention_oneshot"], checks["flash_oneshot_routes"] = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        before = dict(FA.ROUTE_LAUNCHES)
+        q, k, v, kw = _split_case_inputs(cases.MAIN_FLASH_ONESHOT, dtype, seed=18)
+        with torch.no_grad():
+            out, again = FA.flash_attention(q, k, v, **kw), FA.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        got, want = _f64(out), _oneshot_reference(q, k, v, kw)
+        e, l2 = cases.max_rel_err(got, want), cases.l2_rel_err(got, want)
+        bitwise = torch.equal(out, again)
+        del q, k, v, out, again, got, want
+        torch.cuda.empty_cache()
+        q, k, v, kw = _split_case_inputs(cases.MAIN_FLASH_SPLIT_DECODE, dtype, seed=19)
+        o, lse = FA.flash_attention_lse(q, k, v, **kw)
+        o2, lse2 = FA.flash_attention_lse(q, k, v, **kw)
+        torch.cuda.synchronize()
+        wo, wl = flash_attention_reference(q, k, v, return_lse=True, **kw)
+        fin = torch.isfinite(wl)
+        se = max(cases.max_rel_err(_f64(o), _f64(wo)), cases.max_rel_err(lse[fin].double(),
+                                                                           wl[fin].double()))
+        sl2 = max(cases.l2_rel_err(_f64(o), _f64(wo)), cases.l2_rel_err(lse[fin].double(),
+                                                                          wl[fin].double()))
+        idle = (bool(((lse == float("-inf")) == ~fin).all())
+                and bool((o.permute(0, 2, 1, 3)[~fin] == 0).all()))
+        checks["flash_attention_oneshot"] += [[dn, "prefill", e, l2], [dn, "split_decode", se,
+                                                                        sl2, idle]]
+        if not (e <= cases.TOL_MAX[dn] and l2 <= cases.TOL_L2[dn] and bitwise):
+            raise AssertionError(f"flash attention one-shot prefill {dn}: err {e}, L2 {l2}, "
+                                 f"bitwise {bitwise}")
+        if not (se <= cases.TOL_MAX[dn] and sl2 <= cases.TOL_L2[dn] and idle
+                and torch.equal(o, o2) and torch.equal(lse, lse2) and not fin.all()):
+            raise AssertionError(f"flash attention split decode {dn}: err {se}, L2 {sl2}, "
+                                 f"-inf LSE and 0 output where no key is seen: {idle}")
+        if dtype is torch.bfloat16:
+            main_err["flash_attention_oneshot"], main_err["flash_attention_split_decode"] = e, se
+            main_err["l2_rel_err"]["flash_attention_oneshot"] = l2
+            main_err["l2_rel_err"]["flash_attention_split_decode"] = sl2
+        moved = {r: FA.ROUTE_LAUNCHES[r] - before[r] for r in before}
+        want_r = {r: (4 if r == FA.route(dtype) else 0) for r in before}
+        checks["flash_oneshot_routes"][dn] = moved
+        if moved != want_r:
+            raise AssertionError(f"flash attention one-shot {dn}: route launches {moved}")
+        del q, k, v, o, o2, lse, lse2, wo, wl
+        torch.cuda.empty_cache()
 
 
 def _check_nan(checks: dict) -> None:
@@ -3439,6 +3590,464 @@ def phase_mesh() -> dict:
     return {"mesh": counts, **rank0}
 
 
+def _oneshot_tokens(vocab: int, shape, seed: int):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(4, vocab, size=shape)
+                            .astype(np.int32))
+
+
+def _top2_gaps(logits):
+    """Each row's gap between its two largest logits."""
+    top = logits.float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu()
+
+
+def _recorded_logits(model) -> list:
+    """The logits that ``model``'s ``prefill``, ``decode_step`` and
+    ``apply_logits`` return from here on, in order, as the serving steps
+    call them, made whole: the vocabulary's ranks' columns gathered
+    (``vocab_gather``), then the rows' ranks' rows (``rows_gather``). The
+    steps themselves return tokens only, as JAX's do."""
+    import inspect
+
+    from repro_torch.distributed.shard import rows_gather, vocab_gather
+    from repro_torch.layers.common import NULL_CONSTRAINTS
+
+    seen = []
+    for name in ("prefill", "decode_step", "apply_logits"):
+        fn = getattr(model, name)
+
+        def rec(*a, _fn=fn, _sig=inspect.signature(fn), **k):
+            out = _fn(*a, **k)
+            lc = _sig.bind(*a, **k).arguments.get("lc", NULL_CONSTRAINTS)
+            full = vocab_gather(out[0] if isinstance(out, tuple) else out, lc.tp)
+            seen.append(full if lc.ranks is None else rows_gather(full, lc.ranks))
+            return out
+        setattr(model, name, rec)
+    return seen
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """K2 and K1 replaced by their plain versions while open."""
+    import repro_torch.layers.attention as LA
+    import repro_torch.layers.norms as LN
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+
+    saved = LA.flash_attention, LN._rmsnorm_op
+    LA.flash_attention, LN._rmsnorm_op = flash_attention_reference, rmsnorm_reference
+    try:
+        yield
+    finally:
+        LA.flash_attention, LN._rmsnorm_op = saved
+
+
+def _oneshot_pair(model, prompt, decode: int, chunk: int) -> dict:
+    """``prompt`` (1, P) through ``make_prefill_step`` into a dense cache of
+    P + ``decode`` positions and ``decode`` greedy steps of
+    ``make_decode_step``; then the same prompt through ``prefill_chunk`` in
+    ``chunk``-token chunks into a second cache, and the same decode inputs
+    (the one-shot run's tokens) through ``decode_step``. Launches, seconds
+    and peak memory of the one-shot run; the logits of both runs at every
+    step (the prefill's last position first)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.serve import make_decode_step, make_prefill_step
+
+    P = prompt.shape[1]
+    prefill = make_prefill_step(model)
+    step = make_decode_step(model)
+    logits = _recorded_logits(model)
+    caches = model.init_cache(1, P + decode, paged=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tok, caches = prefill({"tokens": prompt}, caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reset_launch_counts()
+    inputs = []
+    t0 = time.perf_counter()
+    for i in range(decode):
+        inputs.append(tok.reshape(1, 1))
+        tok, caches = step(inputs[-1], P + i, caches)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = launch_counts()
+    one = [lg.float() for lg in logits]
+    del caches, logits[:]
+    ref_caches = model.init_cache(1, P + decode, paged=False)
+    ref = []
+    for c0 in range(0, P, chunk):
+        lg = model.prefill_chunk(prompt[:, c0:c0 + chunk], ref_caches, c0, chunk)
+    ref.append(lg.float())
+    for i, t in enumerate(inputs):
+        ref.append(model.decode_step(t, P + i, ref_caches).float())
+    del ref_caches
+    torch.cuda.empty_cache()
+    return dict(one=one, ref=ref, prefill_s=prefill_s, decode_s=decode_s,
+                prefill_launches=prefill_launches, decode_launches=decode_launches,
+                peak_mem_bytes=peak)
+
+
+def _oneshot_gates(run: dict, cfg, decode: int, label: str, failures: list,
+                   tol: float | None) -> dict:
+    """The one-shot run against the chunked one: greedy tokens equal except
+    where the chunked run's top-2 gap is under LOGIT_TOL (``tol`` None, the
+    bf16 run), or equal everywhere with the prefill's last logits within
+    ``tol`` of their largest |value| (fp32; the decode steps' distances
+    printed); launches exact (K2 one a layer for the prefill and each
+    decode step, K1 on every norm)."""
+    import torch
+
+    A, N = _attn_layers(cfg), _layer_norms(cfg) + 1
+    diffs, parted, near = [], [], []
+    for i, (a, b) in enumerate(zip(run["one"], run["ref"])):
+        diffs.append(float((a - b).abs().max()) / max(1.0, float(b.abs().max())))
+        ta, tb = torch.argmax(a, -1), torch.argmax(b, -1)
+        if not torch.equal(ta, tb):
+            gap = float(_top2_gaps(b).min())
+            (near if tol is None and gap < LOGIT_TOL else parted).append([i, gap])
+    want_p = {"flash_attention": A, "rmsnorm": N}
+    want_d = {"flash_attention": A * decode, "rmsnorm": N * decode}
+    got_p = {k: v for k, v in run["prefill_launches"].items() if v}
+    got_d = {k: v for k, v in run["decode_launches"].items() if v}
+    if got_p != want_p or got_d != want_d:
+        failures.append(f"(a) {label}: launches prefill {got_p} != {want_p}, decode {got_d} "
+                        f"!= {want_d}")
+    if parted:
+        failures.append(f"(a) {label}: tokens part from the chunked prefill's at (step, "
+                        f"top-2 gap) {parted}")
+    if tol is not None and diffs[0] > tol:
+        failures.append(f"(a) {label}: the prefill's logits {diffs[0]} of the largest |value| "
+                        f"from the chunked prefill's > {tol}")
+    return dict(max_logit_diff=max(diffs), logit_diff_per_step=diffs, near_ties=near,
+                prefill_launches=got_p, decode_launches=got_d)
+
+
+def _oneshot_single(failures: list) -> tuple[dict, dict]:
+    """(a): ONESHOT in bf16 at full depth, then in fp32 at ``fp32_repeats``
+    layers; returns the phase's fields and the bf16 run's launches."""
+    import torch
+
+    o = ONESHOT
+    cfg = _arch_cfg(o["arch"])
+    model, draw_s = _card_model(cfg, o["seed"], fan_in=True)
+    prompt = _oneshot_tokens(cfg.vocab, (1, o["prompt"]), o["seed"])
+    run = _oneshot_pair(model, prompt, o["decode"], o["chunk"])
+    _release(model)
+    bf16 = _oneshot_gates(run, cfg, o["decode"], "bf16", failures, None)
+    bf16.update(prefill_s=run["prefill_s"], prefill_tokens_per_s=o["prompt"] / run["prefill_s"],
+                decode_s=run["decode_s"], decode_tokens_per_s=o["decode"] / run["decode_s"],
+                peak_mem_bytes=run["peak_mem_bytes"], draw_s=draw_s)
+    counts = {k: run["prefill_launches"][k] + run["decode_launches"][k]
+              for k in run["prefill_launches"]}
+    del run
+    cfg32 = _arch_cfg(o["arch"], o["fp32_repeats"], "float32")
+    model, _ = _card_model(cfg32, o["seed"], fan_in=True)
+    run = _oneshot_pair(model, prompt, o["decode"], o["chunk"])
+    _release(model)
+    fp32 = _oneshot_gates(run, cfg32, o["decode"], "fp32", failures, ONESHOT_TOL)
+    del run
+    torch.cuda.empty_cache()
+    return dict(prompt=o["prompt"], decode_steps=o["decode"], chunk=o["chunk"], bf16=bf16,
+                fp32=dict(repeats=o["fp32_repeats"], tol=ONESHOT_TOL, **fp32)), counts
+
+
+def _oneshot_encoder(failures: list) -> dict:
+    """(b): hubert-xlarge's encoder step at full depth in bf16 (launches
+    exact), then at ``fp32_repeats`` layers in fp32 against the same weights
+    with the plain versions in place of the kernels; then, at those layers
+    under the reference draw (attention near one-hot), the kernels' and the
+    plain versions' fp32 logits each against a float64 run of the same
+    weights through the plain versions (``_reference_draw_witness``)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.serve import make_encoder_step
+
+    e = ONESHOT_ENCODER
+    out = {}
+    for label, cfg in (("bf16", _arch_cfg(e["arch"])),
+                       ("fp32", _arch_cfg(e["arch"], e["fp32_repeats"], "float32"))):
+        model, _ = _card_model(cfg, e["seed"], fan_in=True)
+        frames = _oneshot_frames(cfg, e)
+        step = make_encoder_step(model)
+        seen = _recorded_logits(model)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tok = step({"frontend": frames})
+        torch.cuda.synchronize()
+        logits = seen.pop()
+        row = dict(repeats=cfg.repeats, seconds=time.perf_counter() - t0,
+                   launches={k: v for k, v in launch_counts().items() if v},
+                   finite=bool(torch.isfinite(logits).all()))
+        want = {"flash_attention": _attn_layers(cfg), "rmsnorm": _layer_norms(cfg) + 1}
+        if row["launches"] != want or not row["finite"] or tuple(tok.shape) != (
+                e["batch"], e["seq"]):
+            failures.append(f"(b) {label}: launches {row['launches']} != {want}, finite "
+                            f"{row['finite']}, tokens {tuple(tok.shape)}")
+        if label == "fp32":
+            with _plain_versions():
+                ptok = step({"frontend": frames})
+            plog = seen.pop()
+            row["max_logit_diff"] = float((logits - plog).abs().max()) / max(
+                1.0, float(plog.abs().max()))
+            row["tokens_equal"] = bool(torch.equal(tok, ptok))
+            if not row["tokens_equal"] or row["max_logit_diff"] > ONESHOT_TOL:
+                failures.append(f"(b) fp32: against the plain versions tokens equal "
+                                f"{row['tokens_equal']}, logits {row['max_logit_diff']} > "
+                                f"{ONESHOT_TOL}")
+            del ptok, plog
+        out[label] = row
+        del tok, logits, frames, step
+        _release(model)
+    out["fp32_reference_draw"] = _reference_draw_witness(failures)
+    return out
+
+
+def _oneshot_frames(cfg, e: dict):
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(e["seed"])
+    return torch.randn((e["batch"], e["seq"], cfg.d_model), generator=gen, device=DEV,
+                       dtype=torch.float32).to(cfg.compute_dtype)
+
+
+def _reference_draw_witness(failures: list) -> dict:
+    """hubert-xlarge at ``fp32_repeats`` layers under the reference draw
+    (no ``_fan_in_``), ONESHOT_ENCODER's frames: the encoder step's fp32
+    logits through the kernels and through the plain versions, each
+    against a float64 run of the same weights and frames through the plain
+    versions. Max and RMS distance over the float64 logits' max and RMS;
+    the gate: the kernels' RMS distance within EXACT_RATIO times the plain
+    fp32 run's, so that a gap between the two fp32 runs is fp32 rounding,
+    not a fault of the kernels."""
+    import torch
+
+    from repro_torch.layers.common import tree_map
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.serve import make_encoder_step
+
+    e = ONESHOT_ENCODER
+    cfg = _arch_cfg(e["arch"], e["fp32_repeats"], "float32")
+    model, _ = _card_model(cfg, e["seed"])
+    frames = _oneshot_frames(cfg, e)
+    step = make_encoder_step(model)
+    seen = _recorded_logits(model)
+    tok = step({"frontend": frames})
+    with _plain_versions():
+        ptok = step({"frontend": frames})
+    kern, plain = seen
+    cfg64 = cfg.replace(param_dtype_name="float64", compute_dtype_name="float64")
+    exact_model = Transformer(cfg64, tree_map(lambda t: t.double(), model.params()), DEV)
+    with _plain_versions(), torch.inference_mode():
+        exact = exact_model.apply_logits({"frontend": frames.double()})[0]
+    del exact_model
+    _release(model)
+
+    def against(x) -> dict:
+        d = x.double() - exact
+        return dict(max_rel=float(d.abs().max() / exact.abs().max()),
+                    rms_rel=float(d.pow(2).mean().sqrt() / exact.pow(2).mean().sqrt()),
+                    tokens_equal_float64=bool(torch.equal(x.argmax(-1), exact.argmax(-1))))
+
+    row = dict(repeats=cfg.repeats, kernels=against(kern), plain=against(plain),
+               kernels_vs_plain_max_rel=float((kern - plain).abs().max() / plain.abs().max()),
+               tokens_equal=bool(torch.equal(tok, ptok)), ratio_limit=EXACT_RATIO)
+    row["rms_ratio"] = row["kernels"]["rms_rel"] / row["plain"]["rms_rel"]
+    if row["rms_ratio"] > EXACT_RATIO:
+        failures.append(f"(b) reference draw: the kernels' RMS distance from float64 "
+                        f"{row['kernels']['rms_rel']} > {EXACT_RATIO} x the plain versions' "
+                        f"{row['plain']['rms_rel']}")
+    del kern, plain, exact, seen, frames
+    torch.cuda.empty_cache()
+    return row
+
+
+def _oneshot_mesh_run(m: dict, mesh) -> dict:
+    """``m`` (an ONESHOT_MESH row) with ONESHOT_MESH_RUN's batch, prompt and
+    decode steps on ``mesh`` (None: one rank): greedy tokens and logits of
+    every step, launches, and the (q, k) shapes K2's forward saw."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.serve import make_decode_step, make_prefill_step
+
+    r = ONESHOT_MESH_RUN
+    cfg = _arch_cfg(m["arch"], m["repeats"]).replace(compute_dtype_name="float32")
+    model = Transformer.from_init(cfg, seed=m["seed"], device=DEV, draw_device="cuda", mesh=mesh)
+    _fan_in_(model)
+    prompt = _oneshot_tokens(cfg.vocab, (r["batch"], r["prompt"]), m["seed"])
+    caches = model.init_cache(r["batch"], r["max_len"], paged=False)
+    prefill = make_prefill_step(model, mesh)
+    step = make_decode_step(model, mesh)
+    logits = _recorded_logits(model)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with _Seen() as seen:
+        tok, caches = prefill({"tokens": prompt}, caches)
+        toks = [tok.cpu()]
+        tok = tok[:, None]
+        for i in range(r["decode"]):
+            tok, caches = step(tok, r["prompt"] + i, caches)
+            toks.append(tok[:, 0].cpu())
+    torch.cuda.synchronize()
+    lgs = [lg.float().cpu() for lg in logits]
+    out = dict(tokens=torch.stack(toks), logits=torch.stack(lgs),
+               seconds=time.perf_counter() - t0,
+               launches={k: v for k, v in launch_counts().items() if v},
+               flash_shapes=sorted(seen.flash),
+               cache_bytes=sum(t.numel() * t.element_size()
+                               for leaf in caches.values() for d in leaf.values()
+                               for t in d.values()))
+    del model, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _oneshot_rank_main(argv) -> int:
+    """One of phase 6c (c)'s ranks: ``--oneshot-rank CASE RANK WORLD STORE OUT``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    case, rank, world, store, out = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT))
+    m = ONESHOT_MESH[case]
+    res = _oneshot_mesh_run(m, make_host_mesh(model=m["mesh"][1], device=DEV))
+    res["rank"] = rank
+    if rank:
+        res.pop("logits")
+    torch.save(res, os.path.join(out, f"{case}_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _oneshot_share(m: dict) -> set:
+    """The (q, k) shapes a rank's K2 forward takes on ``m``'s mesh: the
+    prefill at its query heads (and KV heads, where they divide the model
+    axis) over the whole prompt; a decode step against its rows' cache
+    block, its KV heads at every position, or, where the cache's sequence
+    is split, every query head against its block of the positions."""
+    from repro_torch.configs import get_config
+
+    cfg, r = get_config(m["arch"]), ONESHOT_MESH_RUN
+    n, B, P, L = m["mesh"][1], r["batch"], r["prompt"], r["max_len"]
+    hq, hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if hkv % n == 0:
+        return {((B, P, hq // n, D), (B, P, hkv // n, D)),
+                ((B, 1, hq // n, D), (B, L, hkv // n, D))}
+    kv = len({h * hkv // hq for h in range(hq // n)})  # the kv heads a rank's q heads read
+    return {((B, P, hq // n, D), (B, P, kv, D)), ((B, 1, hq, D), (B, L // n, hkv, D))}
+
+
+def _oneshot_mesh(failures: list) -> tuple[dict, dict]:
+    """(c): each ONESHOT_MESH case's gloo ranks sharing the card (this
+    script's ``--oneshot-rank`` subprocesses; the cases' ranks all started
+    together) against one rank's run of the same weights in this process:
+    every step's tokens equal, logits within ONESHOT_TOL of the largest
+    |value|, launches those of one rank, each rank's K2 shapes its share.
+    Returns the fields and rank 0's launches of the sequence-split case."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+
+    work = os.path.join(ROOT, "results", "oneshot_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    for case, m in ONESHOT_MESH.items():
+        world = m["mesh"][0] * m["mesh"][1]
+        procs += [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--oneshot-rank", case, str(rk),
+             str(world), os.path.join(work, f"store_{case}"), work],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rk in range(world)]
+    refs = {case: _oneshot_mesh_run(m, None) for case, m in ONESHOT_MESH.items()}
+    logs = []
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:  # a hung rank ends here, never outlives the script
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError("oneshot (c): ranks exited " + str([p.returncode for p in procs])
+                             + "\n" + "\n".join(x[-3000:] for x in logs))
+    out, counts = {}, {}
+    for case, m in ONESHOT_MESH.items():
+        world = m["mesh"][0] * m["mesh"][1]
+        ranks = [torch.load(os.path.join(work, f"{case}_rank{rk}.pt"), weights_only=False)
+                 for rk in range(world)]
+        ref = refs[case]
+        diff = float((ranks[0]["logits"] - ref["logits"]).abs().max()) / max(
+            1.0, float(ref["logits"].abs().max()))
+        share = _oneshot_share(m)
+        row = dict(mesh=m["mesh"], repeats=m["repeats"], max_logit_diff=diff,
+                   one_rank_seconds=ref["seconds"], one_rank_launches=ref["launches"],
+                   ranks=[dict(rank=rk["rank"], seconds=rk["seconds"], launches=rk["launches"],
+                               flash_shapes=rk["flash_shapes"], cache_bytes=rk["cache_bytes"])
+                          for rk in ranks], one_rank_cache_bytes=ref["cache_bytes"])
+        for rk in ranks:
+            where = f"(c) {case} rank {rk['rank']}"
+            if not torch.equal(rk["tokens"], ref["tokens"]):
+                failures.append(f"{where}: tokens {rk['tokens'].tolist()} != one rank's "
+                                f"{ref['tokens'].tolist()}")
+            if rk["launches"] != ref["launches"]:
+                failures.append(f"{where}: launches {rk['launches']} != one rank's "
+                                f"{ref['launches']}")
+            got = {(tuple(q), tuple(k)) for q, k in rk["flash_shapes"]}
+            if got != share:
+                failures.append(f"{where}: K2 at {sorted(got)}, not its share {sorted(share)}")
+            if rk["cache_bytes"] * world != ref["cache_bytes"]:  # spare rows split alike
+                failures.append(f"{where}: cache block {rk['cache_bytes']} B, not 1/{world} "
+                                f"of one rank's {ref['cache_bytes']} B")
+        if diff > ONESHOT_TOL:
+            failures.append(f"(c) {case}: logits {diff} of the largest |value| from one rank's "
+                            f"> {ONESHOT_TOL}")
+        out[case] = row
+        counts[f"oneshot_{case}"] = {k: ranks[0]["launches"].get(k, 0) for k in LAUNCHES}
+    shutil.rmtree(work, ignore_errors=True)
+    return out, counts
+
+
+def phase_oneshot() -> dict:
+    """6c: the one-shot prefill, decode and encoder steps, (a) to (c);
+    returns (a)'s launches (``"oneshot"``) and rank 0's of each (c) case."""
+    failures: list = []
+    fields: dict = {}
+    try:  # what ran is printed before a failure ends the phase
+        fields["single"], counts = _oneshot_single(failures)
+        fields["encoder"] = _oneshot_encoder(failures)
+        fields["mesh"], mesh_counts = _oneshot_mesh(failures)
+    finally:
+        emit("oneshot", **fields, failures=failures, card=_card())
+    if failures:
+        raise AssertionError("oneshot: " + "; ".join(failures))
+    return {"oneshot": counts, **mesh_counts}
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5237,6 +5846,14 @@ def phase_timing(main_err, counts):
                          source="src/repro_torch/csrc/flash_attention_tc.cu",
                          replaces="src/repro/kernels/flash_attention/kernel.py:35",
                          **_dense_flash_timing(case, seed=47)))
+    for name, case in (("oneshot", cases.MAIN_FLASH_ONESHOT),
+                       ("split_decode", cases.MAIN_FLASH_SPLIT_DECODE)):
+        rows.append(dict(name="flash_attention", route="cuda",
+                         path="oneshot" if name == "oneshot" else "oneshot_glm4_1x4",
+                         err_key=f"flash_attention_{name}", variant=FA.route(bf),
+                         source="src/repro_torch/csrc/flash_attention_tc.cu",
+                         replaces="src/repro/kernels/flash_attention/kernel.py:35",
+                         **_oneshot_flash_timing(case, seed=48, blocked=name == "oneshot")))
     rows += _arch_timing()
     for row in rows:
         path = row.get("path")
@@ -5281,6 +5898,50 @@ def _dense_flash_timing(case, seed: int) -> dict:
         shape=f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} q_pos={off} kv_len={list(kvl)} bf16",
         ms=cuda_ms(kernel), device_ms=graph_ms(kernel), plain_ms=cuda_ms(plain, iters=50),
         library_ms=cuda_ms(sdpa), library_device_ms=graph_ms(sdpa),
+        library="F.scaled_dot_product_attention, k/v repeated, the same mask",
+        bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+
+
+def _oneshot_flash_timing(case, seed: int, blocked: bool) -> dict:
+    """K2's forward at a one-shot row (``cases.MAIN_FLASH_ONESHOT``,
+    ``MAIN_FLASH_SPLIT_DECODE``), bf16: the kernel (the split decode's with
+    the LSE it returns), its plain version (``blocked``: in 1024-query
+    blocks, whose score tensors fit the card, the whole prompt's would
+    not), and SDPA on the same masks (k/v repeated to the q heads outside
+    the timing; the one-shot prefill ``is_causal``), beside the bound from
+    ``launch_costs`` of these positions."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    q, k, v, kw = _split_case_inputs(case, torch.bfloat16, seed)
+    B, Sq, Sk, Hq, Hkv, D, causal, _, _, off, kvl, koff = case
+    qpos, kpos, lens = kw["q_positions"], kw["k_positions"], kw["kv_len"]
+    flops, nbytes = FA.launch_costs(q, k, causal, None, False, qpos, kpos, lens)
+    bound, by = _bound_ms(nbytes, flops, "bfloat16")
+    G = Hq // Hkv
+    qd = q.transpose(1, 2).contiguous()
+    kd, vd = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for t in (k, v))
+    kernel = lambda: FA.flash_forward(q, k, v, qpos, kpos, lens, causal, None, None)  # noqa: E731
+    if blocked:
+        sdpa = lambda: F.scaled_dot_product_attention(qd, kd, vd, is_causal=True)  # noqa: E731
+        plain = lambda: _oneshot_reference(q, k, v, kw)  # noqa: E731
+        plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    else:
+        mask = _sdpa_mask(qpos, kpos, True, None, lens)
+        sdpa = lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)  # noqa: E731
+        plain = lambda: flash_attention_reference(q, k, v, return_lse=True, **kw)  # noqa: E731
+        plain_ms = cuda_ms(plain, iters=50)
+    iters = 5 if blocked else 200
+    return dict(
+        shape=f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} q_pos={off} k_pos={koff} "
+              f"kv_len={None if kvl is None else list(kvl)} bf16",
+        ms=cuda_ms(kernel, iters=iters, warmup=2), device_ms=graph_ms(kernel, iters=iters),
+        plain_ms=plain_ms, plain="in 1024-query blocks" if blocked else "whole",
+        library_ms=cuda_ms(sdpa, iters=iters, warmup=2),
+        library_device_ms=graph_ms(sdpa, iters=iters),
         library="F.scaled_dot_product_attention, k/v repeated, the same mask",
         bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
 
@@ -5405,6 +6066,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--mesh-rank"]:
         return _mesh_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--oneshot-rank"]:
+        return _oneshot_rank_main(sys.argv[2:])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv[1:]
@@ -5432,6 +6095,7 @@ def main() -> int:
     del params
     train_counts = phase_train(profile)
     mesh_counts = phase_mesh()
+    oneshot_counts = phase_oneshot()
     phase_report()
     arch_counts = phase_archs()
     moe_counts = phase_moe()
@@ -5439,7 +6103,7 @@ def main() -> int:
     rows = phase_timing(main_err, {"serve": serve_counts, "serve_dense": dense_counts,
                                    "serve_load": load_counts, "serve_spec": spec_counts,
                                    "serve_fault": fault_counts, "train": train_counts,
-                                   **mesh_counts,
+                                   **mesh_counts, **oneshot_counts,
                                    **arch_counts, **moe_counts, **recurrent_counts})
     emit("timing", rows=len(rows))
     card = _card()

@@ -7,6 +7,13 @@ from repro_torch.configs.base import (
     check_supported,
     torch_dtype,
 )
+from repro_torch.configs.shapes import (
+    SHAPE_BY_NAME,
+    SHAPES,
+    InputShape,
+    effective_mode,
+    skip_reason,
+)
 
 
 def list_archs() -> list[str]:
@@ -15,6 +22,7 @@ def list_archs() -> list[str]:
 
 __all__ = [
     "ARCHS", "ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig",
-    "check_supported", "get_config", "list_archs", "optimized_config", "smoke_config",
+    "InputShape", "SHAPES", "SHAPE_BY_NAME", "check_supported", "effective_mode",
+    "get_config", "list_archs", "optimized_config", "skip_reason", "smoke_config",
     "torch_dtype",
 ]

@@ -39,6 +39,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry as _FLOP_FORMULAS
 
 from repro_torch import kernels as K
+from repro_torch.core.hardware import ChipSpec, get_target
 from repro_torch.core.records import (
     ComputationCounters,
     RegionCounters,
@@ -205,6 +206,50 @@ class StepProfile:
             collective_bytes_dcn=self.collective_bytes_dcn,
             model_flops=self.model_flops,
         )
+
+    # ---- roofline (the three terms) ----
+
+    def roofline_terms(self, spec: ChipSpec | str | None = None) -> dict[str, Any]:
+        """Seconds per step on the target hardware (JAX ``roofline_terms``;
+        ``spec`` a ``ChipSpec``, a target's name, or None for
+        ``DEFAULT_TARGET``, the H100 SXM):
+
+        compute    = FLOPs / (devices * peak)
+        memory     = bytes / (devices * HBM bandwidth)
+        collective = collective bytes / (devices * link bandwidth)
+
+        with the bottleneck, the bound (the largest term) and the serial sum;
+        against ``model_flops`` the roofline fractions and the model-to-
+        counted FLOP ratio, and against ``model_bytes`` the memory fraction."""
+        if not isinstance(spec, ChipSpec):
+            spec = get_target(spec)
+        n = self.num_devices
+        compute = self.flops / (n * spec.peak_flops_bf16)
+        memory = self.hbm_bytes / (n * spec.hbm_bandwidth)
+        coll_ici = self.collective_bytes_ici / (n * spec.ici_bandwidth)
+        coll_dcn = self.collective_bytes_dcn / (n * spec.dcn_bandwidth)
+        collective = coll_ici + coll_dcn
+        terms: dict[str, Any] = {
+            "compute_s": compute,
+            "memory_s": memory,
+            "collective_s": collective,
+            "collective_ici_s": coll_ici,
+            "collective_dcn_s": coll_dcn,
+        }
+        terms["bottleneck"] = max(("compute_s", "memory_s", "collective_s"),
+                                  key=lambda k: terms[k])
+        terms["step_time_lower_bound_s"] = max(compute, memory, collective)
+        terms["step_time_serial_s"] = compute + memory + collective
+        if self.model_flops > 0:
+            ideal = self.model_flops / (n * spec.peak_flops_bf16)
+            terms["roofline_fraction"] = ideal / max(terms["step_time_serial_s"], 1e-30)
+            terms["roofline_fraction_overlapped"] = ideal / max(
+                terms["step_time_lower_bound_s"], 1e-30)
+            terms["model_to_hlo_flops"] = self.model_flops / max(self.flops, 1e-30)
+        if self.model_bytes > 0:
+            ideal_mem = self.model_bytes / (n * spec.hbm_bandwidth)
+            terms["memory_roofline_fraction"] = ideal_mem / max(terms["memory_s"], 1e-30)
+        return terms
 
     # ---- serialization (the tracer's ``trace_meta.json``; the JAX key names) ----
 

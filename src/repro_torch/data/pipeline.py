@@ -3,7 +3,8 @@
 ``batch_at(step)`` is a pure function of (seed, step), drawn with numpy
 exactly as the JAX package draws it, so the port's batches are bitwise the
 JAX ones. It returns CPU tensors; the training loop moves them to the
-device with ``non_blocking``.
+device with ``non_blocking``. ``batch_specs`` gives the inputs' shapes and
+dtypes as meta tensors, for counting a step without its data.
 """
 
 from __future__ import annotations
@@ -66,3 +67,37 @@ class SyntheticLM:
             labels = np.concatenate([pad, labels], axis=-1)
         out["labels"] = torch.from_numpy(np.ascontiguousarray(labels, np.int32))
         return out
+
+
+def batch_specs(cfg, shape, mode: str = "train") -> dict:
+    """Stand-ins for every model input (JAX ``batch_specs``): meta tensors
+    (``torch.empty(..., device="meta")``, nothing allocated) with JAX's
+    keys, shapes and dtypes. ``cfg``: ModelConfig; ``shape``: InputShape
+    (``configs.shapes``); ``mode``: train (an accumulation axis of 1
+    first), prefill or decode ((B, 1) tokens). The vlm's text is the
+    sequence less its patches; the audio model takes frames and no
+    tokens."""
+    B, S = shape.global_batch, shape.seq_len
+    fe, d = cfg.n_frontend_tokens, cfg.d_model
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    lead = (1,) if mode == "train" else ()
+    text = S - (fe if cfg.frontend == "vlm" else 0)
+    out = {}
+    if mode in ("train", "prefill"):
+        if cfg.frontend == "audio":
+            out["frontend"] = spec(lead + (B, S, d), torch.bfloat16)
+        elif cfg.frontend == "vlm":
+            out["frontend"] = spec(lead + (B, fe, d), torch.bfloat16)
+            out["tokens"] = spec(lead + (B, text), torch.int32)
+        else:
+            out["tokens"] = spec(lead + (B, S), torch.int32)
+        if mode == "train":
+            out["labels"] = spec(lead + (B, S), torch.int32)
+    elif mode == "decode":
+        out["tokens"] = spec((B, 1), torch.int32)
+    else:
+        raise ValueError(mode)
+    return out

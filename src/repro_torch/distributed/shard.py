@@ -387,6 +387,11 @@ class SequenceSplit:
         _dist().all_reduce(x, op=_dist().ReduceOp.MAX, group=self.group)
         return x
 
+    def channel_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., C/n) a rank -> (..., C), the ranks' blocks in rank order (no
+        gradient: a serving cache's channel blocks)."""
+        return _gather_dim(x, self.group, -1)
+
 
 def _model_axis_over_ranks(mesh) -> bool:
     return mesh is not None and mesh.distributed and mesh.sizes.get("model", 1) > 1
@@ -435,3 +440,140 @@ class ContextParallel(SequenceSplit):
                 or "model" in ranks.axes):
             return None
         return cls(mesh)
+
+
+# ---------------------------------------------------------------------------
+# the serving steps over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's blocks of ``x`` side by side along ``dim``, in rank order
+    (no gradient: the serving steps run under inference mode)."""
+    parts = _all_gather(x, group)                      # (n, *x.shape)
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+class RowParallel(TensorParallel):
+    """A decode step's split over a megatron mesh's ``"model"`` axis: one
+    token a row, so the residual stays whole on every rank (JAX's ``"seq"``
+    rule backs off on a dim of 1). The layers compute the same shares as
+    under ``TensorParallel`` (query heads, MLP columns, experts, vocabulary
+    rows, SSM heads) on the whole residual, and their partial sums meet in
+    an all-reduce (``_AllReduce``) where ``TensorParallel`` reduce-scatters
+    along the sequence: ``seq_gather`` and ``local`` are the identity,
+    ``seq_scatter`` the all-reduce. No sequence all-gather runs."""
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def seq_scatter(self, y: torch.Tensor) -> torch.Tensor:
+        return self.all_reduce(y)
+
+
+class CacheSplit:
+    """This rank's block of the serving caches over the mesh's ``"model"``
+    axis (``distributed.sharding.cache_pspec_tree``): the KV heads when
+    ``n_kv_heads`` divides the axis (``heads``), else the dense cache's
+    sequence (``seq``), ``max_len / size`` positions a rank from
+    ``index * max_len / size``. A split mamba2's SSM state is its heads'
+    and its conv state a block of its channels (``"inner"``); the mLSTM and
+    sLSTM state is whole. ``group`` is the ``"model"`` ranks'."""
+
+    def __init__(self, cfg, mesh):
+        self.size = mesh.sizes.get("model", 1)
+        self.index = mesh.coords()["model"]
+        self.group = mesh.group(("model",))
+        self.heads = self.size > 1 and cfg.n_kv_heads % self.size == 0
+        self.seq = self.size > 1 and not self.heads
+
+    @classmethod
+    def of(cls, cfg, mesh) -> "CacheSplit | None":
+        """The split on a mesh over a process group whose ``"model"`` axis is
+        above 1; else None (every rank holds its rows' whole caches)."""
+        return cls(cfg, mesh) if _model_axis_over_ranks(mesh) else None
+
+    def kv_part(self, hkv: int) -> slice:
+        """The KV heads of this rank's block (all of them under ``seq``)."""
+        if not self.heads:
+            return slice(0, hkv)
+        k = hkv // self.size
+        return slice(self.index * k, (self.index + 1) * k)
+
+    def offset(self, block: int) -> int:
+        """The first position of this rank's sequence block of ``block``
+        positions (0 unless ``seq``)."""
+        return self.index * block if self.seq else 0
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """In-place sum (or ``"max"``) over the ``"model"`` ranks."""
+        dist = _dist()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self.group)
+        return x
+
+    def head_gather(self, q: torch.Tensor) -> torch.Tensor:
+        """(B, S, H/n, D) a rank -> (B, S, H, D): the ranks' heads in rank order."""
+        return _gather_dim(q, self.group, 2)
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor, split: CacheSplit) -> torch.Tensor:
+    """Attention over a key sequence split across the ``"model"`` ranks, from
+    each rank's attention over its own block: ``o`` (B, S, H, D) and its
+    row log-sum-exp ``lse`` (B, H, S), ``-inf`` where the block holds no key
+    the row sees. The ranks all-reduce the largest LSE, then the outputs
+    and the sums of exponentials rescaled to it: ``o = sum_r o_r w_r /
+    sum_r w_r`` with ``w_r = exp(lse_r - max)``. A rank with no visible key
+    has ``w_r = 0`` and adds nothing; a row that sees no key on any rank
+    is 0, as the kernel leaves it. Computed in fp32 (float64 for float64
+    inputs); returns ``o``'s dtype."""
+    acc = torch.promote_types(o.dtype, torch.float32)
+    lse = lse.to(acc)
+    m = split.all_reduce(lse.clone(), "max")
+    w = torch.where(torch.isfinite(m), torch.exp(lse - m), torch.zeros_like(lse))
+    w = w.permute(0, 2, 1)[..., None]                   # (B, S, H, 1)
+    num = split.all_reduce((o.to(acc) * w).contiguous())
+    den = split.all_reduce(w.contiguous())
+    return (num / den.clamp(min=1e-30)).to(o.dtype)
+
+
+def vocab_argmax(logits: torch.Tensor, tp) -> torch.Tensor:
+    """The argmax over the whole vocabulary from this rank's columns
+    ``logits`` (..., V/n) (the first index on a tie, as ``argmax`` over the
+    whole row gives it): each rank's largest value and its index, all-
+    gathered over ``"model"``, the first rank with the largest value wins.
+    Without ``tp``, the row's argmax."""
+    if tp is None:
+        return torch.argmax(logits, dim=-1)
+    i = torch.argmax(logits, dim=-1)
+    v = torch.gather(logits, -1, i[..., None])[..., 0]
+    i = i + tp.index * logits.shape[-1]
+    vs, ids = _all_gather(v, tp.group), _all_gather(i, tp.group)   # (n, ...)
+    win = torch.argmax(vs, dim=0)
+    return torch.gather(ids, 0, win[None])[0]
+
+
+def vocab_gather(logits: torch.Tensor, tp) -> torch.Tensor:
+    """The whole vocabulary's logits from each rank's columns (or ``logits``
+    itself without ``tp``)."""
+    return logits if tp is None else _gather_dim(logits, tp.group, -1)
+
+
+def rows_gather(x: torch.Tensor, ranks: BatchRanks) -> torch.Tensor:
+    """The global batch from each rank's rows (``ranks``' groups in order)."""
+    return x if ranks.group is None else _gather_dim(x, ranks.group, 0)
+
+
+def cache_block_shape(shape, spec, mesh, spare: bool) -> tuple:
+    """The shape of a rank's block of a full serving-cache leaf under its
+    placement ``spec`` (``cache_pspec_tree``). With ``spare`` (the dense
+    layout's ``(R, B+1, ...)`` leaf) the placement splits rows ``0..B-1``
+    and the block ends with a spare row of its own."""
+    sh = NamedSharding(mesh, spec)
+    if not spare:
+        return sh.block_shape(tuple(shape))
+    blk = sh.block_shape((shape[0], shape[1] - 1) + tuple(shape[2:]))
+    return (blk[0], blk[1] + 1) + blk[2:]

@@ -175,3 +175,54 @@ def input_shardings(cfg, mesh, batch_spec_tree):
     return tree_map(
         lambda x: NamedSharding(mesh, (bp[0],) + (None,) * (len(x.shape) - 1)),
         batch_spec_tree)
+
+
+def cache_pspec_tree(cfg, mesh, caches) -> dict:
+    """The placement of each leaf of the port's cache tree (nested dicts of
+    anything with a ``shape``; ``models.transformer.init_cache``), as the
+    tuples ``layers.common.param_pspecs`` returns (JAX ``cache_pspec_tree``).
+    Each dim gets the axes that JAX's rule gives the matching dim of JAX's
+    stacked ``(R, B, ...)`` leaf: the batch over ``divisible_batch_axes``;
+    the KV heads over ``"model"`` when ``n_kv_heads`` divides it, and
+    otherwise the dense cache's sequence over ``"model"`` (attention over a
+    split sequence combines each rank's part through its LSE); the paged
+    pool's page axis never split (pages are read by physical index) and
+    its KV heads as the dense cache's; mamba2's SSM heads over ``"model"``
+    when they divide it and its conv channels over the activation rules'
+    ``"inner"``; the mLSTM and sLSTM state whole but for the batch.
+
+    The port's spare rows stay whole on every rank. A dense leaf is ``(R,
+    B+1, max_len, Hkv, hd)``: its batch entry places rows ``0..B-1``
+    (divisibility is read off ``B``), and every rank's block ends with a
+    spare row of its own, ``(R, B/n + 1, ...)``, which takes the rank's
+    dropped writes and is never read (``distributed.shard
+    .cache_block_shape``).
+    The paged pool's spare page ``P`` lies on the page axis, which no rank
+    splits, so every rank holds it with the rest of the pool."""
+    from repro_torch.layers.common import tree_leaves, unflatten
+
+    rules = activation_rules(cfg, mesh)
+    model = _axis(mesh, "model")
+    kv_div = model > 1 and cfg.n_kv_heads % model == 0
+    inner = rules["inner"]
+    ssm_heads = ("model" if cfg.ssm and model > 1 and cfg.ssm.n_heads(cfg.d_model) % model == 0
+                 else None)
+
+    def place(path: str, leaf) -> tuple:
+        nd = len(leaf.shape)
+        if "pages" in path:  # (R, P+1, page, Hkv, hd): no batch dim
+            return (None, None, None, "model" if kv_div else None, None)
+        attn = "attn" in path
+        b = (leaf.shape[1] - (1 if attn else 0)) if nd >= 2 else 1
+        batch = divisible_batch_axes(mesh, b)
+        if attn:  # (R, B+1, Smax, Hkv, hd)
+            if kv_div:
+                return (None, batch, None, "model", None)
+            return (None, batch, "model" if model > 1 else None, None, None)
+        if "mamba" in path and nd == 4:  # conv (R, B, K-1, C)
+            return (None, batch, None, inner)
+        if "mamba" in path and nd == 5:  # ssm (R, B, h, p, n)
+            return (None, batch, ssm_heads, None, None)
+        return (None, batch) + (None,) * (nd - 2)
+
+    return unflatten({p: place(p, leaf) for p, leaf in tree_leaves(caches)})

@@ -173,6 +173,19 @@ MAIN_FLASH_CP_GLOBAL = [(1, 4096, 8192, 8, 4, 256, True, None, 50.0, off, None)
 # zamba2-2.7b training on a (1, 2) megatron mesh (phase 6b (c)): its
 # attention layer at a rank's 16 of 32 heads (G 1, head dim 80)
 MAIN_FLASH_ZAMBA2_TP = (1, 4096, 4096, 16, 16, 80, True, None, None)
+# the one-shot serving steps (chip_smoke.py phase ``oneshot``). (a)
+# tinyllama-1.1b's one-shot prefill of a 32,768-token prompt (the
+# prefill_32k shape's length): B 1, 32/4 heads, head dim 64, causal over
+# the prompt itself. (c) glm4-9b's decode step on a (1, 4) mesh, whose 2 kv
+# heads do not divide 4: the dense cache of max_len 4,160 splits its
+# sequence, and a rank (here rank 3, keys at 3,120..4,159) attends one query
+# row a slot, all 32 query heads, against its 1,040-key block at the
+# block's true positions, cut at kv_len, returning the LSE; the second
+# slot's query (position 3,000) sees no key of the block: its LSE is -inf.
+# Rows as FLASH_KVLEN_CASES with a 12th field, the keys' first position.
+MAIN_FLASH_ONESHOT = (1, 32768, 32768, 32, 4, 64, True, None, None, 0, None, 0)
+MAIN_FLASH_SPLIT_DECODE = (2, 1, 1040, 32, 2, 128, True, None, None, (4100, 3000),
+                           (4101, 3001), 3120)
 FLASH_ARCH_CASES = FLASH_ARCH_SMALL + [MAIN_FLASH_GEMMA2, MAIN_FLASH_GEMMA2_GLOBAL,
                                        FLASH_GLM4, MAIN_FLASH_LLAVA, MAIN_FLASH_HUBERT,
                                        MAIN_FLASH_QWEN3, MAIN_FLASH_ZAMBA2, MAIN_FLASH_MESH,
@@ -350,10 +363,11 @@ def prefill_case(B, C, Hq, Hkv, D, psize, nL, P, starts, seed=0, lengths=None) -
             "cache_len": lens, "q_positions": qpos}
 
 
-def flash_case(B, Sq, Sk, Hq, Hkv, D, seed=0, q_offset=0, kv_len=None) -> dict:
+def flash_case(B, Sq, Sk, Hq, Hkv, D, seed=0, q_offset=0, kv_len=None,
+               k_offset: int = 0) -> dict:
     """q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) and a cotangent dout like q, fp32;
     positions: queries at ``q_offset + i`` (``q_offset`` an int or one a
-    row), keys at ``j``; kv_len (B,) or None."""
+    row), keys at ``k_offset + j``; kv_len (B,) or None."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
     return {"q": f(B, Sq, Hq, D), "k": f(B, Sk, Hkv, D), "v": f(B, Sk, Hkv, D),
@@ -361,7 +375,8 @@ def flash_case(B, Sq, Sk, Hq, Hkv, D, seed=0, q_offset=0, kv_len=None) -> dict:
             "q_positions": np.broadcast_to(
                 np.asarray(q_offset, np.int32).reshape(-1, 1) + np.arange(Sq, dtype=np.int32),
                 (B, Sq)).copy(),
-            "k_positions": np.broadcast_to(np.arange(Sk, dtype=np.int32), (B, Sk)).copy(),
+            "k_positions": np.broadcast_to(k_offset + np.arange(Sk, dtype=np.int32),
+                                           (B, Sk)).copy(),
             "kv_len": None if kv_len is None else np.asarray(kv_len, np.int32)}
 
 

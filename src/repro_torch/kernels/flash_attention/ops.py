@@ -287,3 +287,29 @@ def flash_attention(q, k, v, *, q_positions=None, k_positions=None,
     lens = None if kv_len is None else torch.as_tensor(kv_len).to(
         q.device, torch.int32, non_blocking=True).reshape(-1).expand(B).contiguous()
     return _FlashAttention.apply(q, k, v, qpos, kpos, lens, causal, window, softcap)
+
+
+LSE_MASKED = 1e30  # the kernels' LSE of a row that sees no key
+
+
+def flash_attention_lse(q, k, v, *, q_positions=None, k_positions=None,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None, kv_len=None):
+    """The forward alone, with its row log-sum-exp: (o (B,Sq,Hq,D), lse
+    (B,Hq,Sq) fp32), ``lse`` ``-inf`` for a row that sees no key (the
+    kernels write ``LSE_MASKED`` there). No autograd: the serving steps'
+    attention over a rank's block of a split key sequence, whose ranks
+    combine through the LSE (``distributed.shard.merge_partials``). CPU
+    tensors take the plain version (``return_lse``); CUDA tensors launch
+    the forward kernel of ``q.dtype``'s route."""
+    kw = dict(q_positions=q_positions, k_positions=k_positions, causal=causal,
+              window=window, softcap=softcap, kv_len=kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, return_lse=True, **kw)
+    B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
+    qpos = positions_rows(q_positions, B, Sq, q.device)
+    kpos = positions_rows(k_positions, B, Sk, q.device)
+    lens = None if kv_len is None else torch.as_tensor(kv_len).to(
+        q.device, torch.int32, non_blocking=True).reshape(-1).expand(B).contiguous()
+    out, lse = flash_forward(q, k, v, qpos, kpos, lens, causal, window, softcap)
+    return out, lse.masked_fill_(lse >= LSE_MASKED / 2, float("-inf"))

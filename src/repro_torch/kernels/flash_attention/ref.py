@@ -12,6 +12,11 @@ Positions default to the indices ``0..S-1``. ``m_safe`` is taken out of
 the graph: it only stabilises the exponent, and the normalisation makes
 the result independent of it.
 
+With ``return_lse`` it also returns the row log-sum-exp of the scaled,
+softcapped scores, ``m + log(l)`` (B, Hq, Sq) in fp32 (float64 for
+float64 inputs), ``-inf`` for a row that sees no key: what a split key
+sequence's ranks combine (``distributed.shard.merge_partials``).
+
 ``flash_attention_backward_reference`` is the plain version of the
 backward: autograd through the forward above.
 """
@@ -48,9 +53,11 @@ def visibility(q_positions, k_positions, *, B: int, Sq: int, Sk: int, causal: bo
 
 def flash_attention_reference(q, k, v, *, q_positions=None, k_positions=None,
                               causal: bool = True, window: int | None = None,
-                              softcap: float | None = None, kv_len=None):
+                              softcap: float | None = None, kv_len=None,
+                              return_lse: bool = False):
     """q: (B,Sq,Hq,D); k,v: (B,Sk,Hkv,D); positions (B,S) or None (indices);
-    kv_len () or (B,) or None. Returns (B,Sq,Hq,D) in q.dtype."""
+    kv_len () or (B,) or None. Returns (B,Sq,Hq,D) in q.dtype, and with
+    ``return_lse`` the row LSE (B,Hq,Sq) beside it."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -67,7 +74,11 @@ def flash_attention_reference(q, k, v, *, q_positions=None, k_positions=None,
     p = torch.where(mask, torch.exp(s - m_safe), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bghqk,bkhd->bghqd", p, v.to(acc)) / l.clamp(min=1e-30)
-    return o.permute(0, 3, 2, 1, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    o = o.permute(0, 3, 2, 1, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(l > 0, m_safe + torch.log(l), torch.full_like(l, float("-inf")))
+    return o, lse[..., 0].permute(0, 2, 1, 3).reshape(B, Hq, Sq)
 
 
 def flash_attention_backward_reference(q, k, v, dout, **kw):

@@ -27,7 +27,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.distributed.shard import merge_partials
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_lse
 from repro_torch.kernels.paged_attention.ops import (
     paged_attention,
     paged_prefill_attention,
@@ -156,22 +157,34 @@ def attention_params(cfg) -> dict:
     return p
 
 
-def _rank_heads(params: dict, cfg, tp):
+def _rank_heads(params: dict, cfg, tp, whole: bool = False):
     """A tensor-parallel rank's attention: its query heads ``tp.part(hq)``
     and the kv heads they read. ``params`` holds the rank's ``"qkv"``
-    blocks (``wq``, ``bq``, ``wo``'s rows) and, when the kv heads divide
-    the model axis, its ``"kv"`` blocks; otherwise the whole kv leaves,
-    whose columns of the needed kv heads are cut here. Returns (params,
-    query heads, kv heads, kv head of each query head when the rank's
-    heads do not group evenly, else None)."""
+    blocks (``wq``, ``bq``, ``wo``'s rows), or, with ``whole``, the whole
+    leaves (a decode step's row-parallel attention on an fsdp mesh), whose
+    columns and rows of the rank's heads are cut here; and, when the kv
+    heads divide the model axis, its ``"kv"`` blocks (or with ``whole`` the
+    whole leaves, cut likewise); otherwise the whole kv leaves, whose
+    columns of the needed kv heads are cut here. Returns (params, query
+    heads, kv heads, kv head of each query head when the rank's heads do
+    not group evenly, else None)."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     qs = tp.part(hq)
     nq = qs.stop - qs.start
+    p = dict(params)
+    if whole:  # the rank's heads
+        cols = slice(qs.start * hd, qs.stop * hd)
+        p["wq"], p["wo"] = p["wq"][..., cols], p["wo"][cols]
+        if "bq" in p:
+            p["bq"] = p["bq"][..., cols]
     if hkv % tp.size == 0:
-        return params, nq, hkv // tp.size, None
+        ks = tp.part(hkv)
+        for name in ("wk", "wv", "bk", "bv"):
+            if whole and name in p:
+                p[name] = p[name][..., ks.start * hd:ks.stop * hd]
+        return p, nq, hkv // tp.size, None
     g = hq // hkv
     kv0, kv1 = qs.start // g, (qs.stop - 1) // g + 1
-    p = dict(params)
     for name in ("wk", "wv", "bk", "bv"):
         if name in p:
             p[name] = p[name][..., kv0 * hd:kv1 * hd]
@@ -182,10 +195,41 @@ def _rank_heads(params: dict, cfg, tp):
     return p, nq, nkv, of_q
 
 
+def _project(params: dict, x, cfg, positions, n: int, which: str):
+    """``which`` "q" (B,S,n,hd), or "k" and "v": the projection, the bias,
+    the per-head norm, RoPE at ``positions`` (B,S) (not for v)."""
+    B, S, _ = x.shape
+    hd, compute = cfg.head_dim_, cfg.compute_dtype
+    t = (x @ params[f"w{which}"].to(compute)).reshape(B, S, n, hd)
+    if cfg.attn_bias:  # after the projections, before RoPE
+        t = t + params[f"b{which}"].reshape(1, 1, n, hd).to(compute)
+    if which == "v":
+        return t
+    if cfg.qk_norm:  # per head over head_dim, after the biases, before RoPE
+        t = rmsnorm(t, params[f"{which}_norm"], cfg.norm_eps)
+    if cfg.rope_theta:
+        t = apply_rope(t, positions, cfg.rope_theta, cfg.partial_rotary)
+    return t
+
+
+def prefill_write(cache: torch.Tensor, vals: torch.Tensor, row0: int, offset: int) -> None:
+    """A one-shot prefill's write, IN PLACE: ``vals`` (B,S,Hkv,hd) are
+    positions ``0..S-1`` of every row; this cache block ``(Bc, L, Hkv,
+    hd)`` holds positions ``offset .. offset+L-1`` of rows ``row0 ..
+    row0+B-1`` (``offset`` 0 and ``L`` = max_len unless the cache's
+    sequence is split over ranks), so the write is the slice of the prompt
+    that falls in it, copied as it is."""
+    B, S = vals.shape[:2]
+    n = max(0, min(S - offset, cache.shape[1]))
+    if n:
+        cache[row0:row0 + B, :n].copy_(vals[:, offset:offset + n])
+
+
 def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
                     cache_len, block_tables, seq_mask=None, causal: bool = True,
                     window: int | None = None, cache_row0: int = 0,
-                    tp=None, cp=None) -> torch.Tensor:
+                    tp=None, cp=None, kv=None, cache_attend: bool = True,
+                    whole: bool = False) -> torch.Tensor:
     """The JAX ``attention_block``'s branches.
 
     ``cache`` None (training, full-sequence forward): project, rotate and
@@ -200,53 +244,68 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
     cut by ``kv_len = cache_len``: one query row a slot for a decode step,
     the chunk against everything written so far (the JAX
     ``cache_attend``) for S > 1. ``positions`` doubles as each row's
-    write index. Returns (B,S,d).
+    write index. With ``cache_attend`` False (the one-shot prefill, JAX's
+    ``prefill``: positions ``0..S-1`` of every row, dense layout) the
+    chunk attends over itself, causal, with the window and softcap, and
+    its K/V are copied into the cache (``prefill_write``). Returns (B,S,d).
 
-    With ``tp`` (``distributed.shard.TensorParallel``; cache-less only),
-    ``x`` is this rank's sequence part: it is all-gathered along the
-    sequence, q/k/v are the rank's heads (column-parallel; ``_rank_heads``),
-    the kernel runs on them at ``positions`` (B,S), and ``wo``'s rows
-    (row-parallel) give partial sums that a reduce-scatter along the
-    sequence turns into this rank's part of the output (B,S/n,d).
+    With ``tp`` (``distributed.shard.TensorParallel``), ``x`` is this
+    rank's sequence part: it is all-gathered along the sequence, q/k/v are
+    the rank's heads (column-parallel; ``_rank_heads``), the kernel runs on
+    them at ``positions`` (B,S), and ``wo``'s rows (row-parallel) give
+    partial sums that a reduce-scatter along the sequence turns into this
+    rank's part of the output (B,S/n,d). Under ``RowParallel`` (a decode
+    step) ``x`` is whole and the partial sums are all-reduced. With
+    ``whole`` the leaves in ``params`` are whole although ``tp`` is set (a
+    decode step's attention on an fsdp mesh,
+    ``LogicalConstraints.attn_tp``): the rank's heads are cut from them.
 
-    With ``cp`` (``distributed.shard.ContextParallel``; cache-less only),
-    ``x`` is this rank's sequence part and ``positions`` the whole
-    sequence's: q, k and v are projected and rotated at the rank's own
-    positions, K and V are all-gathered along the sequence (backward: a
-    reduce-scatter of the rank's partial dK, dV), and the kernel runs the
-    rank's query block against every key at their true positions, so the
-    causal bound, the window and the tiles it skips follow the positions,
-    never the indices. Returns the rank's rows (B,S/n,d)."""
+    With ``cp`` (``distributed.shard.ContextParallel``), ``x`` is this
+    rank's sequence part and ``positions`` the whole sequence's: q, k and
+    v are projected and rotated at the rank's own positions, K and V are
+    all-gathered along the sequence (backward: a reduce-scatter of the
+    rank's partial dK, dV), and the kernel runs the rank's query block
+    against every key at their true positions, so the causal bound, the
+    window and the tiles it skips follow the positions, never the
+    indices. Returns the rank's rows (B,S/n,d).
+
+    With ``kv`` (``distributed.shard.CacheSplit``; dense layout) the cache
+    is this rank's block: its KV heads (``kv.heads``), which are the heads
+    the rank computes (under fsdp a decode step's ``tp`` is the row-parallel
+    attention over them; a context-parallel prefill cuts them from the
+    gathered K/V), or its block of the sequence (``kv.seq``): the
+    rank writes every KV head at the positions its block holds, and a
+    decode step attends every query head against its block at the block's
+    true positions, returning the LSE, and the ranks combine
+    (``distributed.shard.merge_partials``); under ``tp`` each rank then
+    keeps its query heads for the row-parallel out-projection."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     kv_of_q = None
     k_positions = positions
+    leaves = params
+    S_in = x.shape[1]
     if tp is not None:
-        assert cache is None, "tensor-parallel attention is cache-less"
+        assert cache is None or kv is not None or tp.size == 1, \
+            "tensor-parallel attention over a cache needs its placement"
         x = tp.seq_gather(x)
-        params, hq, hkv, kv_of_q = _rank_heads(params, cfg, tp)
+        params, hq, hkv, kv_of_q = _rank_heads(params, cfg, tp, whole)
     if cp is not None:
-        assert cache is None, "context-parallel attention is cache-less"
+        assert cache is None or not cache_attend, "context-parallel attention is one-shot"
         positions = cp.local(positions)
     B, S, _ = x.shape
     compute = cfg.compute_dtype
-    q = (x @ params["wq"].to(compute)).reshape(B, S, hq, hd)
-    k = (x @ params["wk"].to(compute)).reshape(B, S, hkv, hd)
-    v = (x @ params["wv"].to(compute)).reshape(B, S, hkv, hd)
-    if cfg.attn_bias:  # after the projections, before RoPE
-        q = q + params["bq"].reshape(1, 1, hq, hd).to(compute)
-        k = k + params["bk"].reshape(1, 1, hkv, hd).to(compute)
-        v = v + params["bv"].reshape(1, 1, hkv, hd).to(compute)
-    if cfg.qk_norm:  # per head over head_dim, after the biases, before RoPE
-        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
-    if cfg.rope_theta:
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
+    seq_split = kv is not None and kv.seq and cache is not None
+    q, k, v = (_project(params, x, cfg, positions, n, w)
+               for n, w in ((hq, "q"), (hkv, "k"), (hkv, "v")))
+    k_all, v_all = k, v
+    if seq_split and tp is not None:  # every kv head, for the rank's block
+        k_all, v_all = (_project(leaves, x, cfg, positions, cfg.n_kv_heads, w) for w in "kv")
 
     if kv_of_q is not None:  # one kv head a query head
         k, v = k[:, :, kv_of_q], v[:, :, kv_of_q]
     if cp is not None:
         k, v = cp.seq_gather(k).contiguous(), cp.seq_gather(v).contiguous()
+        k_all, v_all = k, v
     if cache is None:
         o = flash_attention(q, k, v, q_positions=positions, k_positions=k_positions,
                             causal=causal, window=window, softcap=cfg.attn_softcap)
@@ -266,15 +325,40 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
                 cache_len=cache_len, causal=causal, window=window,
                 softcap=cfg.attn_softcap,
             )
+    elif not cache_attend:  # one-shot prefill: attend the chunk, copy K/V in
+        k_cache, v_cache = cache["k"], cache["v"]
+        off = 0 if kv is None else kv.offset(k_cache.shape[1])
+        if kv is not None and kv.heads and tp is None:  # the gathered K/V's kv heads
+            ks = kv.kv_part(hkv)
+            k_all, v_all = k_all[:, :, ks], v_all[:, :, ks]
+        prefill_write(k_cache, k_all, cache_row0, off)
+        prefill_write(v_cache, v_all, cache_row0, off)
+        o = flash_attention(q, k, v, q_positions=positions, k_positions=k_positions,
+                            causal=causal, window=window, softcap=cfg.attn_softcap)
     else:
         k_cache, v_cache = cache["k"], cache["v"]
-        dense_write(k_cache, k, positions, cache_row0, seq_mask)
-        dense_write(v_cache, v, positions, cache_row0, seq_mask)
         rows = slice(cache_row0, cache_row0 + B)
-        o = flash_attention(
-            q, k_cache[rows], v_cache[rows], q_positions=positions,
-            k_positions=key_positions(B, k_cache.shape[1], k_cache.device),
-            causal=causal, window=window, softcap=cfg.attn_softcap, kv_len=cache_len,
-        )
+        L = k_cache.shape[1]
+        if seq_split:  # write every kv head where the block holds it; attend, combine
+            off = kv.offset(L)
+            dense_write(k_cache, k_all, positions - off, cache_row0, seq_mask)
+            dense_write(v_cache, v_all, positions - off, cache_row0, seq_mask)
+            if tp is not None:
+                q = kv.head_gather(q)
+            kpos = key_positions(B, L, k_cache.device) + off
+            o, lse = flash_attention_lse(
+                q, k_cache[rows], v_cache[rows], q_positions=positions, k_positions=kpos,
+                causal=causal, window=window, softcap=cfg.attn_softcap, kv_len=cache_len)
+            o = merge_partials(o, lse, kv)
+            if tp is not None:
+                o = o[:, :, tp.part(cfg.n_heads)]
+        else:
+            dense_write(k_cache, k, positions, cache_row0, seq_mask)
+            dense_write(v_cache, v, positions, cache_row0, seq_mask)
+            o = flash_attention(
+                q, k_cache[rows], v_cache[rows], q_positions=positions,
+                k_positions=key_positions(B, L, k_cache.device),
+                causal=causal, window=window, softcap=cfg.attn_softcap, kv_len=cache_len,
+            )
     out = o.reshape(B, S, hq * hd) @ params["wo"].to(compute)
     return out if tp is None else tp.seq_scatter(out)

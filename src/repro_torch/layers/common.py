@@ -114,6 +114,14 @@ def init_params(tree, generator: torch.Generator,
     return unflatten(out)
 
 
+def abstract_params(tree, param_dtype: torch.dtype = torch.float32) -> dict:
+    """The ParamSpec tree as meta tensors (JAX ``abstract_params``): each
+    leaf's shape in its own dtype, else ``param_dtype``; nothing is
+    allocated."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype or param_dtype,
+                                          device="meta"), tree)
+
+
 def unflatten(flat: dict[str, Any]) -> dict:
     """Inverse of ``tree_leaves`` for '/'-joined paths."""
     tree: dict = {}
@@ -208,15 +216,24 @@ class LogicalConstraints:
     ``"model"`` share, meeting through ``tp``'s collectives. ``cp``, when
     set (``distributed.shard.ContextParallel``), says that the residual
     stream is this rank's part of the sequence and that the layers keep
-    their weights whole (attention gathers K and V). Without a mesh all
-    three are None and the layers run whole."""
+    their weights whole (attention gathers K and V). ``kv``, when set
+    (``distributed.shard.CacheSplit``), says that the serving caches are
+    this rank's blocks under ``distributed.sharding.cache_pspec_tree``.
+    ``attn_tp``, when set (``distributed.shard.RowParallel``; a decode step
+    on an fsdp mesh whose KV heads split over ``"model"``), says that
+    attention alone runs over the rank's heads, cut from the whole leaves,
+    and meets in an all-reduce; the other layers run whole. Without a mesh
+    all five are None and the layers run whole."""
 
-    def __init__(self, mesh, rules: dict[str, Any] | None, ranks=None, tp=None, cp=None):
+    def __init__(self, mesh, rules: dict[str, Any] | None, ranks=None, tp=None, cp=None,
+                 kv=None, attn_tp=None):
         self.mesh = mesh
         self.rules = rules or {}
         self.ranks = ranks
         self.tp = tp
         self.cp = cp
+        self.kv = kv
+        self.attn_tp = attn_tp
 
     @property
     def seq(self):

@@ -215,10 +215,19 @@ def mamba2_block(params, x, cfg, cache=None, seq_mask=None, tp=None):
     part of the output (B,S/n,d). ``in_proj`` and the conv leaves arrive
     whole (their columns are cut here); the per-head leaves, the norm's
     scale and ``out_proj`` arrive whole or as the rank's block
-    (``MAMBA2_SPLIT_LEAVES``)."""
+    (``MAMBA2_SPLIT_LEAVES``). Under ``RowParallel`` (a decode step) ``x``
+    is whole and the partial sums are all-reduced.
+
+    With ``tp`` and a cache (the serving steps on a mesh; no ``seq_mask``)
+    the SSM state is the rank's heads' and the conv state the rank's block
+    of the conv channels (JAX's ``"inner"``), which is not the channels its
+    heads read: the blocks are all-gathered (B, K-1, C), the rank's
+    channels feed its conv, and the new state of every channel, the last
+    K-1 conv inputs (``x``'s last rows times ``in_proj``'s conv columns),
+    is cut back to the rank's block."""
     s = cfg.ssm
     if tp is not None:
-        assert cache is None, "tensor-parallel mamba2 is cache-less"
+        assert cache is None or seq_mask is None, "a split mamba2 over a cache takes no mask"
         x = tp.seq_gather(x)
     Bsz, S, d = x.shape
     d_inner = s.d_inner(d)
@@ -234,12 +243,17 @@ def mamba2_block(params, x, cfg, cache=None, seq_mask=None, tp=None):
     proj = in_projection(x, params["in_proj"], cfg, heads)
     z, xconv_in, dt_raw = torch.split(proj, [dr, dr + 2 * g * n, hr], dim=-1)
     conv_w, conv_b = params["conv_w"], params["conv_b"]
+    conv_state = None if cache is None else cache["conv"]
+    if tp is not None and cache is not None:  # every channel's state, the rank's read
+        conv_full = tp.channel_gather(conv_state)
+        conv_state = conv_full if hr == h else torch.cat(
+            [conv_full[..., cols], conv_full[..., d_inner:]], dim=-1)
     if hr < h:  # the rank's x channels, B and C whole
         conv_w = torch.cat([conv_w[:, cols], conv_w[:, d_inner:]], dim=1)
         conv_b = torch.cat([conv_b[cols], conv_b[d_inner:]])
     xconv, new_conv = causal_conv1d(
         xconv_in, conv_w.to(compute), conv_b.to(compute),
-        state=None if cache is None else cache["conv"],
+        state=conv_state,
         valid_len=None if seq_mask is None else seq_mask.sum(dim=1),
     )
     xconv = F.silu(xconv)
@@ -280,7 +294,15 @@ def mamba2_block(params, x, cfg, cache=None, seq_mask=None, tp=None):
         y = _gated_norm_split(y, _own(params["norm"], d_inner, cols), cfg.norm_eps, d_inner, tp)
     out = out_projection(y, _own(params["out_proj"], d_inner, cols), cfg)
     if tp is not None:
-        return tp.seq_scatter(out), None
+        out = tp.seq_scatter(out)
+        if cache is None:
+            return out, None
+        K = params["conv_w"].shape[0]
+        tail = x[:, S - min(S, K - 1):] @ \
+            params["in_proj"][:, d_inner:2 * d_inner + 2 * g * n].to(compute)
+        full = torch.cat([conv_full.to(tail.dtype), tail], dim=1)[:, -(K - 1):]
+        new_conv = full[..., tp.part(full.shape[-1])]
+        return out, {"conv": new_conv.to(cache["conv"].dtype), "ssm": new_ssm}
     new_state = None
     if cache is not None:
         new_state = {"conv": new_conv.to(cache["conv"].dtype), "ssm": new_ssm}

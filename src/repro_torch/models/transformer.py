@@ -25,8 +25,14 @@ both. An encoder-only model (bidirectional attention) has ``forward`` and
                                          with paged=False dense (R, B+1, max_len, Hkv, hd);
                                          recurrent state (R, B, ...)
   model.reset_state(caches, slots)       recurrent rows back to their initial values
+  model.prefill(batch, caches)           one-shot prefill at positions 0..S-1 into
+                                         the dense cache; last-position logits
   model.prefill_chunk(tokens, ...)       incremental prefill at per-row offsets
   model.decode_step(tokens, pos, ...)    one-token step, per-slot positions
+
+On a mesh of ranks the serving entry points take a ``LogicalConstraints``
+that says how the rank splits the step and holds its cache blocks
+(``serve.serve.make_prefill_step`` builds it).
 """
 
 from __future__ import annotations
@@ -111,6 +117,50 @@ def model_params(cfg) -> dict:
     if not cfg.tie_embeddings or cfg.encoder_only:
         params["head"] = ParamSpec((d, v), ("embed", "vocab"), scale=1.0 / math.sqrt(d))
     return params
+
+
+def init_cache(cfg, batch: int, max_len: int, *, paged: bool = True, page_size: int = 16,
+               num_pages: int | None = None, dtype=None, device=None, mesh=None) -> dict:
+    """The serving caches of ``cfg`` (``Transformer.init_cache``), stacked
+    over repeats. With ``mesh`` over a process group, each leaf is this
+    rank's block under ``distributed.sharding.cache_pspec_tree`` (a dense leaf's
+    block ends with its own spare row; ``distributed.shard.cache_block_shape``).
+    On ``device="meta"`` nothing is allocated."""
+    dtype = dtype or cfg.compute_dtype
+    if paged:
+        if num_pages is None:
+            num_pages = -(-batch * max_len // page_size)
+        names = ("k_pages", "v_pages")
+        shape = (cfg.repeats, num_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim_)
+    else:
+        names = ("k", "v")
+        shape = (cfg.repeats, batch + 1, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    rows_of = {"mamba2": R.mamba2_cache, "mlstm": R.mlstm_cache, "slstm": R.slstm_cache}
+    meta: dict = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind in R.CACHE_KEYS:
+            rows = rows_of[kind](cfg, batch, dtype, "meta")
+            meta[f"slot{i}_{kind}"] = {R.CACHE_KEYS[kind]: {
+                k: torch.empty((cfg.repeats,) + tuple(v.shape), dtype=v.dtype, device="meta")
+                for k, v in rows.items()}}
+        else:
+            meta[f"slot{i}_{kind}"] = {"attn": {
+                n: torch.empty(shape, dtype=dtype, device="meta") for n in names}}
+    specs = None
+    if mesh is not None and mesh.distributed:
+        from repro_torch.distributed.sharding import cache_pspec_tree
+
+        specs = dict(tree_leaves(cache_pspec_tree(cfg, mesh, meta)))
+    out = {}
+    for path, t in tree_leaves(meta):
+        dims = tuple(t.shape)
+        if specs is not None:
+            from repro_torch.distributed.shard import cache_block_shape
+
+            dims = cache_block_shape(dims, specs[path], mesh, spare=path.endswith(("/k", "/v")))
+        fill = R.M_INIT if path.endswith("/m") else 0.0
+        out[path] = torch.full(dims, fill, dtype=t.dtype, device=device)
+    return unflatten(out)
 
 
 def _attr_name(path: str) -> str:
@@ -280,36 +330,12 @@ class Transformer(nn.Module):
         ``(R, batch+1, max_len, Hkv, hd)``, a row a slot plus the spare row
         (see ``layers.attention``). Recurrent state, in both layouts, one
         row a slot: ``(R, batch, ...)`` at its initial values (conv state in
-        ``dtype``, the rest in fp32; xLSTM's ``m`` at -1e30)."""
+        ``dtype``, the rest in fp32; xLSTM's ``m`` at -1e30). On a mesh of
+        ranks, this rank's blocks (``init_cache``)."""
         self._no_cache("init_cache")
-        cfg = self.cfg
-        dtype = dtype or cfg.compute_dtype
-        if paged:
-            if num_pages is None:
-                num_pages = -(-batch * max_len // page_size)
-            names = ("k_pages", "v_pages")
-            shape = (cfg.repeats, num_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim_)
-        else:
-            names = ("k", "v")
-            shape = (cfg.repeats, batch + 1, max_len, cfg.n_kv_heads, cfg.head_dim_)
-        caches = {}
-        for i, kind in enumerate(cfg.pattern):
-            if kind in R.CACHE_KEYS:
-                rows = self._recurrent_rows(kind, batch, dtype)
-                caches[f"slot{i}_{kind}"] = {R.CACHE_KEYS[kind]: {
-                    k: v[None].repeat((cfg.repeats,) + (1,) * v.dim())
-                    for k, v in rows.items()}}
-            else:
-                caches[f"slot{i}_{kind}"] = {"attn": {
-                    n: torch.zeros(shape, dtype=dtype, device=self.device) for n in names}}
-        return caches
-
-    def _recurrent_rows(self, kind: str, batch: int, dtype) -> dict:
-        if kind == "mamba2":
-            return R.mamba2_cache(self.cfg, batch, dtype, self.device)
-        if kind == "mlstm":
-            return R.mlstm_cache(self.cfg, batch, dtype, self.device)
-        return R.slstm_cache(self.cfg, batch, dtype, self.device)
+        return init_cache(self.cfg, batch, max_len, paged=paged, page_size=page_size,
+                          num_pages=num_pages, dtype=dtype, device=self.device,
+                          mesh=self.mesh)
 
     def reset_state(self, caches: dict, slots) -> None:
         """Restore the recurrent rows of ``slots`` to their initial values,
@@ -396,7 +422,7 @@ class Transformer(nn.Module):
         return rmsnorm(x, self._leaf("norm_f/scale", lc), cfg.norm_eps, cfg.zero_centered_norm)
 
     def _apply_slot(self, sp: dict, x, *, kind, positions, cache, cache_len, seq_mask,
-                    block_tables, cache_row0=0, commit_state=True,
+                    block_tables, cache_row0=0, commit_state=True, cache_attend=True,
                     lc: LogicalConstraints = NULL_CONSTRAINTS):
         """One block: pre-norm attention (over the last ``cfg.window`` keys
         for ``local_attn``; bidirectional for an encoder-only model) +
@@ -412,17 +438,28 @@ class Transformer(nn.Module):
         compute the rank's share and return its part (``layers``). Under
         ``tp`` a mamba2 block whose SSM heads divide the model axis runs
         the rank's heads (``R.mamba2_splits``); any other recurrent block
-        runs on the all-gathered rows and keeps its part."""
+        runs on the all-gathered rows and keeps its part. With ``lc.kv``
+        the caches are the rank's blocks (``layers.attention``,
+        ``R.mamba2_block``)."""
         cfg, tp, seq = self.cfg, lc.tp, lc.seq
         if kind in R.CACHE_KEYS:
             if kind == "mamba2" and R.mamba2_splits(cfg, tp):
                 h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
-                return x + R.mamba2_block(sp["mamba"], h, cfg, tp=tp)[0], {}
+                rows = None
+                if cache is not None:
+                    rows = {k: v[cache_row0:cache_row0 + h.shape[0]]
+                            for k, v in cache["mamba"].items()}
+                o, new = R.mamba2_block(sp["mamba"], h, cfg, cache=rows, seq_mask=seq_mask, tp=tp)
+                if new is not None and commit_state:
+                    for k, v in new.items():
+                        rows[k].copy_(v)
+                return x + o, {}
             if seq is not None:
                 return seq.local(self._recurrent_slot(sp, seq.seq_gather(x), kind, cache,
-                                                      seq_mask, cache_row0, commit_state)), {}
+                                                      seq_mask, cache_row0, commit_state,
+                                                      tp)), {}
             return self._recurrent_slot(sp, x, kind, cache, seq_mask, cache_row0,
-                                        commit_state), {}
+                                        commit_state, tp), {}
         h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         x = x + A.attention_block(
             sp["attn"], h, cfg, positions=positions,
@@ -430,7 +467,8 @@ class Transformer(nn.Module):
             cache_len=cache_len, block_tables=block_tables, seq_mask=seq_mask,
             causal=not cfg.encoder_only,
             window=cfg.window if kind == "local_attn" else None, cache_row0=cache_row0,
-            tp=tp, cp=lc.cp,
+            tp=tp if tp is not None else lc.attn_tp, cp=lc.cp, kv=lc.kv,
+            cache_attend=cache_attend, whole=tp is None,
         )
         h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         if kind == "moe":
@@ -439,18 +477,25 @@ class Transformer(nn.Module):
         return x + FFN.mlp_block(sp["mlp"], h2, cfg, tp), {}
 
     def _recurrent_slot(self, sp: dict, x, kind, cache, seq_mask, cache_row0,
-                        commit_state):
+                        commit_state, tp=None):
+        """A recurrent block run whole on ``x``'s rows. Under ``tp`` with a
+        cache, mamba2's conv state is the rank's block of its channels: the
+        blocks are all-gathered for the block and the rank's cut back."""
         cfg = self.cfg
         h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         key = R.CACHE_KEYS[kind]
-        rows = None
+        rows = state = None
         if cache is not None:
             B = x.shape[0]
-            rows = {k: v[cache_row0:cache_row0 + B] for k, v in cache[key].items()}
+            rows = state = {k: v[cache_row0:cache_row0 + B] for k, v in cache[key].items()}
+            if tp is not None and kind == "mamba2":
+                state = dict(rows, conv=tp.channel_gather(rows["conv"]))
         block = {"mamba2": R.mamba2_block, "mlstm": R.mlstm_block,
                  "slstm": R.slstm_block}[kind]
-        o, new = block(sp[key], h, cfg, cache=rows, seq_mask=seq_mask)
+        o, new = block(sp[key], h, cfg, cache=state, seq_mask=seq_mask)
         if new is not None and commit_state:
+            if tp is not None and kind == "mamba2":
+                new = dict(new, conv=new["conv"][..., tp.part(new["conv"].shape[-1])])
             for k, v in new.items():
                 rows[k].copy_(v)
         x = x + o
@@ -493,7 +538,7 @@ class Transformer(nn.Module):
             "moe/wi_gate", "moe/wi_up", "moe/wo")
 
     def _run_stack(self, x, caches, *, positions, cache_len, seq_mask,
-                   block_tables, cache_row0=0, commit_state=True,
+                   block_tables, cache_row0=0, commit_state=True, cache_attend=True,
                    lc: LogicalConstraints = NULL_CONSTRAINTS):
         """Pattern x repeats. Each stacked leaf is unbound over repeats once
         (views; the backward stacks the per-layer gradients in one op
@@ -524,7 +569,8 @@ class Transformer(nn.Module):
                 kw = dict(kind=name.split("_", 1)[1], positions=positions, cache=cache,
                           cache_len=cache_len,
                           seq_mask=seq_mask, block_tables=block_tables,
-                          cache_row0=cache_row0, commit_state=commit_state, lc=lc)
+                          cache_row0=cache_row0, commit_state=commit_state,
+                          cache_attend=cache_attend, lc=lc)
                 fn = self._apply_slot
                 if self.gathers:
                     fn = functools.partial(self._gathered_slot, name)
@@ -668,11 +714,51 @@ class Transformer(nn.Module):
         aux["tokens"] = w_sum
         return loss, aux
 
-    def apply_logits(self, batch: dict):
+    def apply_logits(self, batch: dict, lc: LogicalConstraints = NULL_CONSTRAINTS):
         """Full-sequence logits (B,S,V) (small-model/eval path; materializes
-        them). Returns (logits, aux)."""
-        x, aux = self._full_sequence(batch)
-        return self._logits(x), aux
+        them). Returns (logits, aux). With ``lc.tp`` or ``lc.cp`` the rank's
+        sequence part is all-gathered before the head; under ``lc.tp`` the
+        logits are the rank's vocabulary columns (B,S,V/n)."""
+        x, aux = self._full_sequence(batch, lc)
+        if lc.seq is not None:
+            x = lc.seq.seq_gather(x)
+        return self._logits(x, self._head(lc)), aux
+
+    def _last_row(self, x, lc: LogicalConstraints) -> torch.Tensor:
+        """(B,1,d): the last position's row; with the sequence split over
+        ``"model"``, the last rank's, all-gathered."""
+        x = x[:, -1:].contiguous()
+        return x if lc.seq is None else lc.seq.seq_gather(x)[:, -1:].contiguous()
+
+    @torch.inference_mode()
+    def prefill(self, batch: dict, caches: dict, lc: LogicalConstraints = NULL_CONSTRAINTS):
+        """One-shot prefill (JAX ``prefill``): ``batch`` {"tokens": (B,S)},
+        with stub embeddings ``"frontend"`` (B,P,d) ahead of the tokens as
+        ``_full_sequence`` embeds them, at positions ``0..S-1`` of every
+        row into the dense cache (``init_cache(..., paged=False)``), rows
+        ``0..B-1``. Attention runs over the prompt itself (the flash kernel,
+        causal, with the arch's window and softcap) and copies its K/V into
+        the cache; the recurrent blocks run their chunked forms from the
+        cache's state and leave their final state there. Returns the logits
+        (B,V) at the last position.
+
+        On a mesh, ``lc`` (``serve.serve.make_prefill_step``): ``batch`` is
+        the rank's rows and ``caches`` its blocks; under ``lc.tp`` or
+        ``lc.cp`` the rank runs its part of the sequence, and under
+        ``lc.tp`` the logits are its vocabulary columns (B,V/n)."""
+        self._no_cache("prefill")
+        if any(p.endswith("/k_pages") for p, _ in tree_leaves(caches)):
+            raise ValueError("prefill writes the dense layout (init_cache(paged=False))")
+        x = self._embed_inputs(batch.get("tokens"), batch.get("frontend"), lc)
+        B, S, _ = x.shape
+        if lc.seq is not None:
+            S *= lc.seq.size
+        positions = torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
+        cache_len = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        x, _ = self._run_stack(x, caches, positions=positions, cache_len=cache_len,
+                               seq_mask=None, block_tables=None, cache_attend=False, lc=lc)
+        x = self._final_norm(self._last_row(x, lc), lc)
+        return self._logits(x, self._head(lc))[:, 0]
 
     @torch.inference_mode()
     def prefill_chunk(self, tokens, caches, start, length, block_tables=None,
@@ -707,18 +793,23 @@ class Transformer(nn.Module):
         return self._logits(torch.gather(x, 1, idx))[:, 0]
 
     @torch.inference_mode()
-    def decode_step(self, tokens, pos, caches, active=None, block_tables=None):
+    def decode_step(self, tokens, pos, caches, active=None, block_tables=None,
+                    lc: LogicalConstraints = NULL_CONSTRAINTS):
         """One decode step. tokens: (B,1); pos: () or (B,) per-slot positions;
         ``active`` (B,) bool: inactive slots write nothing. ``block_tables``
         (B,nL) on the paged layout, None on the dense one (cache rows
-        0..B-1); recurrent state in rows 0..B-1. Returns (B,V)."""
+        0..B-1); recurrent state in rows 0..B-1. Returns (B,V). On a mesh,
+        ``lc`` (``serve.serve.make_decode_step``): ``tokens`` and ``pos``
+        are the rank's rows and ``caches`` its dense blocks; under
+        ``lc.tp`` (``RowParallel``) the logits are the rank's vocabulary
+        columns (B,V/n)."""
         self._no_cache("decode_step")
-        x = self._embed_inputs(tokens)
+        x = self._embed_inputs(tokens, lc=lc)
         B = x.shape[0]
         pos = self._per_row(pos, B)
         positions = pos.reshape(B, 1)
         seq_mask = None if active is None else active.to(
             self.device, non_blocking=True).reshape(B, 1)
         x, _ = self._run_stack(x, caches, positions=positions, cache_len=pos + 1,
-                               seq_mask=seq_mask, block_tables=block_tables)
-        return self._logits(self._final_norm(x))[:, 0]
+                               seq_mask=seq_mask, block_tables=block_tables, lc=lc)
+        return self._logits(self._final_norm(x, lc), self._head(lc))[:, 0]

@@ -100,6 +100,7 @@ import torch
 
 from repro_torch.serve import faults as F
 from repro_torch import prng
+from repro_torch.distributed.sharding import cache_pspec_tree  # noqa: F401  (re-exported)
 from repro_torch.serve.spec import draft_tokens
 from repro_torch.session import PerfSession, SessionConfig
 
@@ -1993,3 +1994,146 @@ class BatchScheduler:
             for _, pages in self._spike_holds:
                 self._alloc.release(pages)
             self._spike_holds = []
+
+
+# ---------------------------------------------------------------------------
+# the one-shot serving steps (JAX ``make_prefill_step``, ``make_decode_step``,
+# ``make_encoder_step``) and the caches' placement on a mesh
+# ---------------------------------------------------------------------------
+
+
+def serve_cache_pspecs(cfg, mesh, batch: int, max_len: int, *, paged: bool = False,
+                       page_size: int = 16, num_pages: int | None = None) -> dict:
+    """``cache_pspec_tree`` of the caches ``init_cache`` would build (dense by
+    default, as in JAX), read off meta tensors: nothing is allocated."""
+    from repro_torch.models.transformer import init_cache
+
+    caches = init_cache(cfg, batch, max_len, paged=paged, page_size=page_size,
+                        num_pages=num_pages, device="meta")
+    return cache_pspec_tree(cfg, mesh, caches)
+
+
+def serve_constraints(model, mesh, batch: int, mode: str):
+    """How a rank runs a serving step of ``batch`` rows (``mode`` prefill,
+    decode or encoder) on ``mesh``: a ``LogicalConstraints`` with its rows
+    (``ranks``: the rows the caches' batch placement gives it,
+    ``divisible_batch_axes``, so that a rank's rows and its cache blocks'
+    rows agree), its cache blocks (``kv``: ``CacheSplit``) and, where the
+    ``"model"`` axis is above 1, the split of the compute over it: on a
+    megatron mesh ``TensorParallel`` (prefill and encoder: the sequence-
+    parallel residual, JAX's activation rules) or ``RowParallel`` (decode:
+    one token, the residual whole); on an fsdp mesh ``ContextParallel`` for
+    a prefill or an encoder step (each rank's part of the sequence; the
+    rows do not split over ``"model"``, since the caches hold every row's
+    KV heads or sequence block there) and, for a decode step, the rows
+    with attention alone split: over the rank's KV heads (``attn_tp``, a
+    ``RowParallel`` over whole leaves) or its sequence block. A mesh
+    without a process group (the production mesh, a 1 x 1 mesh) computes
+    the whole step on one rank: ``NULL_CONSTRAINTS``."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.shard import (
+        BatchRanks,
+        CacheSplit,
+        ContextParallel,
+        RowParallel,
+        TensorParallel,
+    )
+    from repro_torch.layers.common import NULL_CONSTRAINTS, LogicalConstraints
+
+    if mesh is None or not mesh.distributed:
+        return NULL_CONSTRAINTS
+    cfg = model.cfg
+    ax = SH.divisible_batch_axes(mesh, batch)
+    ranks = BatchRanks(mesh, () if ax is None else ((ax,) if isinstance(ax, str) else ax))
+    kv = CacheSplit.of(cfg, mesh)
+    tp = cp = attn_tp = None
+    if kv is not None:
+        if SH.effective_strategy(cfg, mesh) == "megatron":
+            tp = RowParallel(mesh) if mode == "decode" else TensorParallel(mesh)
+        elif mode != "decode":
+            cp = ContextParallel(mesh)
+        elif kv.heads:
+            attn_tp = RowParallel(mesh)
+    return LogicalConstraints(mesh, SH.activation_rules(cfg, mesh), ranks, tp, cp, kv,
+                              attn_tp)
+
+
+def _step_constraints(model, mesh, mode: str):
+    """``serve_constraints`` for ``mode``, built once per batch size (as
+    JAX's ``make_*_step`` builds its constraints once)."""
+    return functools.lru_cache(maxsize=None)(
+        lambda batch: serve_constraints(model, mesh, batch, mode))
+
+
+def _rows(lc, n: int) -> slice:
+    return slice(0, n) if lc.ranks is None else lc.ranks.rows(n)
+
+
+def _tokens_out(logits, lc):
+    """The argmax over the whole vocabulary, int32, every rank holding the
+    global batch's."""
+    from repro_torch.distributed.shard import rows_gather, vocab_argmax
+
+    tok = vocab_argmax(logits, lc.tp).to(torch.int32)
+    return tok if lc.ranks is None else rows_gather(tok, lc.ranks)
+
+
+def make_prefill_step(model, mesh=None):
+    """``prefill_step(batch, caches) -> (next_tok (B,) int32, caches)``: the
+    one-shot prefill (``Transformer.prefill``) and the argmax of its last
+    logits (JAX ``make_prefill_step``; the model holds the weights).
+    ``batch`` is the global batch; on a mesh of ranks each rank runs its
+    share (``serve_constraints``) into its cache blocks (``init_cache`` on
+    the model's mesh), takes the argmax across the vocabulary's ranks, and
+    returns every row's token. The caches are written in place and
+    returned."""
+    model._no_cache("prefill")
+    constraints = _step_constraints(model, mesh, "prefill")
+
+    def prefill_step(batch: dict, caches: dict):
+        B = next(iter(batch.values())).shape[0]
+        lc = constraints(B)
+        rows = _rows(lc, B)
+        logits = model.prefill({k: v[rows] for k, v in batch.items()}, caches, lc)
+        return _tokens_out(logits, lc), caches
+
+    return prefill_step
+
+
+def make_decode_step(model, mesh=None):
+    """``decode_step(tokens (B,1), pos () or (B,), caches) -> (next (B,1)
+    int32, caches)`` over the dense cache (JAX ``make_decode_step``); on a
+    mesh of ranks as ``make_prefill_step``, the residual whole on every
+    rank (``RowParallel``)."""
+    model._no_cache("decode_step")
+    constraints = _step_constraints(model, mesh, "decode")
+
+    def decode_step(tokens, pos, caches: dict):
+        B = tokens.shape[0]
+        lc = constraints(B)
+        rows = _rows(lc, B)
+        p = torch.as_tensor(pos)
+        if p.dim() and p.numel() == B:
+            p = p.reshape(B)[rows]
+        logits = model.decode_step(tokens[rows], p, caches, lc=lc)
+        return _tokens_out(logits, lc)[:, None], caches
+
+    return decode_step
+
+
+def make_encoder_step(model, mesh=None):
+    """``encoder_step(batch) -> tokens (B,S) int32``: the argmax of
+    ``apply_logits`` at every position (JAX ``make_encoder_step``: an
+    encoder-only arch's "prefill"). On a mesh of ranks each rank runs its
+    rows and its part of the sequence (``serve_constraints``)."""
+    constraints = _step_constraints(model, mesh, "encoder")
+
+    @torch.inference_mode()
+    def encoder_step(batch: dict):
+        B = next(iter(batch.values())).shape[0]
+        lc = constraints(B)
+        rows = _rows(lc, B)
+        logits, _ = model.apply_logits({k: v[rows] for k, v in batch.items()}, lc)
+        return _tokens_out(logits, lc)
+
+    return encoder_step

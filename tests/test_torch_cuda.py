@@ -319,6 +319,58 @@ def test_flash_dense_serving_shapes_match_plain(cuda, case, dtype):
     assert torch.equal(out, again)
 
 
+def _oneshot_args(case, dtype, cuda, seed):
+    """A 12-field K2 row (the keys' first position last): q, k, v on the
+    card and the wrapper's keyword arguments."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_off, kv_len, k_off = case
+    c = cases.flash_case(B, Sq, Sk, Hq, Hkv, D, seed=seed, q_offset=q_off, kv_len=kv_len,
+                         k_offset=k_off)
+    td = TORCH_DT[dtype]
+    kw = dict(q_positions=_th(c["q_positions"], None, cuda),
+              k_positions=_th(c["k_positions"], None, cuda),
+              kv_len=None if c["kv_len"] is None else _th(c["kv_len"], None, cuda),
+              causal=causal, window=window, softcap=softcap)
+    return [_th(c[n], td, cuda) for n in ("q", "k", "v")], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_one_shot_prefill_matches_plain(cuda, dtype):
+    """K2 at the one-shot prefill's shape (``cases.MAIN_FLASH_ONESHOT``: B 1
+    x 32,768 tokens, 32/4 heads, D 64, causal) against the plain version in
+    1024-query blocks (the whole score tensor would not fit): both gates,
+    two calls bitwise equal."""
+    (q, k, v), kw = _oneshot_args(cases.MAIN_FLASH_ONESHOT, dtype, cuda, seed=18)
+    with torch.no_grad():
+        out, again = FA.flash_attention(q, k, v, **kw), FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    qpos = kw["q_positions"]
+    for i in range(0, q.shape[1], 1024):
+        want = flash_attention_reference(q[:, i:i + 1024], k, v,
+                                         **dict(kw, q_positions=qpos[:, i:i + 1024]))
+        _flash_close(_f32(out[:, i:i + 1024]), _f32(want), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_split_decode_block_returns_the_lse(cuda, dtype):
+    """K2 at a rank's block of a split decode (``cases.MAIN_FLASH_SPLIT_DECODE``:
+    glm4's rank 3 on (1, 4), keys at 3,120..4,159) through
+    ``flash_attention_lse``: the output and the LSE against the plain
+    version's, the slot whose query sees no key of the block 0 with an LSE
+    of -inf (not NaN)."""
+    (q, k, v), kw = _oneshot_args(cases.MAIN_FLASH_SPLIT_DECODE, dtype, cuda, seed=19)
+    o, lse = FA.flash_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    wo, wl = flash_attention_reference(q, k, v, return_lse=True, **kw)
+    _flash_close(_f32(o), _f32(wo), dtype)
+    fin = torch.isfinite(wl)
+    assert not bool(fin.all()) and torch.equal(torch.isneginf(lse), ~fin)
+    _flash_close(_f32(lse[fin]), _f32(wl[fin]), dtype)
+    assert bool((o.permute(0, 2, 1, 3)[~fin] == 0).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", nan_check.KINDS)
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -100,6 +100,18 @@ CP_STEPS = {
 }
 
 
+# the one-shot serving steps on a mesh: (arch, config, mesh, batch, prompt,
+# max_len, decode steps); gemma2's window cut to 8 bites at the prompt
+ONESHOT = {
+    "tinyllama_12": ("tinyllama-1.1b", F32, (1, 2), 2, 16, 32, 4),
+    "gemma2_12": ("gemma2-2b", GEMMA2, (1, 2), 2, 16, 32, 4),
+    "zamba2_12": ("zamba2-2.7b", F32, (1, 2), 2, 16, 32, 4),
+    "hubert_12": ("hubert-xlarge", F32, (1, 2), 2, 16, 0, 0),
+    "tinyllama_22": ("tinyllama-1.1b", F32, (2, 2), 2, 16, 32, 4),
+    "glm4_14": ("glm4-9b", F32, (1, 4), 2, 16, 32, 4),
+}
+
+
 def tcfg() -> TrainConfig:
     return TrainConfig(optimizer=AdamWConfig(), warmup_steps=1, total_steps=10)
 
@@ -330,6 +342,99 @@ def count_projections(R):
     return flops, saved
 
 
+def run_oneshot(name, init, out, rank):
+    """``ONESHOT[name]``: the prefill of ``init[name]``'s prompt and decode
+    steps fed its tokens, on the case's mesh; rank 0 keeps the outputs and
+    every rank's cache blocks (spare rows dropped) and kernel shapes. An
+    encoder-only arch runs ``make_encoder_step`` instead."""
+    from repro_torch.convert import from_jax_params
+    from repro_torch.serve.serve import make_decode_step, make_encoder_step, make_prefill_step
+
+    arch, kw, shape, B, S, max_len, steps = ONESHOT[name]
+    cfg = config_for(arch, kw)
+    mesh = make_host_mesh(model=shape[1], device="cpu")
+    model = from_jax_params(init[name]["params"], cfg, "cpu", mesh)
+    batch = {k: torch.from_numpy(v) for k, v in init[name]["batch"].items()}
+    seen: set = set()
+    res: dict = {}
+    logits = recorded_logits(model)
+    with _FlashSeen(seen), _LseSeen(seen):
+        if cfg.encoder_only:
+            res["tokens"] = make_encoder_step(model, mesh)(batch)
+            res["logits"] = logits[0]
+        else:
+            caches = model.init_cache(B, max_len, paged=False)
+            tok, caches = make_prefill_step(model, mesh)(batch, caches)
+            res["tokens"] = [tok]
+            decode = make_decode_step(model, mesh)
+            for i, t in enumerate(init[name]["decode"]):
+                tok, caches = decode(torch.from_numpy(t), S + i, caches)
+                res["tokens"].append(tok)
+            res["logits"] = logits
+            blocks = {p: (t[:, :-1] if p.endswith(("/k", "/v")) else t).clone()
+                      for p, t in tree_leaves(caches)}
+    world = dist.get_world_size()
+    got_blocks, got_seen = [None] * world, [None] * world
+    dist.all_gather_object(got_seen, sorted(seen, key=repr))
+    if not cfg.encoder_only:
+        dist.all_gather_object(got_blocks, blocks)
+    res["blocks"], res["seen"] = got_blocks, got_seen
+    if rank == 0:
+        out[name] = res
+
+
+def recorded_logits(model) -> list:
+    """The logits that ``model``'s ``prefill``, ``decode_step`` and
+    ``apply_logits`` return from here on, in order, as the serving steps
+    call them, made whole: the vocabulary's ranks' columns gathered
+    (``vocab_gather``), then the rows' ranks' rows (``rows_gather``)."""
+    import inspect
+
+    from repro_torch.distributed.shard import rows_gather, vocab_gather
+    from repro_torch.layers.common import NULL_CONSTRAINTS
+
+    seen = []
+    for name in ("prefill", "decode_step", "apply_logits"):
+        fn = getattr(model, name)
+
+        def rec(*a, _fn=fn, _sig=inspect.signature(fn), **k):
+            out = _fn(*a, **k)
+            lc = _sig.bind(*a, **k).arguments.get("lc", NULL_CONSTRAINTS)
+            full = vocab_gather(out[0] if isinstance(out, tuple) else out, lc.tp)
+            seen.append(full if lc.ranks is None else rows_gather(full, lc.ranks))
+            return out
+        setattr(model, name, rec)
+    return seen
+
+
+class _LseSeen:
+    """While open, the (q, k) shapes and the first and last key positions of
+    row 0 that reach the attention kernel's LSE wrapper go into ``into``,
+    tagged ``"lse"``."""
+
+    def __init__(self, into):
+        self.into = into
+
+    def __enter__(self):
+        from repro_torch.layers import attention as A
+
+        self.saved = fn = A.flash_attention_lse
+
+        def seen(q, k, v, **kw):
+            kp = kw["k_positions"][0]
+            self.into.add(("lse", tuple(q.shape), tuple(k.shape), int(kp[0]), int(kp[-1])))
+            return fn(q, k, v, **kw)
+
+        A.flash_attention_lse = seen
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import attention as A
+
+        A.flash_attention_lse = self.saved
+        return False
+
+
 gloo_cuda = shard._gloo_cuda
 
 
@@ -385,6 +490,10 @@ def main() -> None:
         for name, row in CP_STEPS.items():
             if row[2][0] * row[2][1] == world:
                 run_steps(name, init, out, rank, CP_STEPS, seen=True)
+    elif phase in ("oneshot2", "oneshot4"):
+        for name, row in ONESHOT.items():
+            if row[2][0] * row[2][1] == world:
+                run_oneshot(name, init, out, rank)
     elif phase == "back":
         cfg = smoke_config("tinyllama-1.1b").replace(**F32)
         state, step = restore(os.path.join(d, "ck2"), cfg,
