@@ -212,6 +212,21 @@ exit:
            token prefill and 8 decode steps: every token equal one rank's,
            logits within ONESHOT_TOL, launches those of one rank, each
            rank's K2 shapes its share, its cache bytes 1/n of one rank's;
+6d. dryrun the dry run (``launch.dryrun``) on the host: nothing allocated
+           on the card, the blocks meta tensors, the collectives a
+           ``"fake"`` process group's; the kernels' meta routes report
+           their costs and launch nothing (launch counters zeroed before
+           and read after: all 0; each of K1 and K2 counted in every cell
+           it runs in). (a) phase 6's step (DRYRUN_TRAIN) counted on a
+           1 x 1 meta mesh: its FLOPs and bytes a step within
+           DRYRUN_COUNT_TOL of phase 6's ``StepProfile.count`` of the real
+           step, the kernel entries equal call for call, and the predicted
+           peak (arguments + the step's peak) within DRYRUN_PEAK_TOL of
+           phase 6's ``max_memory_allocated`` less what earlier phases
+           still held when phase 6 began; (b) DRYRUN_CELLS at full
+           depth on the production meshes: status ok, finite roofline
+           terms, each cell's bytes a rank against the card's memory, its
+           terms and its count seconds;
 7. report  the same configuration REPORT_STEPS steps under the tracer
            (record in ``results/talp/<arch>/train_tracer/``) and under the
            null collector, launch counters exact for each; the tracer's
@@ -442,6 +457,23 @@ MESH_CP_TALP_DIR = os.path.join("results", "talp_mesh_cp")
 # tinyllama at 4 of 22 layers on (1, 2) (KV heads over "model") and glm4-9b
 # at 2 of 40 on (1, 4) (2 KV heads: the cache's sequence over "model", the
 # ranks' attention combined through the LSE)
+# Phase 6d (dryrun): (a) phase 6's step counted on the meta device at 1 x 1
+# against phase 6's count of the real step (the same operators and kernel
+# entries: within DRYRUN_COUNT_TOL relative), and the predicted peak
+# (arguments + the step's peak of live tensors) against the card's
+# ``max_memory_allocated`` within DRYRUN_PEAK_TOL; (b) six production cells
+# at full depth: a megatron train cell, a sequence-split decode cache, the
+# encoder, an MoE train cell, fsdp's context-parallel train cell across two
+# pods (DCN) and the hybrid's 500k-token decode across two pods
+DRYRUN_COUNT_TOL = 1e-6
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False), ("glm4-9b", "decode_32k", False),
+                ("hubert-xlarge", "prefill_32k", False), ("qwen3-moe-30b-a3b", "train_4k", False),
+                ("gemma2-2b", "train_4k", True), ("zamba2-2.7b", "long_500k", True))
+DRYRUN_DIR = os.path.join(ROOT, "results", "dryrun")
+# phase 6's per-step count of the real step (the monitor's static profile)
+TRAIN_PROFILE: dict = {}
+
 ONESHOT = dict(arch="tinyllama-1.1b", prompt=32768, decode=16, chunk=2048, fp32_repeats=2,
                seed=81)
 ONESHOT_TOL = 1e-4
@@ -2858,6 +2890,7 @@ def phase_train(profile: bool):
 
     B, S, A = TRAIN_B, TRAIN_S, TRAIN_A
     torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()  # earlier phases' tensors, in the peak
     cfg, data, loop = _train_loop("monitor", TRAIN_STEPS)
     reset_launch_counts()
     loop.run()
@@ -2866,6 +2899,7 @@ def phase_train(profile: bool):
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in counts}
     want.update(_train_expected_launches(cfg, TRAIN_STEPS, A))
+    TRAIN_PROFILE["train_step"] = loop.session.collector._regions["train_step"].static
     record = loop.finalize_run(os.path.join(TALP_DIR, ARCH, "train_monitor"))
     path = loop.session.last_record_path
     loaded = RunRecord.load(path)
@@ -2885,7 +2919,8 @@ def phase_train(profile: bool):
                                         for i in range(TRAIN_STEPS)) / TRAIN_STEPS),
          model_flops_per_step=model_flops, mfu=model_flops / median / PEAK_FLOPS["bfloat16"],
          counted_flops_per_step=ts.counters.useful_flops / max(ts.measurements.num_steps, 1),
-         peak_mem_bytes=peak, launches=counts, expected_launches=want,
+         peak_mem_bytes=peak, held_before_bytes=held_before, launches=counts,
+         expected_launches=want,
          record=os.path.relpath(path, ROOT), regions=sorted(loaded.regions),
          num_steps=ts.measurements.num_steps,
          dispatch_efficiency=ts.pop.get("dispatch_efficiency"),
@@ -4030,6 +4065,110 @@ def _oneshot_mesh(failures: list) -> tuple[dict, dict]:
         counts[f"oneshot_{case}"] = {k: ranks[0]["launches"].get(k, 0) for k in LAUNCHES}
     shutil.rmtree(work, ignore_errors=True)
     return out, counts
+
+
+def _kernel_entries(prof) -> dict:
+    return {k: [c.multiplicity, c.flops, c.hbm_bytes] for k, c in prof.per_computation.items()
+            if c.kind == "kernel"}
+
+
+def _entry(prof, name: str) -> tuple:
+    c = prof.per_computation.get(name)
+    return (0.0, 0.0, 0.0) if c is None else (c.multiplicity, c.flops, c.hbm_bytes)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_dryrun() -> None:
+    """Phase 6d (module docstring): the dry run on the host."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.train import TrainConfig
+
+    card, total = _card(), torch.cuda.get_device_properties(0).total_memory
+    failures = []
+    reset_launch_counts()
+    # (a) phase 6's step on a 1 x 1 meta mesh
+    real = TRAIN_PROFILE["train_step"]
+    shape = InputShape("phase6", TRAIN_S, TRAIN_B * TRAIN_A, "train")
+    prof, meta = D.count_cell(_config(), shape, Mesh((1, 1), ("data", "model")),
+                              TrainConfig(total_steps=TRAIN_STEPS), accum=TRAIN_A, arch=ARCH)
+    # phase 6's own peak: less what earlier phases still held when it began
+    peak = RESULT["train"]["peak_mem_bytes"] - RESULT["train"]["held_before_bytes"]
+    mem = prof.memory
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    got_k, want_k = _kernel_entries(prof), _kernel_entries(real)
+    a = {"flops": prof.flops, "flops_phase6": real.flops,
+         "flops_rel": _rel(prof.flops, real.flops),
+         "hbm_bytes": prof.hbm_bytes, "hbm_bytes_phase6": real.hbm_bytes,
+         "hbm_bytes_rel": _rel(prof.hbm_bytes, real.hbm_bytes),
+         "kernels": got_k, "kernels_phase6": want_k, "memory_analysis": mem,
+         # the entries that differ: name -> [calls, FLOPs, bytes] here and in phase 6
+         "differing": {k: [list(_entry(prof, k)), list(_entry(real, k))]
+                       for k in set(prof.per_computation) | set(real.per_computation)
+                       if _entry(prof, k) != _entry(real, k)},
+         "predicted_peak_bytes": predicted, "peak_mem_bytes_phase6": peak,
+         "held_before_phase6_bytes": RESULT["train"]["held_before_bytes"],
+         "peak_rel": _rel(predicted, peak), "count_s": meta["count_s"]}
+    if a["flops_rel"] > DRYRUN_COUNT_TOL or a["hbm_bytes_rel"] > DRYRUN_COUNT_TOL:
+        failures.append(f"(a) counted flops/bytes {prof.flops}/{prof.hbm_bytes} vs phase 6's "
+                        f"{real.flops}/{real.hbm_bytes}")
+    if set(got_k) != set(want_k) or any(
+            got_k[k][0] != want_k[k][0] or _rel(got_k[k][1], want_k[k][1]) > DRYRUN_COUNT_TOL
+            or _rel(got_k[k][2], want_k[k][2]) > DRYRUN_COUNT_TOL for k in want_k):
+        failures.append(f"(a) kernel entries {got_k} vs phase 6's {want_k}")
+    if a["peak_rel"] > DRYRUN_PEAK_TOL:
+        failures.append(f"(a) predicted peak {predicted} vs phase 6's {peak}")
+    # (b) production cells at full depth
+    cells = []
+    for arch, shape_name, multi_pod in DRYRUN_CELLS:
+        rec = D.run_cell(arch, shape_name, multi_pod, DRYRUN_DIR, force=True)
+        row = {"arch": arch, "shape": shape_name, "status": rec["status"],
+               "mesh": "2x16x16" if multi_pod else "16x16"}
+        if rec["status"] != "ok":
+            failures.append(f"(b) {arch} {shape_name}: {rec.get('error')}")
+            cells.append(row)
+            continue
+        r = rec["roofline"]
+        terms = {k: r[k] for k in ("compute_s", "memory_s", "collective_s",
+                                   "collective_ici_s", "collective_dcn_s")}
+        kernels = {k: v["multiplicity"] / rec["profile"]["num_devices"]
+                   for k, v in rec["profile"]["per_computation"].items()
+                   if v["kind"] == "kernel"}
+        row.update(terms, bottleneck=r["bottleneck"], mode=rec["mode"],
+                   strategy=rec["strategy"], counted_rank=rec["counted_rank"],
+                   mem_per_device_bytes=D.mem_per_device_gib(rec) * 2**30,
+                   mem_fraction_of_card=D.mem_per_device_gib(rec) * 2**30 / total,
+                   memory_analysis=rec["memory_analysis"], kernel_calls=kernels,
+                   collective_counts=rec["profile"]["collective_counts"],
+                   count_s=rec["count_s"], ranks=rec.get("ranks"))
+        if not all(math.isfinite(v) and v >= 0 for v in terms.values()):
+            failures.append(f"(b) {arch} {shape_name}: terms {terms}")
+        want = {"rmsnorm", "flash_attention"}  # every cell has norms and attention
+        if rec["mode"] == "train":
+            want |= {"rmsnorm_backward", "flash_attention_backward"}
+        if not want <= set(kernels):
+            failures.append(f"(b) {arch} {shape_name}: meta-route calls {kernels}")
+        cells.append(row)
+        print(f"dryrun {arch} {shape_name} {row['mesh']}: {row['mem_per_device_bytes'] / 2**30:.2f}"
+              f" GiB a rank of {total / 2**30:.1f} GiB; compute {r['compute_s']:.4g} s, memory"
+              f" {r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s"
+              f" ({r['bottleneck']}); counted in {rec['count_s']} s [{card}]", flush=True)
+    launches = launch_counts()
+    if any(launches.values()):
+        failures.append(f"the dry run launched kernels: {launches}")
+    emit("dryrun", card=card, total_memory_bytes=total, train_1x1=a, cells=cells,
+         launches=launches, failures=failures)
+    if failures:
+        raise AssertionError("dryrun: " + "; ".join(failures))
 
 
 def phase_oneshot() -> dict:
@@ -6096,6 +6235,7 @@ def main() -> int:
     train_counts = phase_train(profile)
     mesh_counts = phase_mesh()
     oneshot_counts = phase_oneshot()
+    phase_dryrun()
     phase_report()
     arch_counts = phase_archs()
     moe_counts = phase_moe()

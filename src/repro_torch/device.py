@@ -22,15 +22,16 @@ def default_device() -> torch.device:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``default_device()``; raise if CUDA is asked for and absent."""
+    """``None`` -> ``default_device()``; raise if CUDA is asked for and absent.
+    ``"meta"`` (shapes without storage: ``launch.dryrun``) is taken as it is."""
     dev = default_device() if device is None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run the plain PyTorch versions"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda', 'cpu' or 'meta'")
     return dev
 
 

@@ -36,8 +36,12 @@ def launch_counts() -> dict[str, int]:
 
 def record_cost(name: str, cost_fn) -> None:
     """Report one launch's cost; ``cost_fn() -> (flops, bytes)`` runs only
-    while a sink listens."""
+    while a sink listens, and with the dispatch modes set aside: its own
+    reads (a launch's positions brought to the host) are not the step's."""
     if COST_SINKS:
-        flops, nbytes = cost_fn()
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with _disable_current_modes():
+            flops, nbytes = cost_fn()
         for sink in COST_SINKS:
             sink(name, float(flops), float(nbytes))

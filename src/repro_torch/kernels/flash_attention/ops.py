@@ -21,11 +21,21 @@ then the dk/dv kernel. The dtype picks the route before the launch
 Both go through ``ctypes`` on PyTorch's current stream and raise if a
 launch returns a CUDA error. Nothing falls back: not to the other route,
 not to the plain version.
+
+Tensors on the meta device (a step counted without running,
+``launch.dryrun``) take the meta route in ``flash_forward`` and
+``flash_backward``: they allocate what the launch would, on the meta
+device, report its cost through ``record_cost`` and launch nothing
+(``LAUNCHES`` and ``ROUTE_LAUNCHES`` stay as they were). A meta tensor
+holds no values, so the cost is counted at the host positions that
+``meta_positions`` sets (``MetaPositions``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -152,6 +162,55 @@ def launch_costs(q, k, causal, window, backward: bool, qpos=None, kpos=None,
     return 2.5 * fwd_flops, 4 * io_q + 4 * io_kv + 2 * rows
 
 
+@dataclasses.dataclass(frozen=True)
+class MetaPositions:
+    """The host positions that a launch on the meta device stands for, as
+    a step implies them:
+
+    - no ``kv_len`` (training, the one-shot prefill, the encoder): queries
+      at ``q_offset + 0..Sq-1`` (a context-parallel rank's query block
+      starts at its offset), keys at ``0..Sk-1``;
+    - with ``kv_len`` (a decode step over a dense cache): every query row at
+      ``decode_pos``, keys at ``k_offset + 0..Sk-1`` (a sequence-split
+      cache block's own key range), ``kv_len = decode_pos + 1``."""
+
+    q_offset: int = 0
+    k_offset: int = 0
+    decode_pos: int | None = None
+
+    def host(self, B: int, Sq: int, Sk: int, cache: bool):
+        """(qpos (B,Sq), kpos (B,Sk), kv_len (B,) or None) host arrays."""
+        kpos = np.broadcast_to(self.k_offset + np.arange(Sk, dtype=np.int64), (B, Sk))
+        if not cache:
+            qpos = self.q_offset + np.arange(Sq, dtype=np.int64)
+            return np.broadcast_to(qpos, (B, Sq)), kpos, None
+        if self.decode_pos is None:
+            raise ValueError("a meta launch over a cache needs its decode position: "
+                             "set it with meta_positions(decode_pos=...)")
+        return (np.full((B, Sq), self.decode_pos, np.int64), kpos,
+                np.full(B, self.decode_pos + 1, np.int64))
+
+
+_META_POSITIONS = [MetaPositions()]
+
+
+@contextlib.contextmanager
+def meta_positions(**kw):
+    """Count meta launches inside the block at ``MetaPositions(**kw)``."""
+    _META_POSITIONS.append(MetaPositions(**kw))
+    try:
+        yield _META_POSITIONS[-1]
+    finally:
+        _META_POSITIONS.pop()
+
+
+def _meta_costs(q, k, kv_len, causal, window, backward: bool):
+    """``launch_costs`` of a meta launch at the current ``MetaPositions``."""
+    qpos, kpos, lens = _META_POSITIONS[-1].host(q.shape[0], q.shape[1], k.shape[1],
+                                                kv_len is not None)
+    return launch_costs(q, k, causal, window, backward, qpos, kpos, lens)
+
+
 def _check(q, k, v):
     """(B, Sq, Sk, Hq, Hkv, D) of inputs a launch takes; raises for others.
     Dtypes and shapes are checked before the device, so every check but the
@@ -173,7 +232,7 @@ def _check(q, k, v):
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"flash attention kernel: {name} on {t.device}, q on {dev}")
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention kernel: q on {dev}, expected CUDA")
     return B, Sq, Sk, Hq, Hkv, D
 
@@ -192,6 +251,10 @@ def flash_forward(q, k, v, qpos, kpos, kv_len, causal, window, softcap):
     rt = route(q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if q.is_meta:  # the meta route: no launch, its cost only
+        record_cost("flash_attention", lambda: _meta_costs(q, k, kv_len, causal, window,
+                                                           False))
+        return out, lse
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(), lse.data_ptr())
     opts = (B, Sq, Sk, Hq, Hkv, D, int(bool(causal)), int(window or 0),
@@ -220,6 +283,13 @@ def flash_backward(q, k, v, out, lse, dout, qpos, kpos, kv_len, causal, window, 
     dout = dout.to(q.dtype).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if q.is_meta:  # the meta route: the launch's scratch and cost, no launch
+        if rt == "tensor_cores":  # the fp32 partial dK and dV per q head
+            dk_part, dv_part = (torch.empty((B, Sk, Hq, D), dtype=torch.float32,
+                                            device=q.device) for _ in range(2))
+        record_cost("flash_attention_backward", lambda: _meta_costs(
+            q, k, kv_len, causal, window, True))
+        return dq, dk, dv
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(), delta.data_ptr(), dq.data_ptr())

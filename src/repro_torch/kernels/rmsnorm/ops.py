@@ -3,7 +3,11 @@
 The route follows the tensor's device and nothing else. A CPU tensor runs
 the plain version in ``ref.py``, which autograd differentiates. A CUDA
 tensor launches ``csrc/rmsnorm.cu`` through ``ctypes`` on PyTorch's current
-stream, or raises; nothing falls back.
+stream, or raises; nothing falls back. A tensor on the meta device (a
+step counted without running, ``launch.dryrun``) takes the meta route:
+the launchers allocate what a launch would, on the meta device, report
+the launch's cost through ``record_cost`` and launch nothing (``LAUNCHES``
+stays as it was).
 
 - When no gradient can flow (``torch.is_grad_enabled()`` is false, as under
   the serving path's ``torch.inference_mode()``, or neither ``x`` nor
@@ -156,7 +160,11 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> int:
         raise ValueError(f"rmsnorm: scale shape {tuple(scale.shape)} != ({d},)")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm: x and scale must be contiguous")
-    if not x.is_cuda or scale.get_device() != x.get_device():
+    if x.is_meta:
+        on_one = scale.is_meta
+    else:
+        on_one = x.is_cuda and scale.get_device() == x.get_device()
+    if not on_one:
         raise ValueError(f"rmsnorm: x on {x.device}, scale on {scale.device}; both must be "
                          f"on one CUDA device (or x on the CPU)")
     return d
@@ -188,6 +196,9 @@ def launch_forward(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    if x.is_meta:  # the meta route: no launch, its cost only
+        record_cost("rmsnorm", lambda: (4 * x.numel(), _bytes(x, scale, 2)))
+        return out
     dev = x.get_device()
     px, ps, po = x.data_ptr(), scale.data_ptr(), out.data_ptr()
     p = p or _plan(x, d, dev, px | ps | po)
@@ -209,13 +220,19 @@ def launch_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps:
     for ``launch_forward``."""
     d = _check(x, scale)
     if dy.dtype != x.dtype or dy.shape != x.shape or not dy.is_contiguous() \
-            or dy.get_device() != x.get_device():
+            or dy.device != x.device:
         raise ValueError(f"rmsnorm backward: dy {dy.dtype} {tuple(dy.shape)} on {dy.device} "
                          f"must match x {x.dtype} {tuple(x.shape)} on {x.device}, contiguous")
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
     if x.numel() == 0:
         return dx, dscale.zero_()
+    if x.is_meta:  # the meta route: the launch's scratch and cost, no launch
+        es = x.element_size()
+        p = p or plan(x.numel() // d, d, es, H100_SMS, d % (16 // es) == 0)
+        torch.empty((p.blocks, d), dtype=torch.float32, device=x.device)
+        record_cost("rmsnorm_backward", lambda: (8 * x.numel(), _bytes(x, scale, 3)))
+        return dx, dscale
     dev = x.get_device()
     px, ps, pg, pd = x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr()
     p = p or _plan(x, d, dev, px | ps | pg | pd)

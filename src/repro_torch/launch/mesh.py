@@ -14,10 +14,16 @@ on the CPU it is ``gloo``.
 Nothing here touches the process group at import time, and a mesh that
 names no process group (``make_production_mesh``, or world size 1 without
 one) has no devices to talk to: its collectives are skipped.
+
+``meta_mesh`` is the dry run's mesh: one process stands for one rank of a
+``"fake"`` process group of any size (its collectives return at once and
+move nothing) and holds its blocks on the meta device, so a step over
+the production mesh is counted without allocating or running anything.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -108,15 +114,21 @@ class Mesh:
                 if n == 1:
                     self._groups[axes] = self.device_mesh.get_group(axes[0])
                     continue
-                seen = set()
-                for r in range(self.devices.size):
-                    ranks = tuple(self.group_ranks(axes, r))
-                    if ranks in seen:
-                        continue
-                    seen.add(ranks)
-                    pg = dist.new_group(list(ranks))
+                for ranks in self._blocks(axes):
+                    pg = dist.new_group(ranks)
                     if self.rank in ranks:
                         self._groups[axes] = pg
+
+    def _blocks(self, axes) -> list[list[int]]:
+        """The partition of the ranks that ``axes`` makes (each block the
+        ranks that differ only along ``axes``, in rank order), blocks in
+        the order of their first rank: one pass over the ranks."""
+        ranks = torch.arange(self.devices.size).reshape(self.devices.shape)
+        keep = [i for i, a in enumerate(self.axis_names) if a in axes]
+        rest = [i for i in range(len(self.axis_names)) if i not in keep]
+        blocks = ranks.permute(rest + keep).reshape(-1, math.prod(
+            self.devices.shape[i] for i in keep))
+        return [b.tolist() for b in blocks]
 
     def __repr__(self) -> str:
         return f"Mesh({dict(self.sizes)}, rank={self.rank}, device={self.device})"
@@ -158,6 +170,28 @@ def make_host_mesh(model: int | None = None, device=None) -> Mesh:
     shape = (world // model, model)
     dm = init_device_mesh(dev.type, shape, mesh_dim_names=("data", "model"))
     return Mesh(shape, ("data", "model"), device=dev, device_mesh=dm)
+
+
+@contextlib.contextmanager
+def meta_mesh(shape, axis_names, rank: int = 0):
+    """A ``Mesh`` of ``shape`` on the meta device over a ``"fake"`` default
+    process group of ``prod(shape)`` ranks, this process rank ``rank``;
+    the group is torn down when the block ends. Refuses to run beside an
+    existing default group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a default process group exists already: the meta mesh "
+                           "sets up a fake one of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=math.prod(shape))
+    try:
+        dm = init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axis_names))
+        yield Mesh(shape, axis_names, device=torch.device("meta"), device_mesh=dm)
+    finally:
+        dist.destroy_process_group()
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -373,8 +373,8 @@ class Transformer(nn.Module):
                 tokens = tokens.to(self.device, non_blocking=True)
                 parts.append(self._leaf("embed", lc)[tokens.long()].to(cfg.compute_dtype))
             x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-            if lc.cp is not None:
-                x = lc.cp.local(x)
+            if lc.cp is not None:  # the kernels take contiguous rows
+                x = lc.cp.local(x).contiguous()
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
         return x
@@ -391,7 +391,7 @@ class Transformer(nn.Module):
         if frontend is not None:
             fe = frontend.to(self.device, cfg.compute_dtype, non_blocking=True)
         if tokens is None:
-            return tp.local(fe)
+            return tp.local(fe).contiguous()
         emb = self._leaf("embed", lc, split=True)          # (V/n, d)
         local = tokens.to(self.device, non_blocking=True).long() - tp.part(cfg.vocab_padded).start
         inside = (local >= 0) & (local < emb.shape[0])
@@ -454,10 +454,10 @@ class Transformer(nn.Module):
                     for k, v in new.items():
                         rows[k].copy_(v)
                 return x + o, {}
-            if seq is not None:
+            if seq is not None:  # the rank's part, contiguous for the kernels
                 return seq.local(self._recurrent_slot(sp, seq.seq_gather(x), kind, cache,
                                                       seq_mask, cache_row0, commit_state,
-                                                      tp)), {}
+                                                      tp)).contiguous(), {}
             return self._recurrent_slot(sp, x, kind, cache, seq_mask, cache_row0,
                                         commit_state, tp), {}
         h = rmsnorm(x, sp["norm_in"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
