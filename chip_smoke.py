@@ -212,6 +212,23 @@ exit:
            token prefill and 8 decode steps: every token equal one rank's,
            logits within ONESHOT_TOL, launches those of one rank, each
            rank's K2 shapes its share, its cache bytes 1/n of one rank's;
+6e. serve_mesh the serving scheduler (``serve.BatchScheduler``) on meshes of
+           gloo ranks sharing the card (this script's ``--serve-rank``
+           subprocesses, SERVE_MESH_GROUPS), bf16 weights computed in
+           fp32: (a) tinyllama-1.1b at full depth, SERVE_MESH's 16
+           requests behind one system prompt through 8 slots and a pool
+           that preempts, greedy and speculation on (1, 2), greedy and
+           sampled on (2, 1); (b) glm4-9b at 2 layers on (1, 4) (the pool
+           whole on every rank) and (c) zamba2-2.7b at 6 of 54 layers on
+           (1, 2) (weights at their per-layer fan-in) on
+           SERVE_MESH_SMALL. Every request's tokens equal one rank's run
+           in this process, each rank's K3, K4 and K1 launches one rank's
+           (less the split gated norm's K1) at the rank's rows and heads,
+           rank 0's record of the (1, 2) greedy run in
+           SERVE_MESH_TALP_DIR passing ``talp validate``; tokens/s, time
+           to first token and a gloo all-reduce's ms a mesh beside one
+           rank's. The ranks start together and run after the one-rank
+           references;
 6d. dryrun the dry run (``launch.dryrun``) on the host: nothing allocated
            on the card, the blocks meta tensors, the collectives a
            ``"fake"`` process group's; the kernels' meta routes report
@@ -356,6 +373,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import gc
 import json
 import os
 import re
@@ -457,6 +475,42 @@ MESH_CP_TALP_DIR = os.path.join("results", "talp_mesh_cp")
 # tinyllama at 4 of 22 layers on (1, 2) (KV heads over "model") and glm4-9b
 # at 2 of 40 on (1, 4) (2 KV heads: the cache's sequence over "model", the
 # ranks' attention combined through the LSE)
+# Phase 6e (serve_mesh): the scheduler (``serve.BatchScheduler``) on meshes
+# of gloo ranks sharing the card (``--serve-rank``), bf16 weights computed in
+# fp32, each run's tokens against one rank's run of the same weights in this
+# process. (a) tinyllama-1.1b at full width and depth: SERVE_MESH's 16
+# requests behind one 40-token system prompt (copy-on-write hits) through 8
+# slots and a pool of 20 pages that preempts, greedy and speculation (the
+# drafter on one-token matches) on (1, 2) (each rank holding its blocks:
+# 16/2 heads), greedy and sampled on (2, 1) (the serve launcher's way:
+# whole weights, the slots' rows split over "data"); the (1, 2) greedy
+# run's rank 0 record in
+# SERVE_MESH_TALP_DIR. (b) glm4-9b at 2 of 40 layers on (1, 4) (2 KV heads:
+# the pool whole on every rank) and (c) zamba2-2.7b at 6 of 54 layers on
+# (1, 2), weights at their per-layer fan-in (mamba2 over its SSM heads):
+# SERVE_MESH_SMALL, 8 requests, an ample pool. Every process warms up on
+# 2 requests first; the ranks of all groups start together, time
+# SERVE_MESH_COLLECTIVES all-reduces of a decode step's activations, wait
+# while this process runs the one-rank references, then run at once.
+SERVE_MESH = dict(batch=8, max_len=512, page_size=16, prefill_chunk=64, num_pages=20,
+                  requests=16, prefix=40, tail=(8, 24), max_new=8, seed=81)
+SERVE_MESH_SMALL = dict(SERVE_MESH, num_pages=None, requests=8, max_new=4)
+SERVE_MESH_COLLECTIVES = 30
+SERVE_MESH_GROUPS = {
+    "tinyllama_12": dict(arch="tinyllama-1.1b", repeats=None, mesh=(1, 2),
+                         runs={"greedy": {}}),
+    "tinyllama_12_spec": dict(arch="tinyllama-1.1b", repeats=None, mesh=(1, 2),
+                              runs={"spec": dict(spec_decode=True, spec_k=4,
+                                                 spec_min_match=1)}),
+    "tinyllama_21": dict(arch="tinyllama-1.1b", repeats=None, mesh=(2, 1),
+                         runs={"greedy": {}, "sampled": dict(greedy=False, temperature=0.8,
+                                                             top_k=50, sample_seed=7)}),
+    "glm4_14": dict(arch="glm4-9b", repeats=2, mesh=(1, 4), work=SERVE_MESH_SMALL,
+                    runs={"greedy": {}}),
+    "zamba2_12": dict(arch="zamba2-2.7b", repeats=1, mesh=(1, 2), fan_in=True,
+                      work=SERVE_MESH_SMALL, runs={"greedy": {}}),
+}
+SERVE_MESH_TALP_DIR = os.path.join("results", "talp_serve_mesh")
 # Phase 6d (dryrun): (a) phase 6's step counted on the meta device at 1 x 1
 # against phase 6's count of the real step (the same operators and kernel
 # entries: within DRYRUN_COUNT_TOL relative), and the predicted peak
@@ -2889,6 +2943,10 @@ def phase_train(profile: bool):
     from repro_torch.models.flops import train_step_model_flops
 
     B, S, A = TRAIN_B, TRAIN_S, TRAIN_A
+    # earlier phases' garbage is collected first: a reference cycle freed by
+    # the collector inside the loop would leave the peak below held_before
+    # plus the step's own peak
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     held_before = torch.cuda.memory_allocated()  # earlier phases' tensors, in the peak
     cfg, data, loop = _train_loop("monitor", TRAIN_STEPS)
@@ -4065,6 +4123,327 @@ def _oneshot_mesh(failures: list) -> tuple[dict, dict]:
         counts[f"oneshot_{case}"] = {k: ranks[0]["launches"].get(k, 0) for k in LAUNCHES}
     shutil.rmtree(work, ignore_errors=True)
     return out, counts
+
+
+class _PagedSeen:
+    """While open: the (kind, q shape, pool shape) at which the serving
+    layers call K3 (``"decode"``) and K4 (``"chunk"``)."""
+
+    def __enter__(self):
+        from repro_torch.layers import attention as A
+
+        self.shapes = set()
+        self._saved = A.paged_attention, A.paged_prefill_attention
+
+        def tagged(fn, kind):
+            def seen(q, k, *a, **kw):
+                self.shapes.add((kind, tuple(q.shape), tuple(k.shape)))
+                return fn(q, k, *a, **kw)
+            return seen
+
+        A.paged_attention = tagged(self._saved[0], "decode")
+        A.paged_prefill_attention = tagged(self._saved[1], "chunk")
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import attention as A
+
+        A.paged_attention, A.paged_prefill_attention = self._saved
+        return False
+
+
+def _serve_mesh_prompts(vocab: int, m: dict) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(m["seed"])
+    system = rng.integers(4, vocab, m["prefix"]).tolist()
+    return [system + rng.integers(4, vocab, int(rng.integers(*m["tail"]))).tolist()
+            for _ in range(m["requests"])]
+
+
+def _serve_mesh_model(g: dict, mesh):
+    """``g``'s weights, bf16 computed in fp32, drawn on the card from
+    SERVE_MESH's seed: on a mesh whose "model" axis is above 1 this rank's
+    blocks, else the whole weights (the scheduler then takes the mesh)."""
+    from repro_torch.models.transformer import Transformer
+
+    cfg = _arch_cfg(g["arch"], g["repeats"]).replace(compute_dtype_name="float32")
+    held = mesh if mesh is not None and mesh.sizes["model"] > 1 else None
+    model = Transformer.from_init(cfg, seed=SERVE_MESH["seed"], device=DEV,
+                                  draw_device="cuda", mesh=held)
+    if g.get("fan_in"):
+        _fan_in_(model)
+    return model, cfg
+
+
+def _serve_mesh_session(devices: int):
+    from repro_torch.core.records import ResourceConfig
+    from repro_torch.session import PerfSession, SessionConfig
+
+    return PerfSession(SessionConfig(app_name="serve-mesh", backend="monitor",
+                                     lb_sample_every=1),
+                       ResourceConfig(num_hosts=1, devices_per_host=devices))
+
+
+def _serve_mesh_run(model, cfg, mesh, g: dict, over: dict, session=None,
+                    warm: bool = False) -> dict:
+    """``g``'s workload (SERVE_MESH unless it names another) through a
+    scheduler on ``mesh`` (None: one rank): tokens, launches, the paged
+    kernels' and K1's shapes, seconds, tokens/s, time to first token and
+    the counters. ``warm``: the first 2 requests, 2 tokens each (the
+    process's warm-up)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.serve import BatchScheduler, ServeConfig
+
+    m = dict(g.get("work", SERVE_MESH))
+    if warm:
+        m.update(requests=2, max_new=2)
+    sched = BatchScheduler(model, ServeConfig(
+        max_len=m["max_len"], batch=m["batch"], page_size=m["page_size"],
+        prefill_chunk=m["prefill_chunk"], num_pages=m["num_pages"], prefix_cache=True, **over),
+        session=session, mesh=mesh)
+    prompts = _serve_mesh_prompts(cfg.vocab, m)[:m["requests"]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with _PagedSeen() as paged, _Seen() as seen:
+        for rid, p in enumerate(prompts):
+            sched.submit(p, request_id=rid, max_new=m["max_new"])
+        sched.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = {r["id"]: r["generated"] for r in sched.completed}
+    ttft = sorted(r["t_first_token"] - r["t_submit"] for r in sched.completed)
+    kv = sched.kv_cache_stats()
+    out = dict(tokens=toks, launches={k: v for k, v in launch_counts().items() if v},
+               paged_shapes=sorted(paged.shapes), rms_shapes=sorted(seen.rms),
+               seconds=wall, tokens_per_s=sum(len(t) for t in toks.values()) / wall,
+               ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
+               decode_steps=sched.stats["decode_steps"],
+               prefill_chunks=sched.stats["prefill_chunks"],
+               preemptions=kv["pressure"]["preemptions"],
+               cow_copies=kv["prefix_cache"]["cow_copies"])
+    if over.get("spec_decode"):
+        out["speculation"] = kv["speculation"]
+    del sched
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_rank_main(argv) -> int:
+    """One of phase 6e's ranks: ``--serve-rank GROUP RANK WORLD STORE OUT``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    group, rank, world, store, out = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT))
+    g = SERVE_MESH_GROUPS[group]
+    mesh = make_host_mesh(model=g["mesh"][1], device=DEV)
+    model, cfg = _serve_mesh_model(g, mesh)
+    for over in g["runs"].values():
+        _serve_mesh_run(model, cfg, mesh, g, over, warm=True)
+    res = {"rank": rank, "runs": {}, "allreduce_ms": _allreduce_ms(cfg)}
+    while not os.path.exists(os.path.join(out, "go")):  # the references first
+        time.sleep(0.05)
+    for label, over in g["runs"].items():
+        record = group == "tinyllama_12" and label == "greedy"
+        session = _serve_mesh_session(world) if record else None
+        res["runs"][label] = _serve_mesh_run(model, cfg, mesh, g, over, session)
+        if record:
+            session.finalize(os.path.join(ROOT, SERVE_MESH_TALP_DIR, cfg.name, "serve_mesh"),
+                             save=rank == 0)
+    torch.save(res, os.path.join(out, f"{group}_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _allreduce_ms(cfg) -> float:
+    """One all-reduce over every rank of a decode step's activations (8 x
+    d fp32 on the card) under gloo, in ms: the mean of
+    SERVE_MESH_COLLECTIVES, after one untimed."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones((SERVE_MESH["batch"], cfg.d_model), dtype=torch.float32, device=DEV)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_MESH_COLLECTIVES):
+        dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / SERVE_MESH_COLLECTIVES
+
+
+def _serve_mesh_launches(g: dict, cfg, ref: dict) -> dict:
+    """A rank's launches: one rank's (the same dispatches), but where a
+    tensor-parallel rank's mamba2 blocks split, their gated norm is torch
+    ops (its mean sums over the ranks): one K1 fewer a mamba2 layer and
+    dispatch (``_split_ssm_launches``)."""
+    want = dict(ref["launches"])
+    n = g["mesh"][1]
+    if cfg.ssm is not None and n > 1 and cfg.ssm.n_heads(cfg.d_model) % n == 0 \
+            and "rmsnorm" in want:  # (the card's count: the CPU launches none)
+        layers = cfg.repeats * cfg.pattern.count("mamba2")
+        want["rmsnorm"] -= layers * (ref["decode_steps"] + ref["prefill_chunks"])
+    return want
+
+
+def _serve_mesh_share(g: dict, cfg, kind: str) -> tuple:
+    """(rows, query heads, pool KV heads) at which a rank of ``g``'s mesh
+    calls a paged kernel: the decode over its rows of the slots (the chunk:
+    one row on every rank), its KV heads and the query heads they serve,
+    or, where the KV heads do not split, every head against the whole
+    pool."""
+    d, n = g["mesh"]
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    rows = g.get("work", SERVE_MESH)["batch"] // d if kind == "decode" else 1
+    return (rows,) + ((hq // n, hkv // n) if hkv % n == 0 else (hq, hkv))
+
+
+def _serve_mesh(failures: list) -> tuple[dict, dict]:
+    """6e: every group's gloo ranks sharing the card (this script's
+    ``--serve-rank`` subprocesses, all started together) against one
+    rank's runs of the same weights in this process: every request's
+    tokens equal, each rank's K3, K4 and K1 launches those of one rank
+    (the same dispatches) at the rank's shapes, rank 0's record passing
+    ``talp validate``. Returns the fields and rank 0's launches of the
+    (1, 2) greedy run (the path of ``cases.PAGED_MESH`` and
+    ``cases.PREFILL_MESH``)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+
+    work = os.path.join(ROOT, "results", "serve_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.join(ROOT, SERVE_MESH_TALP_DIR), ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    for group, g in SERVE_MESH_GROUPS.items():
+        world = g["mesh"][0] * g["mesh"][1]
+        procs += [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-rank", group, str(rk),
+             str(world), os.path.join(work, f"store_{group}"), work],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rk in range(world)]
+    refs: dict = {}
+    logs = []
+    try:
+        t0 = time.perf_counter()
+        for group, g in SERVE_MESH_GROUPS.items():
+            model = cfg = None
+            for label, over in g["runs"].items():
+                key = (g["arch"], label)
+                if key in refs:
+                    continue
+                if model is None:
+                    model, cfg = _serve_mesh_model(g, None)
+                    _serve_mesh_run(model, cfg, None, g, over, warm=True)
+                session = _serve_mesh_session(1) if group == "tinyllama_12" and \
+                    label == "greedy" else None
+                refs[key] = _serve_mesh_run(model, cfg, None, g, over, session)
+                if session is not None:
+                    session.finalize(None, save=False)
+            del model
+            torch.cuda.empty_cache()
+        refs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        open(os.path.join(work, "go"), "w").close()
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        ranks_s = time.perf_counter() - t0
+    finally:
+        for p in procs:  # a hung rank ends here, never outlives the script
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError("serve_mesh: ranks exited " + str([p.returncode for p in procs])
+                             + "\n" + "\n".join(x[-3000:] for x in logs))
+    out, counts = {}, {}
+    for group, g in SERVE_MESH_GROUPS.items():
+        world = g["mesh"][0] * g["mesh"][1]
+        cfg = _arch_cfg(g["arch"], g["repeats"])
+        ranks = [torch.load(os.path.join(work, f"{group}_rank{rk}.pt"), weights_only=False)
+                 for rk in range(world)]
+        row = dict(mesh=g["mesh"], arch=g["arch"], layers=cfg.n_layers,
+                   allreduce_ms=[rk["allreduce_ms"] for rk in ranks], runs={})
+        for label in g["runs"]:
+            ref = refs[(g["arch"], label)]
+            runs = [rk["runs"][label] for rk in ranks]
+            row["runs"][label] = dict(
+                one_rank=dict((k, ref[k]) for k in (
+                    "seconds", "tokens_per_s", "ttft_p50_s", "ttft_max_s", "decode_steps",
+                    "prefill_chunks", "preemptions", "cow_copies", "launches")),
+                ranks=[dict((k, r[k]) for k in ("seconds", "tokens_per_s", "ttft_p50_s",
+                                                "ttft_max_s", "launches", "paged_shapes",
+                                                "rms_shapes")) for r in runs])
+            if "speculation" in ref:
+                row["runs"][label]["speculation"] = ref["speculation"]
+            if "work" not in g and ref["preemptions"] < 1:
+                failures.append(f"{group} {label}: the pool never preempted")
+            for rk, r in enumerate(runs):
+                where = f"{group} {label} rank {rk}"
+                if r["tokens"] != ref["tokens"]:
+                    bad = [i for i in ref["tokens"] if r["tokens"].get(i) != ref["tokens"][i]]
+                    failures.append(f"{where}: tokens of requests {bad} differ from one rank's")
+                want = _serve_mesh_launches(g, cfg, ref)
+                if r["launches"] != want:
+                    failures.append(f"{where}: launches {r['launches']} != {want} (one "
+                                    f"rank's {ref['launches']})")
+                for kind, q, pool in r["paged_shapes"]:
+                    want = _serve_mesh_share(g, cfg, "chunk" if q[0] == 1 and kind == "chunk"
+                                             else "decode")
+                    if (q[0], q[2], pool[2]) != want:
+                        failures.append(f"{where}: {kind} at q {q}, pool {pool}, not the "
+                                        f"rank's (rows, q heads, kv heads) {want}")
+        if group == "tinyllama_12":
+            counts_of = ranks[0]["runs"]["greedy"]["launches"]
+            counts["serve_mesh"] = {k: counts_of.get(k, 0) for k in LAUNCHES}
+        out[group] = row
+    out["seconds"] = dict(references=refs_s, ranks_after_references=ranks_s)
+    cli = _talp_cli("validate", "-i", SERVE_MESH_TALP_DIR)
+    records = _records_under(SERVE_MESH_TALP_DIR)
+    out["record"] = dict(cli_rc=cli["rc"], files=records)
+    if cli["rc"] != 0 or len(records) != 1 or not os.path.basename(records[0]).startswith(
+            "talp_1x2_"):
+        failures.append(f"serve_mesh record: validate rc {cli['rc']}, files {records}: "
+                        f"{cli['stdout'][-500:]} {cli['stderr'][-500:]}")
+    shutil.rmtree(work, ignore_errors=True)
+    return out, counts
+
+
+def _records_under(folder: str) -> list:
+    """The run records under ``folder`` (relative to the repository root)."""
+    found = []
+    for dirpath, _, files in os.walk(os.path.join(ROOT, folder)):
+        found += [os.path.join(dirpath, f) for f in files
+                  if f.startswith("talp_") and f.endswith(".json")]
+    return sorted(found)
+
+
+def phase_serve_mesh() -> dict:
+    """6e: the scheduler on meshes of ranks; returns rank 0's launches of
+    the (1, 2) greedy run (``"serve_mesh"``)."""
+    failures: list = []
+    fields: dict = {}
+    try:  # what ran is printed before a failure ends the phase
+        fields["groups"], counts = _serve_mesh(failures)
+    finally:
+        emit("serve_mesh", **fields, failures=failures, card=_card())
+    if failures:
+        raise AssertionError("serve_mesh: " + "; ".join(failures))
+    return counts
 
 
 def _kernel_entries(prof) -> dict:
@@ -5696,6 +6075,9 @@ def _arch_kernel_rows() -> list:
         rows += [(name, "zamba2_tp", "mesh_ssm", cases.MAIN_FLASH_ZAMBA2_TP),
                  (name, "gemma2_cp_local", "mesh_cp", cases.MAIN_FLASH_CP_LOCAL[1]),
                  (name, "gemma2_cp_global", "mesh_cp", cases.MAIN_FLASH_CP_GLOBAL[1])]
+    # phase 6e (a): a rank of tinyllama's scheduler on (1, 2), 16/2 heads
+    rows += [("paged_attention", "serve_mesh", "serve_mesh", cases.PAGED_MESH),
+             ("paged_prefill_attention", "serve_mesh", "serve_mesh", cases.PREFILL_MESH)]
     rows += [("paged_attention", "zamba2", "zamba2_serve", cases.PAGED_ZAMBA2),
              ("paged_prefill_attention", "zamba2", "zamba2_serve", cases.PREFILL_ZAMBA2),
              ("paged_prefill_attention", "zamba2_verify", "zamba2_spec",
@@ -6207,6 +6589,8 @@ def main() -> int:
         return _mesh_rank_main(sys.argv[2:])
     if sys.argv[1:2] == ["--oneshot-rank"]:
         return _oneshot_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--serve-rank"]:
+        return _serve_rank_main(sys.argv[2:])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv[1:]
@@ -6235,6 +6619,7 @@ def main() -> int:
     train_counts = phase_train(profile)
     mesh_counts = phase_mesh()
     oneshot_counts = phase_oneshot()
+    serve_mesh_counts = phase_serve_mesh()
     phase_dryrun()
     phase_report()
     arch_counts = phase_archs()
@@ -6243,7 +6628,7 @@ def main() -> int:
     rows = phase_timing(main_err, {"serve": serve_counts, "serve_dense": dense_counts,
                                    "serve_load": load_counts, "serve_spec": spec_counts,
                                    "serve_fault": fault_counts, "train": train_counts,
-                                   **mesh_counts, **oneshot_counts,
+                                   **mesh_counts, **oneshot_counts, **serve_mesh_counts,
                                    **arch_counts, **moe_counts, **recurrent_counts})
     emit("timing", rows=len(rows))
     card = _card()

@@ -479,9 +479,11 @@ class CacheSplit:
     axis (``distributed.sharding.cache_pspec_tree``): the KV heads when
     ``n_kv_heads`` divides the axis (``heads``), else the dense cache's
     sequence (``seq``), ``max_len / size`` positions a rank from
-    ``index * max_len / size``. A split mamba2's SSM state is its heads'
-    and its conv state a block of its channels (``"inner"``); the mLSTM and
-    sLSTM state is whole. ``group`` is the ``"model"`` ranks'."""
+    ``index * max_len / size``; a paged pool, whose page axis no rank
+    splits, is then whole on every rank (replicated). A split mamba2's SSM
+    state is its heads' and its conv state a block of its channels
+    (``"inner"``); the mLSTM and sLSTM state is whole. ``group`` is the
+    ``"model"`` ranks'."""
 
     def __init__(self, cfg, mesh):
         self.size = mesh.sizes.get("model", 1)
@@ -565,6 +567,42 @@ def vocab_gather(logits: torch.Tensor, tp) -> torch.Tensor:
 def rows_gather(x: torch.Tensor, ranks: BatchRanks) -> torch.Tensor:
     """The global batch from each rank's rows (``ranks``' groups in order)."""
     return x if ranks.group is None else _gather_dim(x, ranks.group, 0)
+
+
+def any_over(flag: torch.Tensor, tp) -> torch.Tensor:
+    """``flag`` (bool) true where it is true on any of ``tp``'s ranks (the
+    flag itself without ``tp``): a sentinel computed from each rank's
+    vocabulary columns."""
+    return flag if tp is None else tp.max_(flag.to(torch.int32)).bool()
+
+
+def row_broadcast(x: torch.Tensor, ranks: BatchRanks, src: int) -> torch.Tensor:
+    """The ``x`` of the rank at index ``src`` of ``ranks``' group, on every
+    rank of it (the others' ``x``, of the same shape, is not read): a
+    recurrent state row lent by the rank that holds it."""
+    return _all_gather(x, ranks.group)[src]
+
+
+class PoolRows:
+    """The paged write of a step whose rows split over the batch axes: the
+    pool is replicated over them (``cache_pspec_tree``), so every rank
+    writes every rank's rows. ``positions`` (B, S) are the global batch's
+    write positions (a masked entry moved past the table, where
+    ``paged_write`` drops it) and ``tables`` the global block tables; a
+    layer's K/V are all-gathered over ``ranks`` (``kv``) before the write."""
+
+    def __init__(self, ranks: BatchRanks, positions: torch.Tensor, seq_mask, tables):
+        beyond = 2 ** 30   # past any table (max_len < 2**30): a dropped write
+        if seq_mask is not None:
+            positions = torch.where(seq_mask, positions, torch.full_like(positions, beyond))
+        self.ranks = ranks
+        self.positions = rows_gather(positions.contiguous(), ranks)
+        self.tables = tables
+
+    def kv(self, k: torch.Tensor, v: torch.Tensor):
+        """Every rank's rows of a layer's K and V (one all-gather)."""
+        both = rows_gather(torch.cat([k, v], dim=-1).contiguous(), self.ranks)
+        return both.split(k.shape[-1], dim=-1)
 
 
 def cache_block_shape(shape, spec, mesh, spare: bool) -> tuple:

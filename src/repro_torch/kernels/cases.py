@@ -217,9 +217,14 @@ PAGED_DBRX = (4, 48, 8, 128, 16, 128, 520, (700, 1500, 2047, 333), None, None)
 # zamba2-2.7b's serving (batch 4, max_len 2048): MHA (G 1) at head dim 80,
 # which the tensor-core route serves on its DP = 128 instance
 PAGED_ZAMBA2 = (4, 32, 32, 80, 16, 128, 520, (700, 1500, 2047, 333), None, None)
+# tinyllama-1.1b's scheduler on a (1, 2) mesh (chip_smoke.py phase
+# ``serve_mesh``): a rank's 16 of 32 query heads and 2 of 4 KV heads (G 8),
+# its block of the pool (max_len 512: 32 logical pages of 16); the decode
+# over the 8 slots' rows, which the "data" axis of 1 leaves whole
+PAGED_MESH = (8, 16, 2, 64, 16, 32, 160, (97, 160, 223, 288, 75, 130, 201, 310), None, None)
 PAGED_ARCH_CASES = PAGED_ARCH_SMALL + [MAIN_PAGED_GEMMA2, MAIN_PAGED_GEMMA2_GLOBAL,
                                        PAGED_GLM4, PAGED_COMMAND_R, PAGED_QWEN3, PAGED_DBRX,
-                                       PAGED_ZAMBA2]
+                                       PAGED_ZAMBA2, PAGED_MESH]
 
 # K4 (B, C, Hq, Hkv, D, psize, nL, P, starts, window, softcap)
 PREFILL_ARCH_SMALL = [
@@ -247,9 +252,11 @@ PREFILL_DBRX = (1, 64, 48, 8, 128, 16, 128, 140, (1000,), None, None)
 PREFILL_ZAMBA2 = (1, 64, 32, 32, 80, 16, 128, 140, (1000,), None, None)
 PREFILL_ZAMBA2_VERIFY = (4, 5, 32, 32, 80, 16, 128, 520, (700, 1500, 2040, 333), None, None,
                          (5, 3, 1, 0))
+# the same rank's 64-token chunk of one row at 200 (12 * 16 + 8: mid-page)
+PREFILL_MESH = (1, 64, 16, 2, 64, 16, 32, 160, (200,), None, None)
 PREFILL_ARCH_CASES = PREFILL_ARCH_SMALL + [MAIN_PREFILL_GEMMA2, MAIN_PREFILL_GEMMA2_GLOBAL,
                                            PREFILL_GLM4, PREFILL_QWEN3, PREFILL_DBRX,
-                                           PREFILL_ZAMBA2, PREFILL_ZAMBA2_VERIFY]
+                                           PREFILL_ZAMBA2, PREFILL_ZAMBA2_VERIFY, PREFILL_MESH]
 
 # K1 (rows, d, zero_centred) on the new paths: gemma2's zero-centred norm
 # at 2304 (a decode step, a chunk, the training step's 8192 rows), glm4 and

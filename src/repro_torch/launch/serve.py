@@ -31,11 +31,25 @@ the completed count, ticks, decode steps, prefill chunks, the traffic,
 KV, prefix-cache, pressure, speculation and recovery lines, each
 kernel's launch count, and where the TALP run record (regions ``decode``, ``prefill``,
 ``preempt``, ``traffic``) was written.
+
+Under ``torchrun`` (``WORLD_SIZE`` above 1; ``nccl`` on the card,
+``gloo`` on the CPU) it serves on a ``(world, 1)`` mesh of ranks, every
+device on ``"data"`` as JAX's launcher's ``make_host_mesh()`` puts them:
+every rank holds the whole weights and runs the same scheduler, the
+decode and verify rows split over the ranks (``serve.BatchScheduler``'s
+``mesh``); rank 0 prints and writes ``talp_1x<world>_*.json``:
+
+    torchrun --nproc_per_node 2 -m repro_torch.launch.serve --device cpu \
+        --smoke --arch tinyllama-1.1b
+
+``--dense`` on a mesh of more than one rank raises: the dense layout's
+scheduler on a mesh is not ported (ROADMAP item 8b-iv).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None) -> int:
@@ -121,9 +135,13 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    import torch.distributed as dist
+
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.core.records import ResourceConfig
+    from repro_torch.device import resolve_device
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve.serve import BatchScheduler, ServeConfig
     from repro_torch.session import PerfSession, SessionConfig
@@ -131,11 +149,23 @@ def main(argv=None) -> int:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
-    model = Transformer.from_init(cfg, seed=0, device=args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not args.paged:
+        raise ValueError("--dense on a mesh of ranks: the dense layout's scheduler on a "
+                         "mesh is not ported (ROADMAP item 8b-iv); serve the paged layout")
+    if world > 1 and not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if resolve_device(args.device).type == "cuda" else "gloo")
+    # JAX's launcher: every device on "data" (make_host_mesh()), the
+    # parameters unplaced; here every rank holds the whole weights and the
+    # slots' rows split over "data"
+    mesh = make_host_mesh(device=args.device)
+    rank0 = mesh.rank == 0
+    model = Transformer.from_init(cfg, seed=0, device=mesh.device)
     session = PerfSession(
         SessionConfig(app_name=f"serve-{args.arch}", backend="monitor",
                       lb_sample_every=1),
-        ResourceConfig(num_hosts=1, devices_per_host=1),
+        ResourceConfig(num_hosts=1, devices_per_host=mesh.devices.size),
     )
     rng = np.random.default_rng(0)
     injector = None
@@ -162,7 +192,7 @@ def main(argv=None) -> int:
             checksum_pages=args.checksum_pages, shed_queue_depth=args.shed_queue_depth,
             spec_decode=args.spec, spec_k=args.spec_k,
             spec_min_match=args.spec_min_match,
-        ), session=session, fault_injector=injector)
+        ), session=session, fault_injector=injector, mesh=mesh)
         if args.arrival:
             # open-loop traffic: arrivals, lengths, priorities and cancels
             # are a pure function of the seeded TrafficConfig
@@ -194,6 +224,12 @@ def main(argv=None) -> int:
                 sched.step()
                 steps += 1
             sched.drain()
+    session.finalize(args.talp_out or None, save=rank0)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if not rank0:
+        return 0
+    print(f"[serve] mesh {mesh.sizes} over {mesh.devices.size} rank(s)")
     print(f"[serve] device {model.device}; completed {len(sched.completed)}/"
           f"{args.requests} requests in {steps} ticks "
           f"({sched.stats['decode_steps']} decode steps, "
@@ -249,7 +285,6 @@ def main(argv=None) -> int:
     route = "kernel launches" if model.device.type == "cuda" else \
         "kernel launches (0 on the CPU: plain versions ran)"
     print(f"[serve] {route}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
-    session.finalize(args.talp_out or None)
     if session.last_record_path:
         print(f"[serve] TALP record: {session.last_record_path}")
     elif args.talp_out:

@@ -229,7 +229,7 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
                     cache_len, block_tables, seq_mask=None, causal: bool = True,
                     window: int | None = None, cache_row0: int = 0,
                     tp=None, cp=None, kv=None, cache_attend: bool = True,
-                    whole: bool = False) -> torch.Tensor:
+                    whole: bool = False, pool_rows=None) -> torch.Tensor:
     """The JAX ``attention_block``'s branches.
 
     ``cache`` None (training, full-sequence forward): project, rotate and
@@ -278,7 +278,18 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
     decode step attends every query head against its block at the block's
     true positions, returning the LSE, and the ranks combine
     (``distributed.shard.merge_partials``); under ``tp`` each rank then
-    keeps its query heads for the row-parallel out-projection."""
+    keeps its query heads for the row-parallel out-projection.
+
+    On the paged layout over a mesh (the scheduler's steps) the pool is
+    this rank's block: with ``kv.heads`` its KV heads, which the rank
+    writes and reads, so the kernels run at ``Hq/n``, ``Hkv/n``; without
+    (a pool that every ``"model"`` rank holds whole) every rank writes
+    every KV head, gathers the query heads (``kv.head_gather``), attends
+    all of them against the whole pool and keeps its own for ``wo``. With
+    ``pool_rows`` (``distributed.shard.PoolRows``: the step's rows split
+    over the batch axes, over which the pool is replicated) the write takes
+    every rank's rows, at their positions through the global tables, and
+    ``block_tables`` are the rank's rows' for the read."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     kv_of_q = None
     k_positions = positions
@@ -286,7 +297,7 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
     S_in = x.shape[1]
     if tp is not None:
         assert cache is None or kv is not None or tp.size == 1, \
-            "tensor-parallel attention over a cache needs its placement"
+            "tensor-parallel attention over a cache needs its placement (lc.kv)"
         x = tp.seq_gather(x)
         params, hq, hkv, kv_of_q = _rank_heads(params, cfg, tp, whole)
     if cp is not None:
@@ -294,11 +305,13 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
         positions = cp.local(positions)
     B, S, _ = x.shape
     compute = cfg.compute_dtype
-    seq_split = kv is not None and kv.seq and cache is not None
+    paged = cache is not None and "k_pages" in cache
+    seq_split = kv is not None and kv.seq and cache is not None and not paged
+    replicated = paged and kv is not None and not kv.heads and tp is not None
     q, k, v = (_project(params, x, cfg, positions, n, w)
                for n, w in ((hq, "q"), (hkv, "k"), (hkv, "v")))
     k_all, v_all = k, v
-    if seq_split and tp is not None:  # every kv head, for the rank's block
+    if (seq_split or replicated) and tp is not None:  # every kv head, for the rank's block
         k_all, v_all = (_project(leaves, x, cfg, positions, cfg.n_kv_heads, w) for w in "kv")
 
     if kv_of_q is not None:  # one kv head a query head
@@ -309,11 +322,17 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
     if cache is None:
         o = flash_attention(q, k, v, q_positions=positions, k_positions=k_positions,
                             causal=causal, window=window, softcap=cfg.attn_softcap)
-    elif "k_pages" in cache:
+    elif paged:
         k_pool, v_pool = cache["k_pages"], cache["v_pages"]
-        paged_write(k_pool, k, positions, block_tables, seq_mask)
-        paged_write(v_pool, v, positions, block_tables, seq_mask)
+        kw, vw, wpos, wtables, wmask = k_all, v_all, positions, block_tables, seq_mask
+        if pool_rows is not None:  # every rank's rows into the replicated pool
+            kw, vw = pool_rows.kv(kw, vw)
+            wpos, wtables, wmask = pool_rows.positions, pool_rows.tables, None
+        paged_write(k_pool, kw, wpos, wtables, wmask)
+        paged_write(v_pool, vw, wpos, wtables, wmask)
         k_read, v_read = k_pool[:-1], v_pool[:-1]
+        if replicated:
+            q = kv.head_gather(q)
         if S == 1:
             o = paged_attention(
                 q, k_read, v_read, block_tables, q_position=positions[:, 0],
@@ -325,6 +344,8 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions, cache,
                 cache_len=cache_len, causal=causal, window=window,
                 softcap=cfg.attn_softcap,
             )
+        if replicated:
+            o = o[:, :, tp.part(cfg.n_heads)]
     elif not cache_attend:  # one-shot prefill: attend the chunk, copy K/V in
         k_cache, v_cache = cache["k"], cache["v"]
         off = 0 if kv is None else kv.offset(k_cache.shape[1])

@@ -218,16 +218,17 @@ def mamba2_block(params, x, cfg, cache=None, seq_mask=None, tp=None):
     (``MAMBA2_SPLIT_LEAVES``). Under ``RowParallel`` (a decode step) ``x``
     is whole and the partial sums are all-reduced.
 
-    With ``tp`` and a cache (the serving steps on a mesh; no ``seq_mask``)
-    the SSM state is the rank's heads' and the conv state the rank's block
-    of the conv channels (JAX's ``"inner"``), which is not the channels its
-    heads read: the blocks are all-gathered (B, K-1, C), the rank's
-    channels feed its conv, and the new state of every channel, the last
-    K-1 conv inputs (``x``'s last rows times ``in_proj``'s conv columns),
-    is cut back to the rank's block."""
+    With ``tp`` and a cache (the serving steps on a mesh) the SSM state is
+    the rank's heads' and the conv state the rank's block of the conv
+    channels (JAX's ``"inner"``), which is not the channels its heads
+    read: the blocks are all-gathered (B, K-1, C), the rank's channels feed
+    its conv, and the new state of every channel, the last K-1 conv inputs
+    up to each row's valid end (``x``'s rows times ``in_proj``'s conv
+    columns; with ``seq_mask`` the rows ending at each row's last valid
+    position, as ``causal_conv1d`` carries them), is cut back to the
+    rank's block."""
     s = cfg.ssm
     if tp is not None:
-        assert cache is None or seq_mask is None, "a split mamba2 over a cache takes no mask"
         x = tp.seq_gather(x)
     Bsz, S, d = x.shape
     d_inner = s.d_inner(d)
@@ -298,9 +299,14 @@ def mamba2_block(params, x, cfg, cache=None, seq_mask=None, tp=None):
         if cache is None:
             return out, None
         K = params["conv_w"].shape[0]
-        tail = x[:, S - min(S, K - 1):] @ \
-            params["in_proj"][:, d_inner:2 * d_inner + 2 * g * n].to(compute)
-        full = torch.cat([conv_full.to(tail.dtype), tail], dim=1)[:, -(K - 1):]
+        w_conv = params["in_proj"][:, d_inner:2 * d_inner + 2 * g * n].to(compute)
+        if seq_mask is None:
+            tail = x[:, S - min(S, K - 1):] @ w_conv
+            full = torch.cat([conv_full.to(tail.dtype), tail], dim=1)[:, -(K - 1):]
+        else:  # each row's last K-1 inputs up to its valid end
+            xp = torch.cat([conv_full.to(compute), x @ w_conv], dim=1)
+            idx = seq_mask.sum(dim=1).long()[:, None] + torch.arange(K - 1, device=x.device)
+            full = torch.gather(xp, 1, idx[:, :, None].expand(-1, -1, xp.shape[-1]))
         new_conv = full[..., tp.part(full.shape[-1])]
         return out, {"conv": new_conv.to(cache["conv"].dtype), "ssm": new_ssm}
     new_state = None

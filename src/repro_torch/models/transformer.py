@@ -32,7 +32,8 @@ both. An encoder-only model (bidirectional attention) has ``forward`` and
 
 On a mesh of ranks the serving entry points take a ``LogicalConstraints``
 that says how the rank splits the step and holds its cache blocks
-(``serve.serve.make_prefill_step`` builds it).
+(``serve.serve.serve_constraints`` builds it, for the one-shot steps and
+the scheduler's).
 """
 
 from __future__ import annotations
@@ -423,7 +424,7 @@ class Transformer(nn.Module):
 
     def _apply_slot(self, sp: dict, x, *, kind, positions, cache, cache_len, seq_mask,
                     block_tables, cache_row0=0, commit_state=True, cache_attend=True,
-                    lc: LogicalConstraints = NULL_CONSTRAINTS):
+                    lc: LogicalConstraints = NULL_CONSTRAINTS, pool_rows=None):
         """One block: pre-norm attention (over the last ``cfg.window`` keys
         for ``local_attn``; bidirectional for an encoder-only model) +
         pre-norm MLP (the MoE FFN for ``moe``), or a pre-norm recurrent
@@ -440,7 +441,8 @@ class Transformer(nn.Module):
         the rank's heads (``R.mamba2_splits``); any other recurrent block
         runs on the all-gathered rows and keeps its part. With ``lc.kv``
         the caches are the rank's blocks (``layers.attention``,
-        ``R.mamba2_block``)."""
+        ``R.mamba2_block``); ``pool_rows`` goes to the attention's paged
+        write (``layers.attention``)."""
         cfg, tp, seq = self.cfg, lc.tp, lc.seq
         if kind in R.CACHE_KEYS:
             if kind == "mamba2" and R.mamba2_splits(cfg, tp):
@@ -468,7 +470,7 @@ class Transformer(nn.Module):
             causal=not cfg.encoder_only,
             window=cfg.window if kind == "local_attn" else None, cache_row0=cache_row0,
             tp=tp if tp is not None else lc.attn_tp, cp=lc.cp, kv=lc.kv,
-            cache_attend=cache_attend, whole=tp is None,
+            cache_attend=cache_attend, whole=tp is None, pool_rows=pool_rows,
         )
         h2 = rmsnorm(x, sp["norm_mlp"]["scale"], cfg.norm_eps, cfg.zero_centered_norm)
         if kind == "moe":
@@ -539,7 +541,7 @@ class Transformer(nn.Module):
 
     def _run_stack(self, x, caches, *, positions, cache_len, seq_mask,
                    block_tables, cache_row0=0, commit_state=True, cache_attend=True,
-                   lc: LogicalConstraints = NULL_CONSTRAINTS):
+                   lc: LogicalConstraints = NULL_CONSTRAINTS, pool_rows=None):
         """Pattern x repeats. Each stacked leaf is unbound over repeats once
         (views; the backward stacks the per-layer gradients in one op
         rather than scattering into the stacked leaf once per layer). With
@@ -570,7 +572,7 @@ class Transformer(nn.Module):
                           cache_len=cache_len,
                           seq_mask=seq_mask, block_tables=block_tables,
                           cache_row0=cache_row0, commit_state=commit_state,
-                          cache_attend=cache_attend, lc=lc)
+                          cache_attend=cache_attend, lc=lc, pool_rows=pool_rows)
                 fn = self._apply_slot
                 if self.gathers:
                     fn = functools.partial(self._gathered_slot, name)
@@ -760,10 +762,25 @@ class Transformer(nn.Module):
         x = self._final_norm(self._last_row(x, lc), lc)
         return self._logits(x, self._head(lc))[:, 0]
 
+    @staticmethod
+    def _pool_rows(positions, seq_mask, block_tables, lc: LogicalConstraints):
+        """(the paged write's ``PoolRows`` or None, the tables the rank
+        reads): where ``lc.ranks`` splits the rows over the batch axes,
+        ``block_tables`` are the global batch's; the rank reads its rows'
+        and writes every rank's (``distributed.shard.PoolRows``)."""
+        rk = lc.ranks
+        if block_tables is None or rk is None or rk.group is None:
+            return None, block_tables
+        from repro_torch.distributed.shard import PoolRows
+
+        return (PoolRows(rk, positions, seq_mask, block_tables),
+                block_tables[rk.rows(block_tables.shape[0])])
+
     @torch.inference_mode()
     def prefill_chunk(self, tokens, caches, start, length, block_tables=None,
                       all_logits: bool = False, slot: int = 0,
-                      commit_state: bool = True):
+                      commit_state: bool = True,
+                      lc: LogicalConstraints = NULL_CONSTRAINTS):
         """One chunk of an incremental prefill: ``tokens`` (B,C) at positions
         ``start .. start+C``; ``length`` () or (B,) valid tokens (the rest is
         padding that writes nothing and advances no state). Writes the
@@ -774,23 +791,36 @@ class Transformer(nn.Module):
         both layouts. ``commit_state=False`` reads the recurrent state and
         leaves it as it was (the speculative verify's scoring pass; the
         attention writes still land). Returns logits (B,V) at each row's
-        last valid position, or (B,C,V) with ``all_logits``."""
+        last valid position, or (B,C,V) with ``all_logits``.
+
+        On a mesh, ``lc`` (``serve.serve.serve_constraints``, mode
+        ``"chunk"``; paged layout): ``tokens``, ``start`` and ``length`` are
+        the rank's rows, ``block_tables`` the global batch's where the rows
+        split (``_pool_rows``), and ``caches`` its blocks; under
+        ``TensorParallel`` each rank runs its part of the chunk's sequence,
+        under ``RowParallel`` the whole of it, and the logits are the
+        rank's vocabulary columns (...,V/n)."""
         self._no_cache("prefill_chunk")
-        x = self._embed_inputs(tokens)
-        B, C, _ = x.shape
+        B, C = tokens.shape
+        x = self._embed_inputs(tokens, lc=lc)
         start = self._per_row(start, B)
         length = self._per_row(length, B)
         offs = torch.arange(C, dtype=torch.int32, device=self.device)[None, :]
         seq_mask = offs < length[:, None]
         positions = start[:, None] + offs
+        pool_rows, block_tables = self._pool_rows(positions, seq_mask, block_tables, lc)
         x, _ = self._run_stack(x, caches, positions=positions, cache_len=start + length,
                                seq_mask=seq_mask, block_tables=block_tables,
-                               cache_row0=slot, commit_state=commit_state)
-        x = self._final_norm(x)
+                               cache_row0=slot, commit_state=commit_state, lc=lc,
+                               pool_rows=pool_rows)
+        x = self._final_norm(x, lc)
+        if lc.seq is not None:
+            x = lc.seq.seq_gather(x)
+        head = self._head(lc)
         if all_logits:
-            return self._logits(x)
+            return self._logits(x, head)
         idx = (length - 1).clamp(min=0).long()[:, None, None].expand(B, 1, x.shape[-1])
-        return self._logits(torch.gather(x, 1, idx))[:, 0]
+        return self._logits(torch.gather(x, 1, idx), head)[:, 0]
 
     @torch.inference_mode()
     def decode_step(self, tokens, pos, caches, active=None, block_tables=None,
@@ -799,10 +829,12 @@ class Transformer(nn.Module):
         ``active`` (B,) bool: inactive slots write nothing. ``block_tables``
         (B,nL) on the paged layout, None on the dense one (cache rows
         0..B-1); recurrent state in rows 0..B-1. Returns (B,V). On a mesh,
-        ``lc`` (``serve.serve.make_decode_step``): ``tokens`` and ``pos``
-        are the rank's rows and ``caches`` its dense blocks; under
-        ``lc.tp`` (``RowParallel``) the logits are the rank's vocabulary
-        columns (B,V/n)."""
+        ``lc`` (``serve.serve.serve_constraints``): ``tokens``, ``pos`` and
+        ``active`` are the rank's rows and ``caches`` its blocks, dense
+        (``make_decode_step``) or paged (the scheduler; ``block_tables``
+        then the global batch's where the rows split, ``_pool_rows``);
+        under ``lc.tp`` (``RowParallel``) the logits are the rank's
+        vocabulary columns (B,V/n)."""
         self._no_cache("decode_step")
         x = self._embed_inputs(tokens, lc=lc)
         B = x.shape[0]
@@ -810,6 +842,8 @@ class Transformer(nn.Module):
         positions = pos.reshape(B, 1)
         seq_mask = None if active is None else active.to(
             self.device, non_blocking=True).reshape(B, 1)
+        pool_rows, block_tables = self._pool_rows(positions, seq_mask, block_tables, lc)
         x, _ = self._run_stack(x, caches, positions=positions, cache_len=pos + 1,
-                               seq_mask=seq_mask, block_tables=block_tables, lc=lc)
+                               seq_mask=seq_mask, block_tables=block_tables, lc=lc,
+                               pool_rows=pool_rows)
         return self._logits(self._final_norm(x, lc), self._head(lc))[:, 0]

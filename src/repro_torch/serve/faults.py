@@ -168,7 +168,9 @@ def page_edit(caches, pages, mode: str) -> None:
     pool, in place: ``nan`` fills them with NaN, ``zero`` with 0 (the
     scrub), ``bitflip`` XORs every element's bits with 0x5A5A (bf16) or
     0x5A5A5A5A (fp32), which leaves most values finite. Queued on the
-    pools' stream: no host sync."""
+    pools' stream: no host sync. On a mesh of ranks each rank edits its
+    block of the pools (its KV heads, or the whole pool where they do not
+    split), so the ranks' edits together are the whole page's."""
     if mode not in ("nan", "zero", "bitflip"):
         raise ValueError(f"page edit mode must be nan|zero|bitflip, got {mode!r}")
     pages = [pages] if isinstance(pages, int) else [int(p) for p in pages]
@@ -184,19 +186,26 @@ def page_edit(caches, pages, mode: str) -> None:
         pool.index_fill_(1, idx, float("nan") if mode == "nan" else 0.0)
 
 
-def page_fingerprint(caches, page: int) -> int:
+def page_fingerprint(caches, page: int, split=None) -> int:
     """The JAX package's uint32 fingerprint of physical ``page``: its bits
     as unsigned integers, summed over every paged pool with wraparound.
     CUDA has no unsigned 32-bit sum, so each element's bits are widened to
     int64, masked to their width, summed, and the total masked to 32 bits.
-    One host sync (the result is a Python int)."""
+    With ``split`` (``distributed.shard.CacheSplit`` whose KV heads split
+    over ``"model"``) the pools are this rank's blocks: their int64 partial
+    is summed over the ``"model"`` ranks before the mask, so every rank
+    gets JAX's integer. One host sync (the result is a Python int)."""
     acc = None
     for pool in paged_pools(caches):
         es = pool.element_size()
         bits = _page_rows(pool, page).view(_INT[es]).to(torch.int64) & ((1 << (8 * es)) - 1)
         s = bits.sum()
         acc = s if acc is None else acc + s
-    return 0 if acc is None else int(acc) & 0xFFFFFFFF
+    if acc is None:
+        return 0
+    if split is not None:
+        acc = split.all_reduce(acc.reshape(1))
+    return int(acc.sum()) & 0xFFFFFFFF
 
 
 __all__ = ["FaultConfig", "FaultEvent", "FaultInjector", "generate_faults",

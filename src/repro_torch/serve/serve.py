@@ -79,7 +79,14 @@ What the port keeps of the JAX scheduler, with its semantics:
   arch's matched pages but skips no prefill (the state must advance over
   every prompt token); preemption and retry resume over every token; and
   the speculative verify runs in two passes, the scoring pass leaving the
-  state as it was and a commit pass over the accepted tokens advancing it.
+  state as it was and a commit pass over the accepted tokens advancing it;
+* a mesh of ranks (``BatchScheduler(..., mesh=)``, the paged layout):
+  every rank runs the same scheduler and takes the same host decisions;
+  the caches are each rank's blocks under ``cache_pspec_tree``; the
+  decode and verify rows split over the batch axes (each layer's K/V
+  all-gathered for the pool, which is replicated there), a chunk runs on
+  every rank, and each step runs its ``"model"`` share
+  (``serve_constraints``); tokens and sentinels come back to every rank.
 
 The KV caches are written in place (``layers.attention.paged_write`` and
 ``dense_write``), not returned anew as in the JAX package. Everything runs
@@ -100,7 +107,16 @@ import torch
 
 from repro_torch.serve import faults as F
 from repro_torch import prng
+from repro_torch.distributed.shard import (
+    any_over,
+    row_broadcast,
+    rows_gather,
+    vocab_argmax,
+    vocab_gather,
+)
 from repro_torch.distributed.sharding import cache_pspec_tree  # noqa: F401  (re-exported)
+from repro_torch.layers.common import NULL_CONSTRAINTS
+from repro_torch.models.transformer import init_cache
 from repro_torch.serve.spec import draft_tokens
 from repro_torch.session import PerfSession, SessionConfig
 
@@ -576,12 +592,39 @@ class BatchScheduler:
     this scheduler visits; None builds a null session (``TALP_ENABLE``
     can still turn it on). The caller owns ``finalize``.
     ``fault_injector``: a ``serve.faults.FaultInjector`` polled once a
-    tick, or None."""
+    tick, or None.
 
-    def __init__(self, model, scfg: ServeConfig, session=None, fault_injector=None):
+    ``mesh``: the mesh of ranks the scheduler runs on (``launch.mesh
+    .make_host_mesh``); by default the model's (``Transformer(...,
+    mesh=)``, each rank holding its blocks of the weights). A model with
+    whole weights on every rank (no mesh of its own, as JAX's serve
+    launcher's unplaced parameters) takes a mesh whose ``"model"`` axis is
+    1. Every rank runs the same scheduler and takes the same host
+    decisions (admission, pages, the trie, preemption, drafts: they read
+    only tokens that every rank holds); the steps split as
+    ``serve_constraints`` says (decode and verify rows over the batch
+    axes, their pool writes reaching every rank; a chunk on every rank;
+    the ``"model"`` share of each), on the paged layout: the dense
+    layout's scheduler on a mesh is not ported and raises."""
+
+    def __init__(self, model, scfg: ServeConfig, session=None, fault_injector=None,
+                 mesh=None):
         self.model, self.cfg, self.scfg = model, model.cfg, scfg
         self.device = model.device
+        if mesh is None:
+            mesh = model.mesh
+        elif model.mesh is not mesh and (model.mesh is not None
+                                         or mesh.sizes.get("model", 1) > 1):
+            raise ValueError(
+                "the scheduler's mesh is the model's: a model with whole weights "
+                "runs on a mesh whose 'model' axis is 1")
+        self.mesh = mesh
         cfg = self.cfg
+        if self.mesh is not None and self.mesh.distributed and self.mesh.devices.size > 1 \
+                and not scfg.paged:
+            raise ValueError(
+                "the dense layout's scheduler on a mesh of ranks is not ported "
+                "(ROADMAP item 8b-iv): serve a mesh on the paged layout")
         # the chunked recurrences re-chunk internally at the ssm/xlstm chunk:
         # a prefill chunk, and the verify chunk, larger than that must tile it
         inners = [c.chunk for c in (cfg.ssm, cfg.xlstm) if c is not None]
@@ -613,20 +656,31 @@ class BatchScheduler:
         # verify runs in two passes so it advances over accepted tokens only
         self._has_recurrent = any(k in ("mamba2", "mlstm", "slstm") for k in cfg.pattern)
         self._dirty: set[int] = set()     # slots whose state may be non-fresh
+        # each step's split over the mesh, built once (as JAX builds its
+        # constraints once a step function); NULL_CONSTRAINTS without one
+        self._lc = {
+            "decode": serve_constraints(model, self.mesh, scfg.batch, "decode"),
+            "chunk": serve_constraints(model, self.mesh, 1, "chunk", scfg.prefill_chunk),
+            "verify": serve_constraints(model, self.mesh, scfg.batch, "chunk",
+                                        scfg.spec_k + 1),
+        }
+        kv = self._lc["decode"].kv
+        self._kv_heads = kv if kv is not None and kv.heads else None
+        n_dev = 1 if self.mesh is None else self.mesh.devices.size
         # observe the sampled tokens only: the caches are written in place
         # and never leave the card
         self.decode = self.session.wrap_step(
-            self._decode_step, region="decode", derive=True,
+            self._decode_step, region="decode", derive=True, num_devices=n_dev,
             observe=lambda out: {"outputs": out[0]})
         self.prefill = self.session.wrap_step(
-            self._prefill_step, region="prefill", derive=True,
+            self._prefill_step, region="prefill", derive=True, num_devices=n_dev,
             observe=lambda out: {"outputs": out[0]})
         # the batched verify shares the decode region: a speculative tick is
         # the decode tick, spec_k+1 tokens wide
         self.verify = None
         if scfg.spec_decode:
             self.verify = self.session.wrap_step(
-                self._verify_step, region="decode", derive=True,
+                self._verify_step, region="decode", derive=True, num_devices=n_dev,
                 observe=lambda out: {"outputs": out[0]})
         self._sample = functools.partial(
             _sample_tokens, greedy=scfg.greedy, temperature=scfg.temperature,
@@ -647,8 +701,12 @@ class BatchScheduler:
             self._tables = np.full((scfg.batch, self._max_pages), -1, np.int32)
             self._tables_dirty = True
             self._tables_dev = None
-            self.caches = model.init_cache(scfg.batch, scfg.max_len,
-                                           page_size=scfg.page_size, num_pages=n_pages)
+            # this rank's blocks on the scheduler's mesh (the model's, or
+            # the one given beside a model with whole weights)
+            model._no_cache("init_cache")
+            self.caches = init_cache(model.cfg, scfg.batch, scfg.max_len,
+                                     page_size=scfg.page_size, num_pages=n_pages,
+                                     device=self.device, mesh=self.mesh)
         else:
             self._alloc = None
             self._prefix = None
@@ -720,30 +778,91 @@ class BatchScheduler:
 
     # -- the dispatched steps (wrapped by the session) ----------------------
 
-    def _poison_and_sample(self, logits, fault_mask, keys, pos):
+    def _pick(self, logits, keys, pos, lc=NULL_CONSTRAINTS):
+        """The next tokens of the rank's rows from their logits (under
+        ``lc.tp`` the rank's vocabulary columns): greedy, the argmax across
+        the vocabulary's ranks (``vocab_argmax``); sampled, the whole rows
+        gathered (``vocab_gather``) and the same draw on every rank, from
+        the same keys."""
+        if self.scfg.greedy:
+            return vocab_argmax(logits, lc.tp).to(torch.int32)
+        return self._sample(vocab_gather(logits, lc.tp), keys, pos)
+
+    def _poison_and_sample(self, logits, fault_mask, keys, pos, lc=NULL_CONSTRAINTS):
         """NaN into the masked rows' logits (a select: an all-False mask
         changes nothing), the sentinel ``bad`` (N,) = any non-finite logit
-        in the row, computed on the device, and the sampled tokens."""
+        in the row (on any of the vocabulary's ranks), computed on the
+        device, and the sampled tokens."""
         logits = torch.where(fault_mask[:, None], torch.full((), float("nan"),
                              dtype=logits.dtype, device=logits.device), logits)
-        bad = ~torch.isfinite(logits).all(dim=-1)
-        return self._sample(logits, keys, pos), bad
+        bad = any_over(~torch.isfinite(logits).all(dim=-1), lc.tp)
+        return self._pick(logits, keys, pos, lc), bad
 
     def _decode_step(self, tokens, pos, active, tables, keys, fault_mask):
-        """One token a slot; returns (tokens (B,1), bad (B,))."""
-        logits = self.model.decode_step(tokens, pos, self.caches, active=active,
-                                        block_tables=tables)
-        tok, bad = self._poison_and_sample(logits, fault_mask, keys, pos)
-        return tok[:, None], bad
+        """One token a slot; returns (tokens (B,1), bad (B,)). On a mesh of
+        ranks each rank runs its rows (``_lc["decode"]``), writes every
+        rank's K/V into its pool block and gathers every row's token."""
+        lc = self._lc["decode"]
+        r = _rows(lc, self.scfg.batch)
+        logits = self.model.decode_step(tokens[r], pos[r], self.caches, active=active[r],
+                                        block_tables=tables, lc=lc)
+        tok, bad = self._poison_and_sample(logits, fault_mask[r], keys[r], pos[r], lc)
+        return _all_rows(tok[:, None], lc), _all_rows(bad, lc)
 
     def _prefill_step(self, chunk, start, length, tables, keys, slot):
         """One chunk at ``start`` into ``slot`` (its table row when paged,
         its cache row when dense); samples at its last valid position.
-        Returns (token (1,), bad (1,))."""
-        logits = self.model.prefill_chunk(chunk, self.caches, start, length, tables,
-                                          slot=slot)
-        bad = ~torch.isfinite(logits).all(dim=-1)
-        return self._sample(logits, keys, start + length - 1), bad
+        Returns (token (1,), bad (1,)). On a mesh every rank runs the chunk
+        (one row does not split over the batch axes), split over
+        ``"model"`` as ``_lc["chunk"]`` says, on the slot's recurrent rows
+        lent by the rank that holds them (``_chunk_caches``)."""
+        lc = self._lc["chunk"]
+        caches, row, lent = self._chunk_caches(slot)
+        logits = self.model.prefill_chunk(chunk, caches, start, length, tables,
+                                          slot=row, lc=lc)
+        if lent is not None:
+            self._take_back(*lent)
+        bad = any_over(~torch.isfinite(logits).all(dim=-1), lc.tp)
+        return self._pick(logits, keys, start + length - 1, lc), bad
+
+    def _chunk_caches(self, slot: int):
+        """(caches, row, lent) for a chunk of ``slot``: the scheduler's
+        caches and ``slot`` itself, unless the rows split over the batch
+        axes and the arch carries recurrent state. Then a rank holds its
+        rows' state alone (``cache_pspec_tree``) while every rank runs the
+        chunk: the holder lends the slot's rows to every rank
+        (``row_broadcast``), the chunk runs on them as row 0, and the holder
+        gets ``lent`` (``_take_back``'s arguments) to keep the new state."""
+        rk = self._lc["decode"].ranks
+        if not self._has_recurrent or rk is None or rk.group is None:
+            return self.caches, slot, None
+        owner, row = divmod(slot, self.scfg.batch // rk.shards)
+        caches, rows = {}, {}
+        for name, c in self.caches.items():
+            if "attn" in c:
+                caches[name] = c
+                continue
+            (key, leaves), = c.items()
+            rows[name] = {k: row_broadcast(v[:, row:row + 1], rk, owner)
+                          for k, v in leaves.items()}
+            caches[name] = {key: rows[name]}
+        return caches, 0, ((rows, row) if rk.index == owner else None)
+
+    def _take_back(self, rows: dict, row: int) -> None:
+        for name, leaves in rows.items():
+            (_, held), = self.caches[name].items()
+            for k, v in leaves.items():
+                held[k][:, row:row + 1].copy_(v)
+
+    def _held_rows(self, slots: list[int]) -> list[int]:
+        """The rows of this rank's recurrent state that hold ``slots``
+        (those of them it holds): the slots themselves unless the rows
+        split over the batch axes."""
+        rk = self._lc["decode"].ranks
+        if rk is None or rk.group is None:
+            return list(slots)
+        per = self.scfg.batch // rk.shards
+        return [s - rk.index * per for s in slots if s // per == rk.index]
 
     def _verify_step(self, tokens, start, length, tables, keys, fault_mask):
         """The batched speculative verify: row b is ``[last token, drafts..]``
@@ -760,27 +879,34 @@ class BatchScheduler:
         the state as it was, and a second ``prefill_chunk`` over the same
         tokens, clamped to ``min(accept + 1, length)``, writes it: the state
         advances over exactly the accepted tokens, and the attention K/V of
-        those positions is rewritten with the same values."""
+        those positions is rewritten with the same values.
+
+        On a mesh each rank runs its rows (``_lc["verify"]``) and gathers
+        every row's outputs, accept counts and sentinels."""
+        lc = self._lc["verify"]
+        r = _rows(lc, tokens.shape[0])
+        tokens, start, length, keys = tokens[r], start[r], length[r], keys[r]
         B, C = tokens.shape
         logits = self.model.prefill_chunk(tokens, self.caches, start, length, tables,
                                           all_logits=True,
-                                          commit_state=not self._has_recurrent)  # (B,C,V)
-        logits = torch.where(fault_mask[:, None, None], torch.full(
+                                          commit_state=not self._has_recurrent,
+                                          lc=lc)  # (B,C,V)
+        logits = torch.where(fault_mask[r][:, None, None], torch.full(
             (), float("nan"), dtype=logits.dtype, device=logits.device), logits)
         offs = torch.arange(C, dtype=torch.int32, device=tokens.device)[None, :]
         valid = offs < length[:, None]
-        bad = (~torch.isfinite(logits).all(dim=-1) & valid).any(dim=1)
+        bad = any_over((~torch.isfinite(logits).all(dim=-1) & valid).any(dim=1), lc.tp)
         positions = start[:, None] + offs
         if not self.scfg.greedy:
             keys = keys.repeat_interleave(C, dim=0)
-        out = self._sample(logits.reshape(B * C, -1), keys,
-                           positions.reshape(-1)).reshape(B, C)
+        out = self._pick(logits.reshape(B * C, -1), keys, positions.reshape(-1),
+                         lc).reshape(B, C)
         match = (out[:, :-1] == tokens[:, 1:]) & (offs[:, :C - 1] < (length - 1)[:, None])
         accept = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
         if self._has_recurrent:
             commit = torch.where(length > 0, torch.minimum(accept + 1, length), 0)
-            self.model.prefill_chunk(tokens, self.caches, start, commit, tables)
-        return out, accept, bad
+            self.model.prefill_chunk(tokens, self.caches, start, commit, tables, lc=lc)
+        return _all_rows(out, lc), _all_rows(accept, lc), _all_rows(bad, lc)
 
     # -- admission ---------------------------------------------------------
 
@@ -946,7 +1072,9 @@ class BatchScheduler:
         decode step. Attention K/V needs no reset: stale lines never enter
         the visible window."""
         if self._has_recurrent:
-            self.model.reset_state(self.caches, slots)
+            rows = self._held_rows(slots)
+            if rows:
+                self.model.reset_state(self.caches, rows)
 
     def _next_admittable(self) -> dict | None:
         """Best waiter across the queue and the parked set on (priority
@@ -1111,13 +1239,13 @@ class BatchScheduler:
         for j, node in enumerate(chain):
             if node.checksum is None:
                 continue
-            if F.page_fingerprint(self.caches, node.page) != node.checksum:
+            if F.page_fingerprint(self.caches, node.page, self._kv_heads) != node.checksum:
                 self.stats["checksum_failures"] += 1
                 self._prefix.evict_subtree(node)
                 self.session.event("recovery")
                 return chain[:j], None, 0
         if donor is not None and donor.checksum is not None:
-            if F.page_fingerprint(self.caches, donor.page) != donor.checksum:
+            if F.page_fingerprint(self.caches, donor.page, self._kv_heads) != donor.checksum:
                 self.stats["checksum_failures"] += 1
                 self._prefix.evict_subtree(donor)
                 self.session.event("recovery")
@@ -1126,7 +1254,8 @@ class BatchScheduler:
 
     def _cow_copy(self, src: int, dst: int) -> None:
         """Copy physical page ``src`` to ``dst`` in every attention slot's K
-        and V pool, all repeats, in place on the device (no host sync)."""
+        and V pool, all repeats, in place on the device (no host sync); on
+        a mesh within the rank's pool block."""
         for slot in self.caches.values():
             for pool in slot.get("attn", {}).values():
                 pool[:, dst].copy_(pool[:, src])
@@ -1501,13 +1630,15 @@ class BatchScheduler:
 
     def kv_cache_stats(self) -> dict:
         """KV bytes as allocated (each layer's spare page or spare row
-        included); on the paged layout pages, the live-page peak and
-        sharing; the prefix cache, pressure, the recovery counters (and the
-        injector's, when one is attached) and speculation."""
+        included; on a mesh the whole pool's, a rank holding ``1/n`` of it
+        where the KV heads split over ``"model"``); on the paged layout
+        pages, the live-page peak and sharing; the prefix cache, pressure,
+        the recovery counters (and the injector's, when one is attached)
+        and speculation."""
         kv_bytes = sum(
             t.numel() * t.element_size()
             for slot in self.caches.values() for t in slot.get("attn", {}).values()
-        )
+        ) * (1 if self._kv_heads is None else self._kv_heads.size)
         out = {"layout": "paged" if self.scfg.paged else "dense",
                "kv_bytes": int(kv_bytes)}
         alloc = self._alloc
@@ -1601,7 +1732,8 @@ class BatchScheduler:
             if self.scfg.checksum_pages:
                 n_full = len(req["prompt"]) // self.scfg.page_size
                 self._prefix.insert(req["prompt"], pages, checksums=[
-                    F.page_fingerprint(self.caches, p) for p in pages[:n_full]])
+                    F.page_fingerprint(self.caches, p, self._kv_heads)
+                    for p in pages[:n_full]])
             else:
                 self._prefix.insert(req["prompt"], pages)
         self._prefills.remove(task)
@@ -1679,9 +1811,18 @@ class BatchScheduler:
 
     def _watchdog(self, dispatch_s: float) -> None:
         """A dispatch call past ``watchdog_deadline_s``: count the trip and
-        retry the hung slot's request (its late tokens are kept)."""
-        if (self.scfg.watchdog_deadline_s is None
-                or dispatch_s <= self.scfg.watchdog_deadline_s):
+        retry the hung slot's request (its late tokens are kept). On a mesh
+        of ranks the slowest rank's time decides, so every rank decides
+        alike."""
+        if self.scfg.watchdog_deadline_s is None:
+            return
+        if self.mesh is not None and self.mesh.distributed and self.mesh.devices.size > 1:
+            import torch.distributed as dist
+
+            t = torch.tensor([dispatch_s], dtype=torch.float64, device=self.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            dispatch_s = float(t[0])
+        if dispatch_s <= self.scfg.watchdog_deadline_s:
             return
         self.stats["watchdog_trips"] += 1
         self.session.event("recovery")
@@ -2013,21 +2154,26 @@ def serve_cache_pspecs(cfg, mesh, batch: int, max_len: int, *, paged: bool = Fal
     return cache_pspec_tree(cfg, mesh, caches)
 
 
-def serve_constraints(model, mesh, batch: int, mode: str):
+def serve_constraints(model, mesh, batch: int, mode: str, width: int = 1):
     """How a rank runs a serving step of ``batch`` rows (``mode`` prefill,
-    decode or encoder) on ``mesh``: a ``LogicalConstraints`` with its rows
+    decode, encoder, or chunk: the scheduler's prefill chunk and verify,
+    ``width`` tokens a row against the cache) on ``mesh``: a
+    ``LogicalConstraints`` with its rows
     (``ranks``: the rows the caches' batch placement gives it,
     ``divisible_batch_axes``, so that a rank's rows and its cache blocks'
     rows agree), its cache blocks (``kv``: ``CacheSplit``) and, where the
     ``"model"`` axis is above 1, the split of the compute over it: on a
     megatron mesh ``TensorParallel`` (prefill and encoder: the sequence-
     parallel residual, JAX's activation rules) or ``RowParallel`` (decode:
-    one token, the residual whole); on an fsdp mesh ``ContextParallel`` for
-    a prefill or an encoder step (each rank's part of the sequence; the
-    rows do not split over ``"model"``, since the caches hold every row's
-    KV heads or sequence block there) and, for a decode step, the rows
-    with attention alone split: over the rank's KV heads (``attn_tp``, a
-    ``RowParallel`` over whole leaves) or its sequence block. A mesh
+    one token, the residual whole; a chunk ``TensorParallel`` where its
+    width divides the axis, else ``RowParallel``); on an fsdp mesh
+    ``ContextParallel`` for a prefill or an encoder step (each rank's part
+    of the sequence; the rows do not split over ``"model"``, since the
+    caches hold every row's KV heads or sequence block there) and, for a
+    decode step or a chunk (attention over a cache is not context-
+    parallel), the rows with attention alone split: over the rank's KV
+    heads (``attn_tp``, a ``RowParallel`` over whole leaves) or its
+    sequence block (a paged pool is then whole on every rank). A mesh
     without a process group (the production mesh, a 1 x 1 mesh) computes
     the whole step on one rank: ``NULL_CONSTRAINTS``."""
     from repro_torch.distributed import sharding as SH
@@ -2038,7 +2184,7 @@ def serve_constraints(model, mesh, batch: int, mode: str):
         RowParallel,
         TensorParallel,
     )
-    from repro_torch.layers.common import NULL_CONSTRAINTS, LogicalConstraints
+    from repro_torch.layers.common import LogicalConstraints
 
     if mesh is None or not mesh.distributed:
         return NULL_CONSTRAINTS
@@ -2047,10 +2193,12 @@ def serve_constraints(model, mesh, batch: int, mode: str):
     ranks = BatchRanks(mesh, () if ax is None else ((ax,) if isinstance(ax, str) else ax))
     kv = CacheSplit.of(cfg, mesh)
     tp = cp = attn_tp = None
+    one_shot = mode in ("prefill", "encoder")
     if kv is not None:
         if SH.effective_strategy(cfg, mesh) == "megatron":
-            tp = RowParallel(mesh) if mode == "decode" else TensorParallel(mesh)
-        elif mode != "decode":
+            seq = one_shot or (mode == "chunk" and width % kv.size == 0)
+            tp = TensorParallel(mesh) if seq else RowParallel(mesh)
+        elif one_shot:
             cp = ContextParallel(mesh)
         elif kv.heads:
             attn_tp = RowParallel(mesh)
@@ -2067,6 +2215,16 @@ def _step_constraints(model, mesh, mode: str):
 
 def _rows(lc, n: int) -> slice:
     return slice(0, n) if lc.ranks is None else lc.ranks.rows(n)
+
+
+def _all_rows(x: torch.Tensor, lc) -> torch.Tensor:
+    """Every rank's rows of ``x`` (a step's tokens or sentinels), on every
+    rank; ``x`` itself where the rows do not split."""
+    if lc.ranks is None or lc.ranks.group is None:
+        return x
+    if x.dtype == torch.bool:
+        return rows_gather(x.to(torch.int32), lc.ranks).bool()
+    return rows_gather(x, lc.ranks)
 
 
 def _tokens_out(logits, lc):

@@ -155,7 +155,12 @@ def replay(sched, workload: list[TrafficRequest], *,
     ``faults``: a ``serve.faults.FaultInjector`` attached to the scheduler
     for the replay; the same (TrafficConfig, FaultConfig) pair replays the
     same streams, and the budget grows by the retries' recompute and the
-    spikes' stalls."""
+    spikes' stalls.
+
+    On a mesh of ranks every rank replays the same seeded trace through its
+    scheduler, whose decisions are the same on each, so the counts agree;
+    the clock readings (TTFT, goodput) are each rank's own, and the serve
+    launcher reports rank 0's."""
     if faults is not None:
         sched.faults = faults
     workload = sorted(workload, key=lambda r: (r.arrival_tick, r.request_id))

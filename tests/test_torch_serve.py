@@ -303,6 +303,7 @@ _FORBIDDEN = re.compile(
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py"))]
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 10
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if _FORBIDDEN.search(p.read_text())]
@@ -311,10 +312,11 @@ def test_port_and_chip_smoke_import_no_jax():
 
 def test_port_and_chip_smoke_name_no_triton():
     """Every kernel of the port is CUDA C++ bound through ``ctypes``: no
-    source of the package (Python or CUDA) and not ``chip_smoke.py`` names
-    Triton, let alone imports it."""
+    source of the package (Python or CUDA), not ``chip_smoke.py`` and no
+    example of the port names Triton, let alone imports it."""
     pkg = ROOT / "src" / "repro_torch"
     files = sorted(pkg.rglob("*.py")) + sorted(pkg.rglob("*.cu")) + [ROOT / "chip_smoke.py"]
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 10
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if re.search(r"triton", p.read_text(), re.IGNORECASE)]

@@ -31,6 +31,12 @@ on (1, 2) at B 1, where fsdp splits the sequence, and (but qwen3) at B 2,
 where it splits the rows)
 and ``cp4`` (4 ranks on (2, 2): gemma2 at B 1, the ``"data"`` peers on
 the same row, and at B 2; tinyllama's megatron step at B 1).
+
+The phases of ``tests/test_torch_serve_mesh.py``: ``sched2`` (2 ranks:
+the scheduler's cases on (1, 2) and (2, 1)) and ``sched4`` (4 ranks: on
+(2, 2) and (1, 4), and a chaos replay on (2, 2)), ``SCHED``'s rows: each
+rank keeps the tokens, the counters, its pool and state blocks and the
+shapes that reached the paged kernels' wrappers.
 """
 
 from __future__ import annotations
@@ -109,6 +115,37 @@ ONESHOT = {
     "hubert_12": ("hubert-xlarge", F32, (1, 2), 2, 16, 0, 0),
     "tinyllama_22": ("tinyllama-1.1b", F32, (2, 2), 2, 16, 32, 4),
     "glm4_14": ("glm4-9b", F32, (1, 4), 2, 16, 32, 4),
+}
+
+
+# the scheduler on a mesh: (arch, config, mesh, ServeConfig fields, whole):
+# 4 slots over a pool of 24 pages of 4 tokens, which the test's 8 requests
+# behind one system prompt (copy-on-write hits) outgrow, so it preempts;
+# ``whole``: the model holds the whole weights and the scheduler takes the
+# mesh (the serve launcher's way; the "model" axis 1)
+PRESSURE = dict(max_len=64, batch=4, prefill_chunk=8, page_size=4, num_pages=14,
+                prefix_cache=True)
+SAMPLED = dict(greedy=False, temperature=0.8, top_k=50, sample_seed=3)
+# a verify of 5 tokens a row: RowParallel on (1, 2); zamba2's of 4 tiles its
+# recurrent chunk. A one-token match drafts often enough on random weights
+SPEC = dict(spec_decode=True, spec_k=4, spec_min_match=1)
+SPEC3 = dict(spec_decode=True, spec_k=3, spec_min_match=1)
+CHAOS = dict(max_len=64, batch=4, prefill_chunk=8, page_size=4, num_pages=32,
+             prefix_cache=True, checksum_pages=True)
+CHAOS_FAULTS = dict(seed=1, n_hang=0, corrupt_mode="bitflip", horizon_ticks=24)
+CHAOS_TRAFFIC = dict(n_requests=10, arrival="burst", rate=0.8, seed=2)
+SCHED = {
+    "tinyllama_12": ("tinyllama-1.1b", F32, (1, 2), PRESSURE, False),
+    "tinyllama_12_sampled": ("tinyllama-1.1b", F32, (1, 2), {**PRESSURE, **SAMPLED}, False),
+    "tinyllama_12_spec": ("tinyllama-1.1b", F32, (1, 2), {**PRESSURE, **SPEC}, False),
+    "zamba2_12": ("zamba2-2.7b", F32, (1, 2), {**PRESSURE, **SPEC3}, False),
+    "zamba2_21": ("zamba2-2.7b", F32, (2, 1), {**PRESSURE, **SPEC3}, True),
+    "qwen3_12": ("qwen3-moe-30b-a3b", F32, (1, 2), PRESSURE, False),
+    "gemma2_12": ("gemma2-2b", F32, (1, 2), PRESSURE, False),
+    "tinyllama_22": ("tinyllama-1.1b", F32, (2, 2), PRESSURE, False),
+    "tinyllama_22_sampled": ("tinyllama-1.1b", F32, (2, 2), {**PRESSURE, **SAMPLED}, False),
+    "glm4_14": ("glm4-9b", F32, (1, 4), PRESSURE, False),
+    "chaos_22": ("tinyllama-1.1b", F32, (2, 2), CHAOS, False),
 }
 
 
@@ -435,6 +472,102 @@ class _LseSeen:
         return False
 
 
+class _PagedSeen:
+    """While open, the (q, pool) shapes that reach the paged kernels'
+    wrappers go into ``into``, tagged ``"decode"`` or ``"chunk"``."""
+
+    def __init__(self, into):
+        self.into = into
+
+    def __enter__(self):
+        from repro_torch.layers import attention as A
+
+        self.saved = A.paged_attention, A.paged_prefill_attention
+
+        def tagged(fn, tag):
+            def seen(q, k, v, *a, **kw):
+                self.into.add((tag, tuple(q.shape), tuple(k.shape)))
+                return fn(q, k, v, *a, **kw)
+            return seen
+
+        A.paged_attention = tagged(self.saved[0], "decode")
+        A.paged_prefill_attention = tagged(self.saved[1], "chunk")
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import attention as A
+
+        A.paged_attention, A.paged_prefill_attention = self.saved
+        return False
+
+
+def sched_observe(sched) -> dict:
+    """What a scheduler run must agree on with JAX's: every request's
+    tokens and status, and the counters of ``kv_cache_stats``."""
+    kv = sched.kv_cache_stats()
+    return {
+        "tokens": {r["id"]: r["generated"] for r in sched.completed},
+        "status": {rid: r["_status"] for rid, r in sched._by_id.items()},
+        "kv": {k: kv.get(k) for k in ("speculation", "pressure", "recovery",
+                                      "prefix_cache", "pages_in_use", "peak_used_pages",
+                                      "shared_pages")},
+        "kv_bytes": kv["kv_bytes"],
+        "stats": {k: sched.stats[k] for k in ("decode_steps", "prefill_chunks",
+                                              "spec_dispatches", "resumes", "preemptions",
+                                              "retries")},
+    }
+
+
+def sched_drive(sched, name, vocab, faults_mod, traffic_mod, case) -> dict:
+    """``SCHED[name]``'s work through a scheduler of either package (its
+    ``serve.faults`` and ``serve.traffic`` modules given): ``case``'s
+    prompts, or for the chaos case the seeded traffic and faults.
+    Returns ``sched_observe``."""
+    if name.startswith("chaos"):
+        workload = traffic_mod.generate_workload(traffic_mod.TrafficConfig(
+            **CHAOS_TRAFFIC, vocab_hi=vocab))
+        traffic_mod.replay(sched, workload, faults=faults_mod.FaultInjector(
+            faults_mod.FaultConfig(**CHAOS_FAULTS)))
+    else:
+        for rid, p in enumerate(case["prompts"]):
+            sched.submit(list(p), request_id=rid, max_new=case["max_new"])
+        sched.drain()
+    return sched_observe(sched)
+
+
+def run_sched(name, init, out, rank):
+    """``SCHED[name]``: the scheduler on the case's mesh over ``init[name]``'s
+    weights, through its prompts (or, for the chaos case, the seeded
+    traffic and faults); rank 0 keeps the observations, every rank's blocks
+    of the caches (the spare page dropped) and the paged kernels' shapes,
+    and the page fingerprints (every rank computes them: a collective)."""
+    from repro_torch.convert import from_jax_params
+    from repro_torch.serve import faults as F
+    from repro_torch.serve import traffic
+    from repro_torch.serve.serve import BatchScheduler, ServeConfig
+
+    arch, kw, shape, scfg, whole = SCHED[name]
+    cfg = config_for(arch, kw)
+    mesh = make_host_mesh(model=shape[1], device="cpu")
+    assert mesh.sizes == {"data": shape[0], "model": shape[1]}
+    model = from_jax_params(init[name]["params"], cfg, "cpu", None if whole else mesh)
+    seen: set = set()
+    with _PagedSeen(seen):
+        sched = BatchScheduler(model, ServeConfig(**scfg), mesh=mesh)
+        res = sched_drive(sched, name, cfg.vocab, F, traffic, init[name])
+    res["fingerprints"] = [F.page_fingerprint(sched.caches, p, sched._kv_heads)
+                           for p in range(scfg["num_pages"])]
+    blocks = {p: (t[:, :-1] if "pages" in p else t).clone()
+              for p, t in tree_leaves(sched.caches)}
+    world = dist.get_world_size()
+    got_blocks, got_seen = [None] * world, [None] * world
+    dist.all_gather_object(got_blocks, blocks)
+    dist.all_gather_object(got_seen, sorted(seen))
+    res["blocks"], res["seen"] = got_blocks, got_seen
+    if rank == 0:
+        out[name] = res
+
+
 gloo_cuda = shard._gloo_cuda
 
 
@@ -494,6 +627,10 @@ def main() -> None:
         for name, row in ONESHOT.items():
             if row[2][0] * row[2][1] == world:
                 run_oneshot(name, init, out, rank)
+    elif phase in ("sched2", "sched4"):
+        for name, row in SCHED.items():
+            if row[2][0] * row[2][1] == world and name in init:
+                run_sched(name, init, out, rank)
     elif phase == "back":
         cfg = smoke_config("tinyllama-1.1b").replace(**F32)
         state, step = restore(os.path.join(d, "ck2"), cfg,
